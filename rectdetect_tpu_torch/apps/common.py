@@ -1,0 +1,79 @@
+"""Shared CLI plumbing of the port's apps: device choice, image IO
+(through Pillow), drawing."""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+
+def pick_device(spec: str) -> torch.device:
+    """`spec` is an index into the CUDA devices, or "cpu" given explicitly.
+    A CUDA index without a CUDA device is an error: the apps never fall
+    back to the CPU on their own."""
+    if spec == "cpu":
+        print("cpu")
+        return torch.device("cpu")
+    n = torch.cuda.device_count()
+    try:
+        did = int(spec)
+    except ValueError:
+        did = -1
+    if did < 0 or did >= n:
+        print_devices()
+        sys.exit(f"no CUDA device {spec!r} ({n} available); pass an index "
+                 "or 'cpu'")
+    print(torch.cuda.get_device_name(did))
+    return torch.device("cuda", did)
+
+
+def print_devices() -> None:
+    sys.stderr.write("\nAvailable devices :\n")
+    for i in range(torch.cuda.device_count()):
+        sys.stderr.write(f"  {i} : {torch.cuda.get_device_name(i)} (cuda)\n")
+    sys.stderr.write("  cpu : host CPU (plain PyTorch versions)\n")
+
+
+# ---- image IO ----------------------------------------------------------
+
+def load_image_bgr(path: str) -> np.ndarray:
+    """Any image Pillow reads -> (H,W,3) uint8 BGR."""
+    from PIL import Image
+    rgb = np.asarray(Image.open(path).convert("RGB"), np.uint8)
+    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def save_image_bgr(path: str, bgr: np.ndarray) -> None:
+    from PIL import Image
+    Image.fromarray(np.ascontiguousarray(bgr[..., ::-1])).save(path)
+
+
+# ---- drawing -----------------------------------------------------------
+
+def draw_line(img: np.ndarray, p0, p1, color) -> None:
+    """1-px line from p0 to p1 (x, y), clipped to the image."""
+    (x0, y0), (x1, y1) = p0, p1
+    steps = int(max(abs(x1 - x0), abs(y1 - y0))) + 1
+    xs = np.rint(np.linspace(x0, x1, steps)).astype(int)
+    ys = np.rint(np.linspace(y0, y1, steps)).astype(int)
+    ok = (xs >= 0) & (xs < img.shape[1]) & (ys >= 0) & (ys < img.shape[0])
+    img[ys[ok], xs[ok]] = color
+
+
+def draw_segments(img: np.ndarray, segs, alternating: bool) -> None:
+    """poly.cpp:137-154: walk each polyline from its head, alternating
+    segment colours (vidpoly draws plain white, vidpoly.cpp:183-189)."""
+    by_id = {s["id"]: s for s in segs}
+    drawn = set()
+    for g in [g for g, s in by_id.items() if s["left"] <= 0]:
+        cnt, j = 0, g
+        while j > 0 and j not in drawn and j in by_id:
+            s = by_id[j]
+            drawn.add(j)
+            color = ((100, 100, 255) if cnt & 1 else (255, 255, 100)) \
+                if alternating else (255, 255, 255)
+            draw_line(img, (s["x0"], s["y0"]), (s["x1"], s["y1"]), color)
+            j = s["right"]
+            cnt += 1

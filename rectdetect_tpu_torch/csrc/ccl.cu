@@ -1,0 +1,112 @@
+// K4 label_components: exact 8-connected equal-value connected-component
+// labels, each pixel labelled with the minimum flat index of its
+// component, background (value == bgc) -1.
+//
+// Replaces the TPU kernel rectdetect_tpu/ops/pallas_ccl.py:
+// _ccl_block_kernel together with its XLA seam pass (_seam_union) and
+// root resolve (_resolve), as reached through label_components_exact /
+// label_components_pieces.  Reference: labelxPreprocess / label8xMain,
+// oclimgutil.cl:495-538.
+//
+// Bound: latency of dependent loads and atomics, not bandwidth (the frame
+// is read once, the parent array is a few MB and stays in L2).  The TPU
+// flooded blocks in VMEM for a capped number of rounds and stitched the
+// seams in a second pass; the GPU has atomics, so this is a union-find in
+// three launches (arXiv 1708.08180, 1712.09789):
+//   init:    parent[p] = p for foreground, -1 for background;
+//   merge:   every foreground pixel unites with its equal-valued
+//            neighbours to the W, NW, N and NE (each 8-edge once), linking
+//            the larger root under the smaller with atomicMin; finds use
+//            path halving, also by atomicMin;
+//   flatten: label[p] = root of p.
+// Every parent pointer only ever decreases and stays inside its
+// component, so each root is its component's minimum flat index: the
+// labels are exact and equal to the JAX labels whatever order the atomics
+// run in.  There is no round cap.
+
+#include "common.cuh"
+
+namespace {
+
+__device__ __forceinline__ int load(const int* p) {
+  return *(const volatile int*)p;
+}
+
+__device__ int find_root(int* parent, int x) {
+  while (true) {
+    const int px = load(parent + x);
+    if (px == x) return x;
+    const int gp = load(parent + px);
+    if (gp < px) atomicMin(parent + x, gp);
+    x = gp;
+  }
+}
+
+__device__ void unite(int* parent, int a, int b) {
+  while (true) {
+    a = find_root(parent, a);
+    b = find_root(parent, b);
+    if (a == b) return;
+    if (a > b) {
+      const int t = a;
+      a = b;
+      b = t;
+    }
+    // link root b under a; if b stopped being a root meanwhile, retry
+    // with what it points to now
+    const int old = atomicMin(parent + b, a);
+    if (old == b) return;
+    b = old;
+  }
+}
+
+__global__ void init_kernel(const int* __restrict__ pix, int* parent, int h,
+                            int w, int bgc) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const int p = y * w + x;
+  parent[p] = pix[p] != bgc ? p : -1;
+}
+
+__global__ void merge_kernel(const int* __restrict__ pix, int* parent, int h,
+                             int w, int bgc) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const int p = y * w + x;
+  const int v = pix[p];
+  if (v == bgc) return;
+  if (x > 0 && pix[p - 1] == v) unite(parent, p, p - 1);
+  if (y > 0) {
+    const int q = p - w;
+    if (x > 0 && pix[q - 1] == v) unite(parent, p, q - 1);
+    if (pix[q] == v) unite(parent, p, q);
+    if (x + 1 < w && pix[q + 1] == v) unite(parent, p, q + 1);
+  }
+}
+
+__global__ void flatten_kernel(const int* __restrict__ pix, int* parent,
+                               int* __restrict__ out, int h, int w,
+                               int bgc) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const int p = y * w + x;
+  out[p] = pix[p] != bgc ? find_root(parent, p) : -1;
+}
+
+}  // namespace
+
+// parent: (h, w) int32 scratch
+extern "C" int rd_label_components(const void* pix, void* out, void* parent,
+                                   int h, int w, int bgc, void* stream) {
+  const dim3 g = rd::pixel_grid(h, w), t = rd::pixel_block();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* P = (const int*)pix;
+  int* L = (int*)parent;
+  init_kernel<<<g, t, 0, s>>>(P, L, h, w, bgc);
+  merge_kernel<<<g, t, 0, s>>>(P, L, h, w, bgc);
+  flatten_kernel<<<g, t, 0, s>>>(P, L, (int*)out, h, w, bgc);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,46 @@
+"""K1 edge_front: edgevec of the blurred L plane plus the Lab edge
+magnitude of the re-quantized blurred planes.
+
+Replaces the TPU kernel rectdetect_tpu/ops/pallas_grad.py:_grad_kernel
+(edge_front_pallas).  CUDA source: csrc/edge_front.cu, one thread per
+pixel; the pass is bound by device memory (12 B read, 12 B written per
+pixel) and reads its stencil taps through reflect-101 index math instead
+of materializing padded or pre-shifted copies.
+
+`edge_front` takes the plain version for a CPU tensor and launches the
+kernel for a CUDA tensor; there is no other path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rectdetect_tpu_torch.core.color import quantize_labf
+from rectdetect_tpu_torch.ops import _build, gradient
+
+launches = 0
+
+
+def edge_front_plain(labb: torch.Tensor):
+    """labb (H,W,3) f32 -> (em (H,W), vec (H,W,2)): edgevec(labb[..., 0])
+    and edge_lab(quantize_labf(labb)), as the XLA path computes them."""
+    vec = gradient.edgevec(labb[..., 0])
+    em = gradient.edge_lab(quantize_labf(labb))
+    return em, vec
+
+
+def edge_front(labb: torch.Tensor):
+    """labb (H,W,3) f32 -> (em (H,W), vec (H,W,2))."""
+    global launches
+    if not _build.on_cuda(labb):
+        return edge_front_plain(labb)
+    h, w = labb.shape[:2]
+    _build.check(labb, "labb", torch.float32, (h, w, 3))
+    if h < 3 or w < 3:
+        raise ValueError(f"edge_front needs a frame of at least 3x3, got {h}x{w}")
+    em = torch.empty((h, w), dtype=torch.float32, device=labb.device)
+    vec = torch.empty((h, w, 2), dtype=torch.float32, device=labb.device)
+    _build.launch("rd_edge_front", labb.device, labb.data_ptr(),
+                  em.data_ptr(), vec.data_ptr(), h, w)
+    launches += 1
+    return em, vec

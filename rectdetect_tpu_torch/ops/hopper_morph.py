@@ -1,0 +1,44 @@
+"""K3 strings_chain: junction -> connect -> stringify x2 [-> removeBranch].
+
+Replaces the TPU kernel rectdetect_tpu/ops/pallas_morph.py:_morph_kernel
+(morph_chain_pallas), variants "rect" and "poly_branch" (the accuracy
+extension bridge2 is not ported yet).  CUDA source: csrc/morph.cu,
+one launch per stencil stage with one thread per pixel; each stage moves
+~8 B per pixel through device memory, so the chain is bound by memory
+traffic and launch latency.  Fusing the stages into one shared-memory
+tile with a halo is later work.
+
+`strings_chain` takes the plain version for a CPU tensor and launches the
+kernel for a CUDA tensor; there is no other path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rectdetect_tpu_torch.ops import _build
+from rectdetect_tpu_torch.ops.morphology import (
+    strings_chain as strings_chain_plain)
+
+_VARIANTS = {"rect": 0, "poly_branch": 1}
+
+launches = 0
+
+
+def strings_chain(edge_bin: torch.Tensor, variant: str):
+    """edge_bin (H,W) int32 0/1 -> strings map (H,W) int32 0/1."""
+    global launches
+    if not _build.on_cuda(edge_bin):
+        return strings_chain_plain(edge_bin, variant)
+    if variant not in _VARIANTS:
+        raise ValueError(f"unknown strings variant {variant!r}")
+    h, w = edge_bin.shape
+    _build.check(edge_bin, "edge_bin", torch.int32, (h, w))
+    out = torch.empty_like(edge_bin)
+    a = torch.empty_like(edge_bin)
+    b = torch.empty_like(edge_bin)
+    _build.launch("rd_strings_chain", edge_bin.device, edge_bin.data_ptr(),
+                  out.data_ptr(), a.data_ptr(), b.data_ptr(), h, w,
+                  _VARIANTS[variant])
+    launches += 1
+    return out

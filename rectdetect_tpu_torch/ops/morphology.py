@@ -1,0 +1,120 @@
+"""Binary edge-map morphology, plain PyTorch (port of
+rectdetect_tpu/ops/morphology.py, single-frame form).
+
+Junction counting, 1-px gap bridging, checkerboard thinning to strings and
+branch removal, each an interior-masked stencil of statically shifted
+views with zero padding.  These are the plain versions of kernel K3
+(ops/hopper_morph.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rectdetect_tpu_torch.ops.shifts import NEIGH8, interior_mask, pad2d, shifted
+
+
+def _neighbor_count(nz: torch.Tensor) -> torch.Tensor:
+    """#nonzero 8-neighbours (zero padding)."""
+    h, w = nz.shape
+    p = pad2d(nz.to(torch.int32), 1, "zero")
+    cnt = torch.zeros(nz.shape, dtype=torch.int32, device=nz.device)
+    for dy, dx in NEIGH8:
+        cnt = cnt + shifted(p, 1, dy, dx, h, w)
+    return cnt
+
+
+def _masked(out: torch.Tensor, margin: int) -> torch.Tensor:
+    h, w = out.shape
+    m = interior_mask(h, w, margin, out.device)
+    return torch.where(m, out, torch.zeros_like(out)).to(torch.int32)
+
+
+def simple_junction(img, positive_only: bool = False):
+    """Neighbour-degree map (simpleJunction, oclpolyline.cl:66-87): 0 for
+    background/isolated pixels, else 1 + #nonzero 8-neighbours;
+    positive_only is the oclrect.cl:74-95 variant (only values > 0 set)."""
+    nz = (img > 0) if positive_only else (img != 0)
+    cnt = 1 + _neighbor_count(nz)
+    return _masked(torch.where(nz & (cnt > 1), cnt, torch.zeros_like(cnt)), 1)
+
+
+def simple_connect_poly(jn):
+    """1-px gap bridging on a junction-degree map (oclpolyline.cl:89-110);
+    binary output, the 2-px border is zero."""
+    h, w = jn.shape
+    p = pad2d(jn, 2, "zero")
+
+    def n(dy, dx):
+        return shifted(p, 2, dy, dx, h, w)
+
+    bridge = ((n(0, -2) != 0) & (n(0, -1) == 2) & (n(0, 1) == 2) & (n(0, 2) != 0))
+    bridge |= ((n(-2, 0) != 0) & (n(-1, 0) == 2) & (n(1, 0) == 2) & (n(2, 0) != 0))
+    bridge |= ((n(-2, -2) != 0) & (n(-1, -1) == 2) & (n(1, 1) == 2) & (n(2, 2) != 0))
+    bridge |= ((n(-2, 2) != 0) & (n(-1, 1) == 2) & (n(1, -1) == 2) & (n(2, -2) != 0))
+    bridge |= ((n(0, 2) != 0) & (n(0, 1) == 2) & (n(1, -1) == 2) & (n(1, -2) != 0))
+    bridge |= ((n(0, -2) != 0) & (n(0, -1) == 2) & (n(1, 1) == 2) & (n(1, 2) != 0))
+    bridge |= ((n(-2, 1) != 0) & (n(-1, 1) == 2) & (n(1, 0) == 2) & (n(2, 0) != 0))
+    bridge |= ((n(-2, -1) != 0) & (n(-1, -1) == 2) & (n(1, 0) == 2) & (n(2, 0) != 0))
+    return _masked(((jn != 0) | bridge).to(torch.int32), 2)
+
+
+def simple_connect_rect(jn):
+    """The oclrect.cl:97-121 bridging variant."""
+    h, w = jn.shape
+    p = pad2d(jn, 1, "zero")
+
+    def n(dy, dx):
+        return shifted(p, 1, dy, dx, h, w)
+
+    bridge = ((n(0, -1) == 2) & (n(0, 1) != 0))
+    bridge |= ((n(0, -1) != 0) & (n(0, 1) == 2))
+    bridge |= ((n(-1, 0) == 2) & (n(1, 0) != 0))
+    bridge |= ((n(-1, 0) != 0) & (n(1, 0) == 2))
+    bridge |= ((n(-1, -1) == 2) & (n(1, 1) == 2))
+    bridge |= ((n(-1, 1) == 2) & (n(1, -1) == 2))
+    bridge |= ((n(0, 1) == 2) & (n(1, -1) == 2))
+    bridge |= ((n(0, -1) == 2) & (n(1, 1) == 2))
+    bridge |= ((n(-1, 1) == 2) & (n(1, 0) == 2))
+    bridge |= ((n(-1, -1) == 2) & (n(1, 0) == 2))
+    return _masked(((jn != 0) | bridge).to(torch.int32), 2)
+
+
+def stringify(img, parity: int):
+    """Checkerboard corner thinning (stringify, oclpolyline.cl:112-124): on
+    pixels of the given frame-global parity, clear a pixel that has both a
+    vertical and a horizontal nonzero neighbour."""
+    h, w = img.shape
+    p = pad2d(img, 1, "zero")
+
+    def n(dy, dx):
+        return shifted(p, 1, dy, dx, h, w) != 0
+
+    corner = ((n(-1, 0) & n(0, -1)) | (n(-1, 0) & n(0, 1)) |
+              (n(1, 0) & n(0, -1)) | (n(1, 0) & n(0, 1)))
+    yy = torch.arange(h, device=img.device)[:, None]
+    xx = torch.arange(w, device=img.device)[None, :]
+    on_parity = ((yy + xx) & 1) == parity
+    clear = on_parity & corner & interior_mask(h, w, 1, img.device)
+    return torch.where(clear, torch.zeros_like(img), img).to(torch.int32)
+
+
+def remove_branch(img):
+    """Keep only pixels with <= 2 nonzero neighbours (oclpolyline.cl:126-147)."""
+    nz = img != 0
+    cnt = _neighbor_count(nz)
+    return _masked((nz & (cnt <= 2)).to(torch.int32), 1)
+
+
+def strings_chain(edge_bin, variant: str):
+    """The edge -> strings morphology prefix: "rect" = junction(positive)
+    -> connect_rect -> stringify x2 (oclrect.c:265-272); "poly_branch" =
+    junction -> connect_poly -> stringify x2 -> removeBranch
+    (oclpolyline.c stages 1-4)."""
+    if variant == "rect":
+        c = simple_connect_rect(simple_junction(edge_bin, positive_only=True))
+        return stringify(stringify(c, 0), 1)
+    if variant != "poly_branch":
+        raise ValueError(f"unknown strings variant {variant!r}")
+    c = simple_connect_poly(simple_junction(edge_bin))
+    return remove_branch(stringify(stringify(c, 0), 1))

@@ -1,0 +1,418 @@
+"""Polyline vectorization: binary edge image -> refined line segments (port
+of rectdetect_tpu/ops/polyline.py, slot-space path).
+
+Mirrors oclpolyline_execute (oclpolyline.c:218-309): strings morphology
+(kernel K3), one arc walk (ops/chain.py) replacing CCL, breakLoops, arc
+numbering and labelpl, the arc size filter and dense relabel in slot
+space, the one-segment-per-arc arena (mkpl_pass0), 15 rounds of
+max-deviation subdivision (mkpl_pass1-3) and least-squares refinement with
+corner snapping (refine_pass0-3).  The lsList of the reference is the
+fixed-capacity SoA `SegmentArena` with slot 0 unused; ids are
+deterministic (min-flat-index tie-breaks, prefix-sum allocation).
+
+Float expressions carry XLA's multiply-add contraction (ops/fp.py): the
+subdivision turns float distances into fixed-point integers, so an ulp
+there could move a split.  The float segment sums of `refine` run in slot
+order per segment (a stable sort by segment, then a sequential segmented
+sum), so two runs give the same bits on the GPU too.
+
+Port choices (equal output, see config.py): no small-capacity branches
+(`strings_small_factor`, `arc_small_factor`), no small-component pre-kill
+(`walk_prefilter_factor`); the subdivision is the plain form, the mkpl
+kernel is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from rectdetect_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
+from rectdetect_tpu_torch.ops import fp
+from rectdetect_tpu_torch.ops.chain import set_drop, arc_chain_sparse
+from rectdetect_tpu_torch.ops.compact import Compaction, compact_mask, compact_subset
+from rectdetect_tpu_torch.ops.hopper_morph import strings_chain
+
+MINEDGELEN = 1.0   # oclpolyline.cl:20
+MINNINDEX = 4      # oclpolyline.cl:21
+FIX = 65536.0      # fixed-point scale for distances (oclpolyline.cl:535)
+
+_I32 = torch.int32
+_F32 = torch.float32
+
+
+class SegmentArena(NamedTuple):
+    """SoA form of the reference's LS_t list (oclpolyline.cl:29-39): every
+    field (cap,), slot 0 unused, `count` a scalar tensor."""
+    sx: torch.Tensor          # startCoords
+    sy: torch.Tensor
+    ex: torch.Tensor          # endCoords
+    ey: torch.Tensor
+    start_index: torch.Tensor
+    end_index: torch.Tensor
+    left_ptr: torch.Tensor
+    right_ptr: torch.Tensor
+    start_count: torch.Tensor
+    end_count: torch.Tensor
+    polyid: torch.Tensor
+    npix: torch.Tensor
+    level: torch.Tensor
+    count: torch.Tensor
+
+    @property
+    def cap(self) -> int:
+        return self.sx.shape[0]
+
+
+_REDUCE = {"add": "sum", "max": "amax", "min": "amin"}
+
+
+def _seg_scatter(cap: int, tgt, val, mode: str, init):
+    """Reduce `val` into cap slots at `tgt`; target `cap` drops."""
+    out = torch.full((cap + 1,), init, dtype=val.dtype, device=val.device)
+    out = out.scatter_reduce(0, tgt.long(), val, reduce=_REDUCE[mode],
+                             include_self=True)
+    return out[:cap]
+
+
+def _seg_sum_f(cap: int, tgt, val):
+    """Float sum into cap slots at `tgt` (target cap drops), adding each
+    segment's values in slot order: deterministic on every device."""
+    order = torch.sort(tgt, stable=True).indices
+    lengths = torch.bincount(tgt.long(), minlength=cap + 1)
+    sums = torch.segment_reduce(val[order], "sum", lengths=lengths,
+                                unsafe=True, initial=0.0)
+    return sums[:cap]
+
+
+def mkpl_init(label, number, cap: int, comp: Compaction) -> SegmentArena:
+    """The initial one-segment-per-arc arena (mkpl_pass0a/0b,
+    oclpolyline.cl:439-506).  An arc survives (polyid != 0) iff it has
+    exactly one number==1 pixel and >= 2 pixels."""
+    h, w = label.shape
+    n = h * w
+    dev = label.device
+    live = comp.valid()
+    p_s = torch.clamp(comp.idx, 0, n - 1)
+    pl = p_s.long()
+    lbl = torch.where(live, label.reshape(-1)[pl], 0).to(_I32)
+    num = torch.where(live, number.reshape(-1)[pl], 0).to(_I32)
+    flat = p_s
+
+    valid = (lbl > 0) & (lbl < cap)
+    tgt = torch.where(valid, lbl, cap)
+    one = torch.ones_like(lbl)
+    zero = torch.zeros_like(lbl)
+    starts = torch.where(valid & (num == 1), lbl, cap)
+
+    npix = _seg_scatter(cap, tgt, torch.where(valid, one, zero), "add", 0)
+    start_count = _seg_scatter(cap, starts, one, "add", 0)
+    end_index = _seg_scatter(cap, tgt, torch.where(valid, num, zero), "max", 0)
+    count = torch.max(torch.where(valid, lbl, zero)).to(_I32)
+
+    sp = _seg_scatter(cap, starts, flat, "min", n)
+    sp_ok = sp < n
+    spc = torch.clamp(sp, 0, n - 1)
+    sx = torch.where(sp_ok, (spc % w).to(_F32), 0.0)
+    sy = torch.where(sp_ok, (spc // w).to(_F32), 0.0)
+
+    # endCoords: the min-flat-index pixel reaching the max number
+    is_end = valid & (num == end_index[torch.clamp(lbl, 0, cap - 1).long()]) \
+        & (num > 0)
+    ends = torch.where(is_end, lbl, cap)
+    ep = _seg_scatter(cap, ends, flat, "min", n)
+    end_count = _seg_scatter(cap, ends, one, "add", 0)
+    ep_ok = ep < n
+    epc = torch.clamp(ep, 0, n - 1)
+    ex = torch.where(ep_ok, (epc % w).to(_F32), 0.0)
+    ey = torch.where(ep_ok, (epc // w).to(_F32), 0.0)
+
+    seg_id = torch.arange(cap, dtype=_I32, device=dev)
+    alive = (start_count == 1) & (npix >= 2) & (end_count >= 1) & (seg_id > 0)
+    polyid = torch.where(alive, seg_id, 0).to(_I32)
+    zeros = torch.zeros((cap,), dtype=_I32, device=dev)
+    return SegmentArena(
+        sx=sx, sy=sy, ex=ex, ey=ey,
+        start_index=zeros, end_index=end_index,
+        left_ptr=zeros, right_ptr=zeros,
+        start_count=start_count, end_count=end_count,
+        polyid=polyid, npix=npix, level=zeros, count=count)
+
+
+def _closest_point_dist(sx, sy, ex, ey, px, py):
+    """Distance from (px,py) to segment (sx,sy)-(ex,ey) (closestPoint,
+    oclpolyline.cl:51-59: degenerate segments collapse to the start)."""
+    dx = ex - sx
+    dy = ey - sy
+    l2 = fp.fma(dx, dx, dy * dy)
+    num = fp.fma(px - sx, dx, (py - sy) * dy)
+    t = torch.where(l2 > 1e-4, num / torch.clamp(l2, min=1e-4),
+                    torch.zeros_like(l2))
+    t = torch.clamp(t, 0.0, 1.0)
+    cx = fp.fma(t, dx, sx)
+    cy = fp.fma(t, dy, sy)
+    return fp.hypot(cx - px, cy - py)
+
+
+def mkpl_subdivide(arena: SegmentArena, label, number, minerror: float,
+                   n_iters: int, comp: Compaction):
+    """Iterative max-deviation subdivision (mkpl_pass1/2/3,
+    oclpolyline.cl:509-646; host loop N=16, oclpolyline.c:186-216), over the
+    compacted slot list.  Returns (arena, lsid label image)."""
+    h, w = label.shape
+    n = h * w
+    dev = label.device
+    cap = arena.cap
+    live = comp.valid()
+    p_s = torch.clamp(comp.idx, 0, n - 1)
+    pl = p_s.long()
+    px = (p_s % w).to(_F32)
+    py = (p_s // w).to(_F32)
+    num = torch.where(live, number.reshape(-1)[pl], 0).to(_I32)
+    lab = torch.where(live, label.reshape(-1)[pl], 0).to(_I32)
+    seg_id = torch.arange(cap, dtype=_I32, device=dev)
+    minerr_fix = int(minerror * FIX)
+    n_slots = px.shape[0]
+    slot_l = torch.arange(n_slots, dtype=_I32, device=dev)
+    zi = torch.zeros_like(seg_id)
+    a = arena
+
+    for _ in range(n_iters - 1):
+        lc = torch.clamp(lab, 0, cap - 1).long()
+        seg_sx, seg_sy, seg_ex, seg_ey = a.sx[lc], a.sy[lc], a.ex[lc], a.ey[lc]
+        live_px = (lab > 0) & (lab < cap) & (a.polyid[lc] != 0)
+
+        # pass1: fixed-point distance to the current chord, per pixel
+        d = _closest_point_dist(seg_sx, seg_sy, seg_ex, seg_ey, px, py)
+        dist = torch.where(live_px, torch.trunc(d * FIX).to(_I32), -1)
+        tgt = torch.where(live_px, lab, cap)
+        maxdist = _seg_scatter(cap, tgt, dist, "max", -1)
+
+        # winner: min slot (= min flat index) achieving the segment max
+        md_px = maxdist[lc]
+        at_max = live_px & (dist == md_px) & (md_px >= 0)
+        winner = _seg_scatter(cap, torch.where(at_max, lab, cap), slot_l,
+                              "min", n_slots)
+        has_w = winner < n_slots
+        wc = torch.clamp(winner, 0, n_slots - 1).long()
+        wx, wy, wn = px[wc], py[wc], num[wc]
+
+        # pass2 split conditions (oclpolyline.cl:564-577)
+        md = maxdist
+        mdf = md.to(_F32)
+        cdx, cdy = a.ex - a.sx, a.ey - a.sy
+        chord_sq = fp.fma(cdx, cdx, cdy * cdy)
+        curv_keep = ~((md < minerr_fix * 3) &
+                      (mdf * mdf / torch.clamp(chord_sq, min=1e-30)
+                       < 100000.0))
+        dsx, dsy = wx - a.sx, wy - a.sy
+        dex, dey = wx - a.ex, wy - a.ey
+        dss = fp.fma(dsx, dsx, dsy * dsy)
+        dse = fp.fma(dex, dex, dey * dey)
+        split = ((a.polyid != 0) & has_w
+                 & (a.end_index - a.start_index >= MINNINDEX - 1)
+                 & (a.start_count <= 1) & (a.end_count <= 1)
+                 & (md >= minerr_fix) & curv_keep
+                 & (dss >= MINEDGELEN * MINEDGELEN)
+                 & (dse >= MINEDGELEN * MINEDGELEN))
+
+        # deterministic allocation: rank split segments by id
+        ranks = torch.cumsum(split.to(_I32), 0, dtype=_I32)
+        split = split & (a.count + ranks < cap)
+        ranks = torch.cumsum(split.to(_I32), 0, dtype=_I32)
+        gn = torch.where(split, a.count + ranks, cap).to(_I32)
+        new_count = (a.count + split.to(_I32).sum()).to(_I32)
+
+        # new segment gn covers [wn, end]; old g truncates to [start, wn]
+        sx2 = set_drop(a.sx, gn, wx)
+        sy2 = set_drop(a.sy, gn, wy)
+        ex2 = set_drop(a.ex, gn, a.ex)
+        ey2 = set_drop(a.ey, gn, a.ey)
+        sidx2 = set_drop(a.start_index, gn, wn)
+        eidx2 = set_drop(a.end_index, gn, a.end_index)
+        left2 = set_drop(a.left_ptr, gn, seg_id)
+        right2 = set_drop(a.right_ptr, gn, a.right_ptr)
+        polyid2 = set_drop(a.polyid, gn, a.polyid)
+        level2 = set_drop(a.level, gn, md)
+        npix2 = set_drop(a.npix, gn, zi)
+        sc2 = set_drop(a.start_count, gn, zi)
+        ec2 = set_drop(a.end_count, gn, zi)
+
+        # old right neighbour's left pointer -> gn (oclpolyline.cl:614)
+        gr_tgt = torch.where(split & (a.right_ptr != 0), a.right_ptr, cap)
+        left2 = set_drop(left2, gr_tgt, gn)
+
+        # update the split segments in place
+        ex2 = torch.where(split, wx, ex2)
+        ey2 = torch.where(split, wy, ey2)
+        eidx2 = torch.where(split, wn, eidx2)
+        right2 = torch.where(split, gn, right2)
+
+        a = a._replace(sx=sx2, sy=sy2, ex=ex2, ey=ey2, start_index=sidx2,
+                       end_index=eidx2, left_ptr=left2, right_ptr=right2,
+                       start_count=sc2, end_count=ec2, polyid=polyid2,
+                       npix=npix2, level=level2, count=new_count)
+
+        # pass3: move pixels past the split one right-pointer hop
+        move = live_px & (a.end_index[lc] < num) & (a.polyid[lc] != 0)
+        lab = torch.where(move, a.right_ptr[lc], lab)
+
+    out = torch.zeros((n + 1,), dtype=_I32, device=dev)
+    out.scatter_(0, torch.where(live, p_s, n).long(), lab)
+    return a, out[:n].reshape(h, w)
+
+
+def refine(arena: SegmentArena, label, comp: Compaction) -> SegmentArena:
+    """Least-squares endpoint refinement + corner snapping (refine_pass0..3,
+    oclpolyline.cl:680-809), as a centred linear regression of the
+    perpendicular offset on the chord position per segment."""
+    h, w = label.shape
+    n = h * w
+    cap = arena.cap
+    live = comp.valid()
+    p_s = torch.clamp(comp.idx, 0, n - 1)
+    lab = torch.where(live, label.reshape(-1)[p_s.long()], 0)
+    px = (p_s % w).to(_F32)
+    py = (p_s // w).to(_F32)
+    lc = torch.clamp(lab, 0, cap - 1).long()
+    valid = (lab > 0) & (lab < cap)
+    tgt = torch.where(valid, lab, cap)
+    zf = torch.zeros_like(px)
+
+    dirx = torch.round(arena.ex - arena.sx)
+    diry = torch.round(arena.ey - arena.sy)
+    vdx = -diry
+    vdy = dirx
+    c = fp.fma(dirx, dirx, diry * diry)            # distSquSE
+
+    sxr = torch.round(arena.sx)
+    syr = torch.round(arena.sy)
+    r_dx, r_dy = dirx[lc], diry[lc]
+    vx = px - sxr[lc]
+    vy = py - syr[lc]
+    ax0 = fp.fma(vx, r_dx, vy * r_dy)
+    ay = fp.fma(vy, r_dx, -(vx * r_dy))            # v . (-diry, dirx)
+
+    nseg = _seg_sum_f(cap, tgt, torch.where(valid, 1.0, zf))
+    s_x = _seg_sum_f(cap, tgt, torch.where(valid, ax0, zf))
+    s_y = _seg_sum_f(cap, tgt, torch.where(valid, ay, zf))
+    nz = torch.clamp(nseg, min=1.0)
+    m_x = s_x / nz
+    m_y = s_y / nz
+    dx0 = ax0 - m_x[lc]
+    dy0 = ay - m_y[lc]
+    var = _seg_sum_f(cap, tgt, torch.where(valid, dx0 * dx0, zf))
+    cov = _seg_sum_f(cap, tgt, torch.where(valid, dx0 * dy0, zf))
+
+    # rdet == 0 in the reference <=> c == 0, n == 0, or integer variance 0
+    ok = (arena.polyid != 0) & (nseg > 0) & (c > 0) & (var > 0.25)
+    zc = torch.zeros_like(c)
+    as0 = torch.where(ok, cov / torch.clamp(var, min=1e-20), zc)
+    as1 = torch.where(ok, fp.fma(-as0, m_x, m_y) / torch.clamp(c, min=1e-20),
+                      zc)
+
+    sx = fp.fma(vdx, as1, arena.sx)
+    sy = fp.fma(vdy, as1, arena.sy)
+    s01 = as0 + as1
+    ex = fp.fma(vdx, s01, arena.ex)
+    ey = fp.fma(vdy, s01, arena.ey)
+
+    # pass3: snap adjacent endpoints to the line-line intersection
+    # (oclpolyline.cl:772-809), from pre-snap coordinates
+    rp = torch.clamp(arena.right_ptr, 0, cap - 1).long()
+    u0, u1 = sx[rp], sy[rp]
+    u2, u3 = ex[rp], ey[rp]
+    d = fp.fma(ex - sx, u3 - u1, -((ey - sy) * (u2 - u0)))
+    nq = fp.fma(sy - u1, u2 - u0, -((sx - u0) * (u3 - u1)))
+    small = torch.abs(d) < 1e-6
+    q = nq / torch.where(small, torch.ones_like(d), d)
+    wx = fp.fma(q, ex - sx, sx)
+    wy = fp.fma(q, ey - sy, sy)
+    midx = (ex + u0) * 0.5
+    midy = (ey + u1) * 0.5
+    far = (fp.hypot(wx - ex, wy - ey) > 10.0) & \
+          (fp.hypot(wx - u0, wy - u1) > 10.0)
+    use_mid = small | far
+    nxx = torch.where(use_mid, midx, wx)
+    nyy = torch.where(use_mid, midy, wy)
+
+    applies = (arena.polyid != 0) & (arena.right_ptr != 0)
+    ex2 = torch.where(applies, nxx, ex)
+    ey2 = torch.where(applies, nyy, ey)
+    h_tgt = torch.where(applies, arena.right_ptr, cap)
+    sx2 = set_drop(sx, h_tgt, nxx)
+    sy2 = set_drop(sy, h_tgt, nyy)
+    return arena._replace(sx=sx2, sy=sy2, ex=ex2, ey=ey2)
+
+
+def require_plain_subdivision(t: torch.Tensor, cfg: PipelineConfig) -> None:
+    """The mkpl subdivision kernel (pallas_mkpl.py:_mkpl_kernel) is the next
+    kernel to port; until then a CUDA run must select the plain form."""
+    if t.is_cuda and cfg.mkpl_pallas:
+        raise NotImplementedError(
+            "mkpl_pallas=1 selects the mkpl subdivision kernel "
+            "(rectdetect_tpu/ops/pallas_mkpl.py:_mkpl_kernel), which is not "
+            "ported to CUDA yet (ROADMAP Queue 2, next item); pass "
+            "PipelineConfig(mkpl_pallas=0)")
+
+
+def polyline_execute(edge_binary, minerror: float, size_thre: int, cap: int,
+                     cfg: PipelineConfig = DEFAULT_CONFIG):
+    """Binary edge image (H,W) int32 -> (SegmentArena, lsid (H,W) int32)."""
+    require_plain_subdivision(edge_binary, cfg)
+    if not cfg.sparse_factor:
+        raise NotImplementedError("the port runs the slot-space polyline "
+                                  "tail only (sparse_factor > 0)")
+    if cfg.bridge_gap2:
+        raise NotImplementedError("bridge_gap2 is not ported yet")
+    h, w = edge_binary.shape
+    n = h * w
+    sp = max(4096, n // cfg.strings_sparse_factor)
+    strings = strings_chain(edge_binary, "poly_branch")
+
+    comp0 = compact_mask((strings != 0).reshape(-1), sp)
+    cyc_cap = max(1024, n // cfg.cycle_sparse_factor)
+    walk = arc_chain_sparse(strings, comp0, cfg.number_doublings, cyc_cap)
+    sp_arc = max(4096, n // cfg.arc_sparse_factor)
+    dense_a, number_a, comp_arc = _arc_group(walk, comp0, size_thre, sp_arc,
+                                             n)
+
+    # the dense/number images mkpl reads through comp_arc
+    tgt_a = torch.where(comp_arc.valid(), torch.clamp(comp_arc.idx, 0, n - 1),
+                        n).long()
+    dense = torch.zeros((n + 1,), dtype=_I32, device=strings.device)
+    dense.scatter_(0, tgt_a, dense_a)
+    number = torch.zeros((n + 1,), dtype=_I32, device=strings.device)
+    number.scatter_(0, tgt_a, number_a)
+    dense = dense[:n].reshape(h, w)
+    number = number[:n].reshape(h, w)
+    arena = mkpl_init(dense, number, cap, comp_arc)
+    arena, lsid = mkpl_subdivide(arena, dense, number, minerror,
+                                 cfg.mkpl_iters, comp_arc)
+    return refine(arena, lsid, comp_arc), lsid
+
+
+def _arc_group(walk_out, comp_w: Compaction, size_thre: int, sp_arc: int,
+               n: int):
+    """Arc grouping in the walk's slot space (replaces label_arcs, calcSize,
+    filterSize and relabel, oclpolyline.cl:312-420): arcs longer than
+    size_thre keep, each ranked by its root (min flat index) in flat order.
+    Returns per-arc-slot dense id and number, and the arc compaction."""
+    number_w, _, live_w, _, chainlen_w, arcmin_w = walk_out
+    Sw = comp_w.cap
+    p_w = torch.clamp(comp_w.idx, 0, n - 1)
+    keep = live_w & (number_w > 0) & (chainlen_w > size_thre)
+    root_slot = comp_w.slot_of[torch.clamp(arcmin_w, 0, n).long()]
+    keep = keep & (root_slot < Sw)          # root beyond comp cap: drop arc
+    is_root = keep & (p_w == arcmin_w)
+    rank = torch.cumsum(is_root.to(_I32), 0, dtype=_I32)
+    dense_w = torch.where(keep, rank[torch.clamp(root_slot, 0, Sw - 1).long()],
+                          0).to(_I32)
+    comp_arc = compact_subset(comp_w, dense_w > 0, sp_arc)
+    slot_a = comp_w.slot_of[torch.clamp(comp_arc.idx, 0, n).long()]
+    sa = torch.clamp(slot_a, 0, Sw - 1).long()
+    a_ok = comp_arc.valid()
+    dense_a = torch.where(a_ok, dense_w[sa], 0).to(_I32)
+    number_a = torch.where(a_ok, number_w[sa], 0).to(_I32)
+    return dense_a, number_a, comp_arc

@@ -1,0 +1,55 @@
+"""Static-shift stencil helpers (port of rectdetect_tpu/ops/shifts.py).
+
+Every 2D stencil of the plain path is a sum/select of statically shifted
+views of a padded image, exactly as in the JAX package, so the plain
+versions evaluate the same float operations in the same order.
+
+Boundary conventions of the reference:
+  * mirror(): reflect-101 (clamp(x, -x, 2w-2-x), oclimgutil.cl:41-45)
+  * zero padding with an optional constant
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+# 8-neighbourhood order used throughout the reference (oclpolyline.cl:63-64).
+NEIGH8 = ((0, 1), (-1, 1), (-1, 0), (-1, -1), (0, -1), (1, -1), (1, 0), (1, 1))
+# getnp's first/second-neighbour semantics depend on exactly this scan
+# order (oclpolyline.cl:169-191).
+NEIGH8_REF = NEIGH8
+
+
+def reflect_index(n: int, r: int, device=None) -> torch.Tensor:
+    """Source index of each padded position -r..n+r-1 under reflect-101."""
+    if r >= n:
+        raise ValueError(f"mirror padding by {r} needs a size > {r}, got {n}")
+    i = torch.arange(-r, n + r, device=device)
+    i = torch.where(i < 0, -i, i)
+    return torch.where(i >= n, 2 * n - 2 - i, i)
+
+
+def pad2d(img: torch.Tensor, r: int, mode: str = "mirror", constant=0):
+    """Pad the last two dims by r: "mirror" (reflect-101) or "zero"
+    (filled with `constant`)."""
+    if mode == "mirror":
+        h, w = img.shape[-2], img.shape[-1]
+        iy = reflect_index(h, r, img.device)
+        ix = reflect_index(w, r, img.device)
+        return img.index_select(-2, iy).index_select(-1, ix)
+    if mode == "zero":
+        return F.pad(img, (r, r, r, r), value=constant)
+    raise ValueError(f"unknown pad mode {mode!r}")
+
+
+def shifted(padded: torch.Tensor, r: int, dy: int, dx: int, h: int, w: int):
+    """View of pad2d(img, r) with out[y, x] = img_padded[y+dy, x+dx]."""
+    return padded[..., r + dy:r + dy + h, r + dx:r + dx + w]
+
+
+def interior_mask(h: int, w: int, margin: int, device=None) -> torch.Tensor:
+    """True for pixels at least `margin` away from every image border."""
+    m = torch.zeros((h, w), dtype=torch.bool, device=device)
+    m[margin:h - margin, margin:w - margin] = True
+    return m

@@ -1,0 +1,43 @@
+"""Shared edge front-end: BGR frame -> thinned edge magnitude + binary map
+(port of rectdetect_tpu/pipeline/frontend.py, closed-form colour path).
+
+Mirrors the head of genGPUTask (oclrect.c:245-263) and the poly tool's
+pipeline (poly.cpp:104-121): packed-Lab conversion, r=2 Gaussian blur per
+channel, K1 (edgevec + Lab edge magnitude), K2 (bicubic NMS thinning).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from rectdetect_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
+from rectdetect_tpu_torch.core import color
+from rectdetect_tpu_torch.ops import blur
+from rectdetect_tpu_torch.ops.hopper_grad import edge_front
+from rectdetect_tpu_torch.ops.hopper_thin import thinthres
+
+
+class EdgeFrontend(NamedTuple):
+    packed0: torch.Tensor    # original packed Lab (H,W) int32
+    labb: torch.Tensor       # blurred Lab float planes (H,W,3)
+    edge_thin: torch.Tensor  # thinned edge magnitude (H,W) f32
+    edge_bin: torch.Tensor   # (H,W) int32 0/1 of edge_thin > 0
+
+
+def edge_frontend(bgr: torch.Tensor,
+                  cfg: PipelineConfig = DEFAULT_CONFIG) -> EdgeFrontend:
+    """bgr (H,W,3) uint8 on the CPU or a CUDA device."""
+    if cfg.color_exact:
+        raise NotImplementedError("color_exact (the LUT colour path) is not "
+                                  "ported yet")
+    lab = color.bgr_to_labf(bgr)
+    labq = color.quantize_labf(lab)          # = unpack(pack(lab)) centers
+    packed0 = color.pack_lab(lab)
+    labb = torch.stack([blur.gaussian_blur(labq[..., c], cfg.blur_radius)
+                        for c in range(3)], dim=-1)
+    em, vec = edge_front(labb)
+    edge_thin = thinthres(em, vec)
+    edge_bin = (edge_thin > 0).to(torch.int32)
+    return EdgeFrontend(packed0, labb, edge_thin, edge_bin)
