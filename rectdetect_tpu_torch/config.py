@@ -55,8 +55,8 @@ class PipelineConfig:
     walk_tail_factor2: int = 16   # dropped by the port
     # ---- polyline stage -------------------------------------------------
     mkpl_iters: int = 16          # N, oclpolyline.c:188
-    # 1 selects the mkpl subdivision kernel, which the port does not have
-    # yet: a CUDA frame with mkpl_pallas != 0 raises NotImplementedError
+    # 1 selects the mkpl subdivision kernel (ops/hopper_mkpl.py) on a CUDA
+    # frame; 0 the plain subdivision on either device
     mkpl_pallas: int = 1
     min_n_index: int = 4          # MINNINDEX, oclpolyline.cl:21
     min_edge_len: float = 1.0     # MINEDGELEN, oclpolyline.cl:20

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from rectdetect_tpu_torch.config import PipelineConfig
-from rectdetect_tpu_torch.ops.polyline import SegmentArena
+from rectdetect_tpu_torch.ops.mkpl import SegmentArena
 
 
 def config_from_jax(obj) -> PipelineConfig:

@@ -106,3 +106,27 @@ def pack_lab(labf: torch.Tensor) -> torch.Tensor:
     ca = torch.clamp(torch.floor(labf[..., 1] * 1024.0), 0, 1023).to(torch.int32)
     cb = torch.clamp(torch.floor(labf[..., 2] * 1024.0), 0, 1023).to(torch.int32)
     return (cb << 22) | (ca << 12) | cl
+
+
+def pack_lab_int(cl, ca, cb):
+    """Raw integer lattice coordinates (clamped) -> packed int32
+    (packlabbl, oclrect.cl:38-44)."""
+    cl = torch.clamp(cl, 0, 4095).to(torch.int32)
+    ca = torch.clamp(ca, 0, 1023).to(torch.int32)
+    cb = torch.clamp(cb, 0, 1023).to(torch.int32)
+    return (cb << 22) | (ca << 12) | cl
+
+
+def unpack_lab_int(packed):
+    """packed int32 -> (cl, ca, cb) raw int32 lattice coordinates
+    (unpacklabbl, oclrect.cl:46-48)."""
+    return packed & 4095, (packed >> 12) & 1023, (packed >> 22) & 1023
+
+
+def unpack_labf(packed):
+    """packed int32 -> (...,3) normalized Lab floats at lattice centers."""
+    cl, ca, cb = unpack_lab_int(packed)
+    lf = (cl.to(torch.float32) + 0.5) * (1.0 / 4096.0)
+    af = (ca.to(torch.float32) + 0.5) * (1.0 / 1024.0)
+    bf = (cb.to(torch.float32) + 0.5) * (1.0 / 1024.0)
+    return torch.stack([lf, af, bf], dim=-1)

@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-All sources under rectdetect_tpu_torch/csrc/ compile with nvcc into one
-shared library with a plain C interface, loaded with ctypes.  The build
+All sources under rectdetect_tpu_torch/csrc/ compile with nvcc, one
+process per source and all at once, and link into one shared library with
+a plain C interface, loaded with ctypes.  The build
 happens at the first kernel launch, into build/rectdetect_tpu_torch/<hash>/
 at the root of the checkout (the hash covers the sources and the flags), so
 a fresh checkout builds everything it needs and a rebuilt source never
@@ -28,8 +29,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "rectdetect_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +42,10 @@ SIGNATURES = {
     "rd_thin": (_P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
     "rd_strings_chain": (_P, _P, _P, _P, _I, _I, _I, _P),
     "rd_label_components": (_P, _P, _P, _I, _I, _I, _P),
+    "rd_mkpl": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "rd_seg_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rd_blblur": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "rd_quant_despeckle": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -83,16 +90,36 @@ def build(verbose: bool = False) -> Path:
     if not os.access(out.parent, os.W_OK):
         raise RuntimeError(f"the kernel build directory {out.parent} is not "
                            "writable; run the port from a writable checkout")
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    tag = os.getpid()
+    nvcc = _nvcc()
+    extra = ["-Xptxas=-v"] if verbose else []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr)
+    # one nvcc per source, all at once, then one link
+    objs, procs = [], []
+    for src in sources():
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *extra, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors = []
+    for src, proc in zip(sources(), procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+        elif verbose and err:
+            print(f"{src.name}:\n{err}")
+    tmp = out.with_suffix(f".{tag}.tmp")
+    if not errors:
+        res = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            errors.append(f"link ({res.returncode}):\n{res.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from rectdetect_tpu_torch.ops.hopper_scan import seg_total_sorted
 from rectdetect_tpu_torch.ops.shifts import NEIGH8, interior_mask, pad2d, shifted
 
 
@@ -88,3 +89,59 @@ def filter_strength(label: torch.Tensor, strength: torch.Tensor,
     st = strength[torch.clamp(lbl, 0, strength.shape[0] - 1).long()]
     kill = (lbl <= 0) | (st < thre)
     return torch.where(inter & kill, -1, lbl).reshape(h, w).to(torch.int32)
+
+
+def strength_filter_pair_dense(edge_img: torch.Tensor, label: torch.Tensor,
+                               cap: int, thre_weak: int, thre_strong: int,
+                               scale: float = 10000.0):
+    """calcStrength plus filterStrength at both thresholds
+    (oclimgutil.cl:641-657; thresholds oclrect.c:277/307), in the
+    label-sorted form of ccl.strength_filter_pair_dense: one stable sort
+    by label of the interior labelled pixels, per-component totals from
+    the segmented scan (kernel #10, ops/hopper_scan.py) saturating at
+    max(thresholds), which keeps every threshold compare exact, and one
+    scatter over the first `cap` sorted rows.
+
+    The stable sort orders equal labels by flat index, so beyond `cap` the
+    pixels of the largest labels drop first, and within the last run the
+    highest flat indices; dropped interior pixels read as filtered (-1),
+    as in the JAX package.  Returns (weak_img, strong_img) (H,W) int32."""
+    h, w = edge_img.shape
+    n = h * w
+    if n >= 1 << 29:
+        raise ValueError("the strength pair tags labels with bit 29")
+    thre_max = int(max(thre_weak, thre_strong))
+    skey, s_cl, order = strength_table(edge_img, label, cap, thre_max, scale)
+    tot = seg_total_sorted(skey, s_cl, thre_max)
+
+    flag = 1 << 29
+    keep_w = (skey < n) & (tot >= thre_weak)
+    tagged = torch.where(tot >= thre_strong, skey + flag, skey)
+    inter = interior_mask(h, w, 1, edge_img.device).reshape(-1)
+    lbl = label.reshape(-1)
+    base = torch.cat([torch.where(inter, -1, lbl).to(torch.int32),
+                      lbl.new_zeros((1,))])
+    out = base.scatter(0, torch.where(keep_w, order, n), tagged)[:n]
+    weak = torch.where(out >= flag, out - flag, out).reshape(h, w)
+    strong = torch.where(out >= flag, out - flag, base[:n]).reshape(h, w)
+    return weak, strong
+
+
+def strength_table(edge_img: torch.Tensor, label: torch.Tensor, cap: int,
+                   thre_max: int, scale: float = 10000.0):
+    """The strength pair's sorted table: the interior labelled pixels'
+    labels (n for every other pixel) sorted stably, with each pixel's
+    strength trunc(edge^2 * scale) clamped at thre_max, cut to the first
+    `cap` rows.  Returns (key, value, flat index), (cap,) each."""
+    h, w = edge_img.shape
+    n = h * w
+    inter = interior_mask(h, w, 1, edge_img.device).reshape(-1)
+    lbl = label.reshape(-1)
+    live = inter & (lbl > 0)
+    key = torch.where(live, lbl, n).to(torch.int32)
+    e = edge_img.reshape(-1)
+    val = torch.trunc(e * e * scale).to(torch.int32)
+    cl = torch.where(live, torch.clamp(val, max=thre_max), 0).to(torch.int32)
+    skey, order = torch.sort(key, stable=True)
+    order = order[:cap]
+    return skey[:cap].contiguous(), cl[order].contiguous(), order

@@ -27,7 +27,6 @@ def poly_frame(bgr: torch.Tensor, cfg: PipelineConfig = DEFAULT_CONFIG,
     labels the weak edges with round-capped pieces on the TPU and a
     fixed-pass CCL on the CPU; the port's labels are exact, which is the
     converged result those approximate."""
-    polyline.require_plain_subdivision(bgr, cfg)
     if cfg.strength_rescue_rounds:
         raise NotImplementedError("strength_rescue_rounds is not ported yet")
     h, w = bgr.shape[:2]

@@ -1,5 +1,6 @@
 """PyTorch port on a CUDA card: each kernel against its plain version, and
-the poly path on the card against the same path on the CPU.
+the poly path and the rect path's region maps on the card against the
+same paths on the CPU.
 
 These tests need a card and skip without one.  They import neither JAX
 nor the JAX package, so they run where only PyTorch is installed; the
@@ -10,7 +11,10 @@ repository's tests/conftest.py imports JAX, so on such a machine run
 Tolerances: K3, K4, labels, strings, lsid and arena integer fields equal;
 K1/K2 float outputs and arena floats within atol 2e-4 (the Pallas
 kernels' contract; the plain version's float64 emulation of a fused
-multiply-add may round twice on a tie), edge_thin > 0 equal.
+multiply-add may round twice on a tie), edge_thin > 0 equal.  The mkpl
+kernel's arena is held bit-equal to the plain subdivision on the card
+(the same float operations on both sides); seg_scan, blblur and
+quant_despeckle are integer-valued and equal.
 """
 
 import numpy as np
@@ -18,10 +22,14 @@ import pytest
 import torch
 
 from rectdetect_tpu_torch.config import PipelineConfig
-from rectdetect_tpu_torch.ops import (hopper_ccl, hopper_grad, hopper_morph,
-                                      hopper_thin, polyline)
+from rectdetect_tpu_torch.ops import (hopper_blblur, hopper_ccl, hopper_grad,
+                                      hopper_mkpl, hopper_morph, hopper_quant,
+                                      hopper_scan, hopper_thin, mkpl,
+                                      polyline, regions)
 from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
 from rectdetect_tpu_torch.pipeline.poly import poly_frame
+from rectdetect_tpu_torch.pipeline.rect import (region_smoothing,
+                                                weak_strong_labels)
 
 pytestmark = pytest.mark.cuda
 
@@ -107,18 +115,18 @@ def test_wrappers_check_their_inputs():
 def test_poly_frame_on_card_matches_cpu_and_counts_launches():
     _need_card()
     bgr = _scene()
-    cfg = PipelineConfig(mkpl_pallas=0)
-    with pytest.raises(NotImplementedError, match="mkpl"):
-        poly_frame(bgr.cuda(), PipelineConfig())
-    with pytest.raises(NotImplementedError, match="mkpl"):
-        polyline.polyline_execute(_maps()[0].cuda(), 1.0, 20, 256,
-                                  PipelineConfig())
-    mods = (hopper_grad, hopper_thin, hopper_morph, hopper_ccl)
+    mods = (hopper_grad, hopper_thin, hopper_morph, hopper_ccl, hopper_mkpl)
     for m in mods:
         m.launches = 0
-    ga, gl = poly_frame(bgr.cuda(), cfg)
+    ga, gl = poly_frame(bgr.cuda(), PipelineConfig())
     assert all(m.launches >= 1 for m in mods)
-    ca, cl = poly_frame(bgr, cfg)
+    # the plain subdivision on the card gives the same bits
+    pa, pl = poly_frame(bgr.cuda(), PipelineConfig(mkpl_pallas=0))
+    assert hopper_mkpl.launches == 1
+    assert torch.equal(gl, pl)
+    for f in pa._fields:
+        assert torch.equal(getattr(ga, f), getattr(pa, f)), f
+    ca, cl = poly_frame(bgr, PipelineConfig())
     assert torch.equal(gl.cpu(), cl)
     for f in ca._fields:
         got, want = getattr(ga, f).cpu(), getattr(ca, f)
@@ -126,3 +134,118 @@ def test_poly_frame_on_card_matches_cpu_and_counts_launches():
             torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
         else:
             assert torch.equal(got, want), f
+
+
+def _mkpl_case(edge, cap, minerror=1.0, size_thre=4):
+    arena, dense, number, comp = polyline.mkpl_inputs(
+        edge, size_thre, cap, PipelineConfig())
+    got = hopper_mkpl.mkpl_subdivide(arena, dense, number, minerror, 16, comp)
+    want = mkpl.mkpl_subdivide(arena, dense, number, minerror, 16, comp)
+    return comp, got, want
+
+
+def _polylines(h=256, w=256, seed=4, count=120):
+    """Binary edge map of `count` random zig-zag polylines."""
+    r = np.random.default_rng(seed)
+    m = np.zeros((h, w), np.int32)
+    for _ in range(count):
+        y, x = r.integers(2, h - 2), r.integers(2, w - 2)
+        dy, dx = r.integers(-1, 2, 2)
+        for _ in range(r.integers(15, 60)):
+            if r.random() < 0.15:
+                dy, dx = r.integers(-1, 2, 2)
+            y, x = np.clip(y + dy, 1, h - 2), np.clip(x + dx, 1, w - 2)
+            m[y, x] = 1
+    return torch.from_numpy(m)
+
+
+@pytest.mark.parametrize("cap", [4096, 200, 180])
+def test_mkpl_kernel_matches_plain(cap):
+    """The arc slot list outnumbers the arena at every cap here; at 200
+    and 180 the arena overflows during the subdivision (173 arcs, 284
+    segments unbounded) and splits drop in id order."""
+    _need_card()
+    comp, (ga, gl), (pa, pl) = _mkpl_case(_polylines().cuda(), cap)
+    assert comp.cap > cap > 173
+    assert torch.equal(gl, pl)
+    for f in pa._fields:
+        assert torch.equal(getattr(ga, f), getattr(pa, f)), f
+    if cap < 4096:
+        assert int(ga.count) == cap - 1
+
+
+def _check_scan(key, val, caps):
+    key = torch.from_numpy(key.astype(np.int32)).cuda()
+    val = torch.from_numpy(val.astype(np.int32)).cuda()
+    for cap in caps:
+        for op in ("satsum", "max"):
+            assert torch.equal(
+                hopper_scan.seg_scan_sorted(key, val, op, cap),
+                hopper_scan.seg_scan_plain(key, val, op, cap)), (op, cap)
+        assert torch.equal(hopper_scan.seg_total_sorted(key, val, cap),
+                           hopper_scan.seg_total_plain(key, val, cap)), cap
+
+
+def test_seg_scan_kernel_matches_plain():
+    _need_card()
+    r = np.random.default_rng(5)
+    for s in (1, 1000, 1024, 5000, 70000):
+        # long runs crossing the 1024-element tiles, short runs, one run
+        # over several tiles
+        lengths = np.concatenate([r.integers(1, 5, 200),
+                                  r.integers(900, 3000, 30), [70000]])
+        key = np.repeat(np.arange(lengths.size), lengths)[:s]
+        _check_scan(key, r.integers(0, 400, s), (300, 2500, 2 ** 30))
+    # more than 256 tiles, so the carry pass runs a second chunk of tiles:
+    # non-zero values, a run over several tiles across the chunk boundary
+    # (256 tiles of 1024 elements), then a run starting exactly on it; the
+    # sums stay below 2**30, so the large cap never saturates
+    s, chunk = 300000, 256 * 1024
+    for cuts in (np.r_[r.integers(1, chunk - 5000, 150),
+                       r.integers(chunk + 9000, s, 40)],
+                 np.r_[r.integers(1, s, 300), chunk]):
+        starts = np.zeros(s, np.int64)
+        starts[cuts] = 1
+        _check_scan(np.cumsum(starts), r.integers(1, 400, s),
+                    (2500, 2 ** 30))
+
+
+def test_blblur_and_quant_despeckle_kernels_match_plain():
+    _need_card()
+    r = np.random.default_rng(9)
+    for h, w in ((37, 53), (96, 128)):
+        packed = ((r.integers(0, 1024, (h, w)) << 22)
+                  | (r.integers(0, 1024, (h, w)) << 12)
+                  | r.integers(0, 4096, (h, w))).astype(np.int32)
+        packed = torch.from_numpy(packed).cuda()
+        edge = torch.from_numpy(
+            (r.random((h, w)) < 0.2).astype(np.int32)).cuda()
+        for iters in (0, 1, 10):
+            assert torch.equal(hopper_blblur.blblur(packed, edge, iters),
+                               regions.blblur(packed, edge, iters)), iters
+        emag = np.where(r.random((h, w)) < 0.4, r.random((h, w)), 0)
+        emag = torch.from_numpy(emag.astype(np.float32)).cuda()
+        for n in (24, 7):
+            assert torch.equal(
+                hopper_quant.quantize_despeckle(packed, emag, n, n, n),
+                regions.quantize_despeckle(packed, emag, n, n, n)), n
+    with pytest.raises(NotImplementedError):
+        hopper_blblur.blblur(packed, edge, 10, x0=8)
+
+
+def test_region_maps_on_card_match_cpu_and_count_launches():
+    _need_card()
+    bgr = _scene()
+    mods = (hopper_scan, hopper_blblur, hopper_quant)
+    for m in mods:
+        m.launches = 0
+    outs = []
+    for dev in ("cuda", "cpu"):
+        fe = edge_frontend(bgr.to(dev))
+        weak, strong = weak_strong_labels(fe.edge_bin, fe.edge_thin)
+        blurred, despeck = region_smoothing(fe.packed0, weak, fe.edge_thin)
+        outs.append([t.cpu() for t in (weak, strong, blurred, despeck)])
+    assert all(m.launches >= 1 for m in mods)
+    assert int((outs[1][0] > 0).sum()) > 50
+    for name, g, c in zip(("weak", "strong", "blurred", "despeck"), *outs):
+        assert torch.equal(g, c), name

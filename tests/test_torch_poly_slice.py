@@ -102,11 +102,19 @@ def test_port_imports_no_jax():
         "import sys, numpy as np, torch\n"
         "from rectdetect_tpu_torch.pipeline.poly import poly_frame\n"
         "from rectdetect_tpu_torch import convert\n"
-        "from rectdetect_tpu_torch.apps import poly\n"
+        "from rectdetect_tpu_torch.apps import poly, profile_poly\n"
+        "from rectdetect_tpu_torch.ops import (hopper_blblur, hopper_mkpl,"
+        " hopper_quant, hopper_scan, mkpl, regions)\n"
+        "from rectdetect_tpu_torch.pipeline.frontend import edge_frontend\n"
+        "from rectdetect_tpu_torch.pipeline.rect import ("
+        "region_smoothing, weak_strong_labels)\n"
         "import chip_smoke\n"
         "img = torch.from_numpy(np.random.default_rng(0).integers("
         "0, 256, (24, 32, 3), dtype=np.uint8))\n"
         "poly_frame(img)\n"
+        "fe = edge_frontend(img)\n"
+        "weak, _ = weak_strong_labels(fe.edge_bin, fe.edge_thin)\n"
+        "region_smoothing(fe.packed0, weak, fe.edge_thin)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'rectdetect_tpu' or "
         "m.startswith('rectdetect_tpu.'))\n"
@@ -177,3 +185,19 @@ def test_fixture_is_the_jax_720p_reference():
         assert fx[f].shape == (n,)
     assert (fx["polyid"] != 0).all() and (fx["seg_id"] >= 1).all()
     assert np.unpackbits(fx["edge_bin_bits"]).size >= 720 * 1280
+
+
+def test_rect_fixture_is_the_jax_720p_reference():
+    path = os.path.join(ROOT, "tests", "data", "rect_regions_720p_synth.npz")
+    assert os.path.getsize(path) < 200_000
+    fx = np.load(path)
+    assert tuple(fx["shape"]) == (720, 1280)
+    for k in ("packed0", "weak_lbl", "strong_lbl", "blurred", "despeck"):
+        assert len(str(fx[f"{k}_sha256"])) == 64
+    for k in ("weak", "strong"):
+        bits = np.unpackbits(fx[f"{k}_bits"])
+        assert bits.size >= 720 * 1280
+        assert int(bits.sum()) == int(fx[f"{k}_count"]) > 1000
+    assert int(fx["strong_count"]) < int(fx["weak_count"])
+    poly = np.load(os.path.join(ROOT, "tests", "data", "poly_720p_synth.npz"))
+    assert str(fx["packed0_sha256"]) == str(poly["packed0_sha256"])

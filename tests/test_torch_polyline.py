@@ -103,12 +103,16 @@ def test_arc_chain_sparse_matches_jax(seed):
     assert got[3].any()                        # the rings walk as cycles
 
 
-@pytest.mark.parametrize("seed,minerror,size_thre", [(1, 1.0, 20),
-                                                     (2, 4.0, 10)])
-def test_polyline_execute_matches_jax(seed, minerror, size_thre):
+@pytest.mark.parametrize("seed,minerror,size_thre,cap",
+                         [(1, 1.0, 20, None), (2, 4.0, 10, None),
+                          (1, 1.0, 10, 16)])
+def test_polyline_execute_matches_jax(seed, minerror, size_thre, cap):
+    """cap=16: the arena overflows during the subdivision (more splits
+    than free ids), the case that the JAX package's mkpl kernel excludes;
+    the JAX side is its XLA mkpl_subdivide."""
     edge = _scene_edges(seed=seed)
     h, w = edge.shape
-    cap = JaxConfig().ls_cap_for(w, h)
+    cap = cap or JaxConfig().ls_cap_for(w, h)
     jcfg = JaxConfig(mkpl_pallas=0)
     ja, jl = jax.jit(lambda e: jpolyline.polyline_execute(
         e, minerror, size_thre, cap, jcfg))(jnp.asarray(edge))
@@ -117,13 +121,19 @@ def test_polyline_execute_matches_jax(seed, minerror, size_thre):
     _arena_equal(ta, ja)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     assert int(ta.count) > 3
+    if cap == 16:
+        assert int(ta.count) == cap - 1
 
 
 def test_mkpl_kernel_config_runs_plain_on_cpu_only():
+    """DEFAULT_CONFIG (mkpl_pallas=1) on a CPU tensor: the mkpl wrapper
+    runs the plain subdivision, and the result equals the JAX package's
+    default configuration."""
     edge = _scene_edges(seed=3)
     cap = PipelineConfig().ls_cap_for(80, 64)
-    a1, l1 = polyline.polyline_execute(_t(edge), 1.0, 20, cap,
+    ja, jl = jax.jit(lambda e: jpolyline.polyline_execute(
+        e, 1.0, 20, cap, JaxConfig()))(jnp.asarray(edge))
+    ta, tl = polyline.polyline_execute(_t(edge), 1.0, 20, cap,
                                        PipelineConfig())
-    a0, l0 = polyline.polyline_execute(_t(edge), 1.0, 20, cap,
-                                       PipelineConfig(mkpl_pallas=0))
-    assert torch.equal(l0, l1) and torch.equal(a0.polyid, a1.polyid)
+    _arena_equal(ta, ja)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
