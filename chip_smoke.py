@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's poly path and the rect path's region maps once
-on a CUDA card, at 1280x720, and check them end to end.
+"""Drive the PyTorch port's poly path and the rect path from the frame to
+the hypotheses once on a CUDA card, at 1280x720, and check them end to
+end.
 
     python3 chip_smoke.py
 
@@ -9,21 +10,23 @@ PyTorch built for CUDA.  Phases (any failed check exits non-zero before
 the final line):
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build from rectdetect_tpu_torch/csrc, timed;
-  3. each of the eight kernels (K1 edge_front, K2 thinthres, K3
+  3. each of the twelve kernels (K1 edge_front, K2 thinthres, K3
      strings_chain, K4 label_components, mkpl, seg_scan, blblur,
-     quant_despeckle) against its plain PyTorch version on the card, at
-     the real 720p intermediates of bench.synth_frame(720, 1280, seed=0),
-     with kernel and plain times (CUDA-event medians); mkpl also under
-     arena overflow;
+     quant_despeckle, merge_mask, label_merge, despeckle2, distinct_bids)
+     against its plain PyTorch version on the card, at the real 720p
+     intermediates of bench.synth_frame(720, 1280, seed=0), with kernel
+     and plain times (CUDA-event medians); mkpl also under arena overflow;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after: pipeline.poly.poly_frame with DEFAULT_CONFIG
      (held bit for bit against the mkpl_pallas=0 run and against the JAX
-     fixture tests/data/poly_720p_synth.npz), and pipeline.rect
+     fixture tests/data/poly_720p_synth.npz), pipeline.rect
      weak_strong_labels -> region_smoothing (held against
-     tests/data/rect_regions_720p_synth.npz); each path must launch its
+     tests/data/rect_regions_720p_synth.npz), and pipeline.rect
+     rect_hypotheses, frame -> hypotheses (held against
+     tests/data/rect_hyp_720p_synth.npz); each path must launch its
      kernels, and a second run must be bit-identical;
   5. the DEFAULT_CONFIG frame time beside the mkpl_pallas=0 frame time,
-     timed in turns, and the region stages' time (CUDA-event medians).
+     timed in turns, and the rect stages' times (CUDA-event medians).
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -99,16 +102,19 @@ def main() -> int:
         from bench import synth_frame
         from rectdetect_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
         from rectdetect_tpu_torch.core import color
-        from rectdetect_tpu_torch.ops import (_build, blur, ccl, hopper_blblur,
-                                              hopper_ccl, hopper_grad,
+        from rectdetect_tpu_torch.ops import (_build, blur, ccl, hopper_bids,
+                                              hopper_blblur, hopper_ccl,
+                                              hopper_despeckle2, hopper_grad,
+                                              hopper_links, hopper_merge_mask,
                                               hopper_mkpl, hopper_morph,
                                               hopper_quant, hopper_scan,
                                               hopper_thin, mkpl, polyline,
                                               regions)
         from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
         from rectdetect_tpu_torch.pipeline.poly import live_segments, poly_frame
-        from rectdetect_tpu_torch.pipeline.rect import (region_smoothing,
-                                                        weak_strong_labels)
+        from rectdetect_tpu_torch.pipeline.rect import (
+            boundary_labels, hypotheses, rect_hypotheses, region_merge,
+            region_smoothing, weak_strong_labels)
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the repository root")
     dev = torch.device("cuda", 0)
@@ -298,7 +304,7 @@ def main() -> int:
            cuda_ms(torch, lambda: hopper_scan.seg_total_plain(
                skey, sval, thre), 5), nb(skey, sval, tot), 2 * sp)
 
-    weak, _ = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
+    weak, strong = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
     weak_bin = (weak > 0).to(torch.int32)
     iters = cfg.blblur_iters
     blurred = hopper_blblur.blblur(fe.packed0, weak_bin, iters)
@@ -335,12 +341,80 @@ def main() -> int:
                blurred, fe.edge_thin, n, n, n), 5),
            nb(blurred, fe.edge_thin, despeck), 15 * H * W)
 
+    # the region merge's kernels on the maps the rect path gives them
+    mask = hopper_merge_mask.junction_merge_mask(strong)
+    mask_p = regions.junction_merge_mask(strong)
+    ndiff = int((mask != mask_p).sum())
+    phase(f"phase 3 merge_mask: {ndiff} pixels differ "
+          f"({int(mask.sum())} mask pixels)")
+    if ndiff:
+        fail(f"merge_mask: {ndiff} pixels differ from the plain version")
+    # ops: >= one decision per pixel
+    record("merge_mask", "merge_mask.cu",
+           "rectdetect_tpu/ops/pallas_morph.py:391", 0.0,
+           cuda_ms(torch, lambda: hopper_merge_mask.junction_merge_mask(
+               strong), 20),
+           cuda_ms(torch, lambda: regions.junction_merge_mask(strong), 3),
+           nb(strong, mask), H * W)
+
+    seg0 = hopper_links.label_merge(despeck, mask, strong)
+    seg0_p = regions.label_merge(despeck, mask, strong)
+    ndiff = int((seg0 != seg0_p).sum())
+    phase(f"phase 3 label_merge: {ndiff} labels differ "
+          f"({int(torch.unique(seg0).numel())} regions)")
+    if ndiff:
+        fail(f"label_merge: {ndiff} labels differ from the plain version")
+    # bytes: colours, mask and edges read, labels written; ops: >= one
+    # link decision per pixel
+    record("label_merge", "links_ccl.cu",
+           "rectdetect_tpu/ops/pallas_ccl.py:471", 0.0,
+           cuda_ms(torch, lambda: hopper_links.label_merge(
+               despeck, mask, strong), 20),
+           cuda_ms(torch, lambda: regions.label_merge(despeck, mask, strong),
+                   3), nb(despeck, mask, strong, seg0), H * W)
+
+    thre2 = cfg.despeckle2_thre
+    seg = hopper_despeckle2.sizes_despeckle2(seg0, thre2)
+    seg_p = regions.sizes_despeckle2(seg0, thre2)
+    ndiff = int((seg != seg_p).sum())
+    phase(f"phase 3 despeckle2: {ndiff} labels differ "
+          f"({int((seg != seg0).sum())} pixels absorbed)")
+    if ndiff:
+        fail(f"despeckle2: {ndiff} labels differ from the plain version")
+    # ops: >= one histogram add and one size test per pixel
+    record("despeckle2", "despeckle2.cu",
+           "rectdetect_tpu/ops/pallas_morph.py:597", 0.0,
+           cuda_ms(torch, lambda: hopper_despeckle2.sizes_despeckle2(
+               seg0, thre2), 20),
+           cuda_ms(torch, lambda: regions.sizes_despeckle2(seg0, thre2), 3),
+           nb(seg0, seg), 2 * H * W)
+
+    boundary, _ = boundary_labels(seg, cfg)
+    bids = hopper_bids.distinct_bids(boundary)
+    bids_p = hopper_bids.distinct_bids_plain(boundary)
+    ndiff = sum(int((a != b).sum()) for a, b in zip(bids, bids_p))
+    phase(f"phase 3 distinct_bids: {ndiff} slot values differ "
+          f"({int((boundary >= 0).sum())} boundary pixels)")
+    if ndiff:
+        fail(f"distinct_bids: {ndiff} slot values differ from the plain "
+             f"version")
+    # bytes: the ids read once, the 4 slot maps written; ops: >= one
+    # decision per pixel
+    record("distinct_bids", "distinct_bids.cu",
+           "rectdetect_tpu/ops/pallas_morph.py:519", 0.0,
+           cuda_ms(torch, lambda: hopper_bids.distinct_bids(boundary), 20),
+           cuda_ms(torch, lambda: hopper_bids.distinct_bids_plain(boundary),
+                   3), nb(boundary, *bids), H * W)
+
     # ---- 4. the main paths -----------------------------------------------
     counters = {"edge_front": hopper_grad, "thinthres": hopper_thin,
                 "strings_chain": hopper_morph,
                 "label_components": hopper_ccl, "mkpl": hopper_mkpl,
                 "seg_scan": hopper_scan, "blblur": hopper_blblur,
-                "quant_despeckle": hopper_quant}
+                "quant_despeckle": hopper_quant,
+                "merge_mask": hopper_merge_mask, "label_merge": hopper_links,
+                "despeckle2": hopper_despeckle2,
+                "distinct_bids": hopper_bids}
     launches = {}
 
     def drive(path, names, fn):
@@ -448,6 +522,38 @@ def main() -> int:
     if not all(v for k, v in region.items() if k.endswith("_equal")) or \
             region["weak_gt0_mismatch"] or region["strong_gt0_mismatch"]:
         fail("the region maps differ from the JAX fixture")
+
+    hyp = drive("rect_hypotheses", list(counters),
+                lambda: rect_hypotheses(bgr, cfg))
+    hyp2 = rect_hypotheses(bgr, cfg)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(hyp, hyp2))
+    phase(f"phase 4 rect_hypotheses second run bit-identical: {same}")
+    if not same:
+        fail("two runs of rect_hypotheses on the card differ")
+    if tuple(hyp.segs.shape) != (2 * cfg.max_groups, cfg.max_group_segs, 2,
+                                 2) or not torch.isfinite(hyp.segs).all():
+        fail(f"segs: shape {tuple(hyp.segs.shape)} or non-finite values")
+    hx = np.load(os.path.join(ROOT, "tests", "data",
+                              "rect_hyp_720p_synth.npz"))
+    phase(f"phase 4 hypotheses fixture: "
+          f"{json.loads(str(hx['meta']))['reference']}")
+    hstage = {f"{k}_equal": digest(getattr(hyp, k)) == str(hx[f"{k}_sha256"])
+              for k in ("mask", "seg", "boundary", "lsid")}
+    valid_np = hyp.valid.cpu().numpy()
+    hstage.update(
+        valid_equal=bool((valid_np == hx["valid"]).all()),
+        status_equal=bool((hyp.status.cpu().numpy() == hx["status"]).all()),
+        groups=int(valid_np.any(1).sum()),
+        groups_ref=int(hx["valid"].any(1).sum()),
+        members=int(valid_np.sum()),
+        segs_bit_equal=int((hyp.segs.cpu().numpy() == hx["segs"]).sum()),
+        segs_max_diff=float(np.abs(hyp.segs.cpu().numpy()
+                                   - hx["segs"]).max()))
+    phase(f"phase 4 rect_hypotheses vs fixture: {json.dumps(hstage)}")
+    if not (all(v for k, v in hstage.items() if k.endswith("_equal"))
+            and hstage["segs_max_diff"] <= ARENA_ATOL):
+        fail("rect_hypotheses differs from the JAX fixture")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 
@@ -479,14 +585,32 @@ def main() -> int:
     phase(f"phase 5 poly_frame DEFAULT_CONFIG host wall median "
           f"{statistics.median(walls):.3f} ms")
     fe_t = edge_frontend(bgr, cfg)
-    weak_t, _ = weak_strong_labels(fe_t.edge_bin, fe_t.edge_thin, cfg)
+    weak_t, strong_t = weak_strong_labels(fe_t.edge_bin, fe_t.edge_thin, cfg)
+    despeck_t = region_smoothing(fe_t.packed0, weak_t, fe_t.edge_thin,
+                                 cfg)[1]
+    seg_t = region_merge(despeck_t, strong_t, cfg)[1]
+    boundary_t, bcomp_t = boundary_labels(seg_t, cfg)
+    arena_t, lsid_t, comp_t = polyline.polyline_execute(
+        (strong_t > 0).to(torch.int32), cfg.minerror_rect, cfg.size_thre_rect,
+        cfg.ls_cap_for(W, H), cfg, return_comp=True)
     for name, fn, reps in (
             ("weak_strong_labels", lambda: weak_strong_labels(
                 fe_t.edge_bin, fe_t.edge_thin, cfg), 20),
             ("region_smoothing", lambda: region_smoothing(
                 fe_t.packed0, weak_t, fe_t.edge_thin, cfg), 20),
             ("edge_frontend -> weak_strong_labels -> region_smoothing",
-             region_path, 20)):
+             region_path, 20),
+            ("region_merge", lambda: region_merge(despeck_t, strong_t, cfg),
+             20),
+            ("boundary_labels", lambda: boundary_labels(seg_t, cfg), 20),
+            ("polyline_execute (strong edges)", lambda: polyline.polyline_execute(
+                (strong_t > 0).to(torch.int32), cfg.minerror_rect,
+                cfg.size_thre_rect, cfg.ls_cap_for(W, H), cfg,
+                return_comp=True), 20),
+            ("hypotheses", lambda: hypotheses(
+                arena_t, lsid_t, boundary_t, W, H, cfg, comp_t, bcomp_t), 20),
+            ("rect_hypotheses (frame -> hypotheses)",
+             lambda: rect_hypotheses(bgr, cfg), 20)):
         phase(f"phase 5 {name} 720p: median {cuda_ms(torch, fn, reps):.3f} "
               f"ms (CUDA events, {reps} runs)")
     phase(f"phase 5 peak device memory "

@@ -1,5 +1,5 @@
-"""Where a poly frame's time, and the rect path's region maps' time, go on
-a CUDA card.
+"""Where a poly frame's time, and the rect path's time up to the
+hypotheses, go on a CUDA card.
 
 Usage: python -m rectdetect_tpu_torch.apps.profile_poly [frames] [image]
 
@@ -7,13 +7,16 @@ Without an image it runs bench.synth_frame(720, 1280, seed=0) (run from
 the repository root), with DEFAULT_CONFIG.  Prints, for the CUDA device 0:
   * per-stage CUDA-event medians over `frames` frames (default 20):
     front-end, labels + strength filter, polyline stage, whole poly
-    frame; the rect path's edge labeling (weak_strong_labels) and region
-    smoothing (blblur + quantize/despeckle);
-  * for the poly frame and for the region path (front-end, edge labeling,
-    region smoothing), a torch.profiler table of the ops with the most
-    device time over 5 runs, the summed kernel time, the kernel launches
-    per run and the device idle share of the profiled wall time (1 -
-    kernel time / wall time).
+    frame; the rect path's edge labeling (weak_strong_labels), region
+    smoothing (blblur + quantize/despeckle), region merge, boundary
+    labels, polylines of the strong edges, hypotheses, and the whole
+    rect_hypotheses;
+  * for the poly frame, the region path (front-end, edge labeling,
+    region smoothing), rect_hypotheses and its hypotheses stage alone, a
+    torch.profiler table of the ops with the most device time over 5
+    runs, the summed kernel time, the kernel launches per run and the
+    device idle share of the profiled wall time (1 - kernel time / wall
+    time).
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ def _stages(bgr, cfg):
     from rectdetect_tpu_torch.ops import ccl, polyline
     from rectdetect_tpu_torch.ops.hopper_ccl import label_components
     from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
-    from rectdetect_tpu_torch.pipeline.rect import (region_smoothing,
-                                                    weak_strong_labels)
+    from rectdetect_tpu_torch.pipeline.rect import (
+        boundary_labels, hypotheses, region_merge, region_smoothing,
+        weak_strong_labels)
 
     h, w = bgr.shape[:2]
     state = {}
@@ -54,17 +58,41 @@ def _stages(bgr, cfg):
 
     def edge_labeling():
         fe = state["fe"]
-        state["weak"], _ = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
+        state["weak"], state["strong"] = weak_strong_labels(
+            fe.edge_bin, fe.edge_thin, cfg)
 
     def smoothing():
         fe = state["fe"]
-        region_smoothing(fe.packed0, state["weak"], fe.edge_thin, cfg)
+        state["despeck"] = region_smoothing(fe.packed0, state["weak"],
+                                            fe.edge_thin, cfg)[1]
+
+    def merge():
+        state["seg"] = region_merge(state["despeck"], state["strong"],
+                                    cfg)[1]
+
+    def boundary():
+        state["boundary"], state["bcomp"] = boundary_labels(state["seg"],
+                                                            cfg)
+
+    def rect_polyline():
+        state["pl"] = polyline.polyline_execute(
+            (state["strong"] > 0).to(torch.int32), cfg.minerror_rect,
+            cfg.size_thre_rect, cfg.ls_cap_for(w, h), cfg, return_comp=True)
+
+    def hyp():
+        arena, lsid, comp = state["pl"]
+        hypotheses(arena, lsid, state["boundary"], w, h, cfg, comp,
+                   state["bcomp"])
 
     return (("front-end (colour, blur, K1, K2)", frontend),
             ("labels + strength (K4)", labels),
             ("polyline (K3, walk, mkpl, refine)", tail),
             ("rect edge labeling (K3, K4, #10)", edge_labeling),
-            ("rect region smoothing (#12, #5)", smoothing))
+            ("rect region smoothing (#12, #5)", smoothing),
+            ("rect region merge (#6, #9, #8)", merge),
+            ("rect boundary labels (K4)", boundary),
+            ("rect polylines of the strong edges", rect_polyline),
+            ("rect hypotheses (#7, tables, members)", hyp))
 
 
 def _profile(name, fn, runs=5):
@@ -113,14 +141,17 @@ def main(argv=None) -> int:
     from rectdetect_tpu_torch.config import DEFAULT_CONFIG
     from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
     from rectdetect_tpu_torch.pipeline.poly import poly_frame
-    from rectdetect_tpu_torch.pipeline.rect import (region_smoothing,
+    from rectdetect_tpu_torch.pipeline.rect import (rect_hypotheses,
+                                                    region_smoothing,
                                                     weak_strong_labels)
 
     dev = torch.device("cuda", 0)
     bgr = torch.from_numpy(img).to(dev)
     cfg = DEFAULT_CONFIG
-    stages = _stages(bgr, cfg) + (("whole frame (poly_frame)",
-                                   lambda: poly_frame(bgr, cfg)),)
+    stages = _stages(bgr, cfg) + (
+        ("whole frame (poly_frame)", lambda: poly_frame(bgr, cfg)),
+        ("rect_hypotheses (frame -> hypotheses)",
+         lambda: rect_hypotheses(bgr, cfg)))
     for _ in range(3):
         for _, fn in stages:
             fn()
@@ -138,7 +169,7 @@ def main(argv=None) -> int:
     print(f"{torch.cuda.get_device_name(0)}; frame {img.shape[1]}x"
           f"{img.shape[0]}; CUDA-event medians over {frames} frames:")
     for name, ts in times.items():
-        print(f"  {name:36s} {statistics.median(ts):9.3f} ms "
+        print(f"  {name:40s} {statistics.median(ts):9.3f} ms "
               f"(min {min(ts):.3f}, max {max(ts):.3f})")
 
     def region_path():
@@ -149,6 +180,9 @@ def main(argv=None) -> int:
     _profile("poly_frame", lambda: poly_frame(bgr, cfg))
     _profile("edge_frontend -> weak_strong_labels -> region_smoothing",
              region_path)
+    _profile("rect_hypotheses", lambda: rect_hypotheses(bgr, cfg))
+    hyp = dict(stages)["rect hypotheses (#7, tables, members)"]
+    _profile("hypotheses", hyp)
     return 0
 
 

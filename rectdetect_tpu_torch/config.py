@@ -2,14 +2,15 @@
 
 A field-for-field copy of `rectdetect_tpu.config.PipelineConfig` (same
 names, same defaults), so a configuration carries across unchanged
-(`convert.config_from_jax`).  The port reads only the fields of the poly
-path; the others describe stages or TPU block geometry that the port does
+(`convert.config_from_jax`).  The port reads the fields of the stages it
+runs; the others describe stages or TPU block geometry that the port does
 not run yet, and stay so that the two dataclasses remain equal.
 
 Switches the port drops because they only pick between output-equal
 formulations to save TPU op costs (the port always runs the large
 capacity): `strings_small_factor`, `arc_small_factor`,
-`walk_prefilter_factor`, `walk_tail_*`, and the `pin_*` branch pins.
+`walk_prefilter_factor`, `walk_tail_*`, `region_run_factor` (despeckle2
+runs its dense form), and the `pin_*` branch pins.
 The capacities that can change output are honoured: `sparse_factor`,
 `strings_sparse_factor`, `arc_sparse_factor`, `cycle_sparse_factor` and
 `ls_cap_for`.

@@ -22,43 +22,12 @@
 // Every parent pointer only ever decreases and stays inside its
 // component, so each root is its component's minimum flat index: the
 // labels are exact and equal to the JAX labels whatever order the atomics
-// run in.  There is no round cap.
+// run in.  There is no round cap.  find_root / unite live in common.cuh,
+// shared with the links CCL (links_ccl.cu).
 
 #include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ int load(const int* p) {
-  return *(const volatile int*)p;
-}
-
-__device__ int find_root(int* parent, int x) {
-  while (true) {
-    const int px = load(parent + x);
-    if (px == x) return x;
-    const int gp = load(parent + px);
-    if (gp < px) atomicMin(parent + x, gp);
-    x = gp;
-  }
-}
-
-__device__ void unite(int* parent, int a, int b) {
-  while (true) {
-    a = find_root(parent, a);
-    b = find_root(parent, b);
-    if (a == b) return;
-    if (a > b) {
-      const int t = a;
-      a = b;
-      b = t;
-    }
-    // link root b under a; if b stopped being a root meanwhile, retry
-    // with what it points to now
-    const int old = atomicMin(parent + b, a);
-    if (old == b) return;
-    b = old;
-  }
-}
 
 __global__ void init_kernel(const int* __restrict__ pix, int* parent, int h,
                             int w, int bgc) {
@@ -77,12 +46,12 @@ __global__ void merge_kernel(const int* __restrict__ pix, int* parent, int h,
   const int p = y * w + x;
   const int v = pix[p];
   if (v == bgc) return;
-  if (x > 0 && pix[p - 1] == v) unite(parent, p, p - 1);
+  if (x > 0 && pix[p - 1] == v) rd::unite(parent, p, p - 1);
   if (y > 0) {
     const int q = p - w;
-    if (x > 0 && pix[q - 1] == v) unite(parent, p, q - 1);
-    if (pix[q] == v) unite(parent, p, q);
-    if (x + 1 < w && pix[q + 1] == v) unite(parent, p, q + 1);
+    if (x > 0 && pix[q - 1] == v) rd::unite(parent, p, q - 1);
+    if (pix[q] == v) rd::unite(parent, p, q);
+    if (x + 1 < w && pix[q + 1] == v) rd::unite(parent, p, q + 1);
   }
 }
 
@@ -93,7 +62,7 @@ __global__ void flatten_kernel(const int* __restrict__ pix, int* parent,
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= w || y >= h) return;
   const int p = y * w + x;
-  out[p] = pix[p] != bgc ? find_root(parent, p) : -1;
+  out[p] = pix[p] != bgc ? rd::find_root(parent, p) : -1;
 }
 
 }  // namespace

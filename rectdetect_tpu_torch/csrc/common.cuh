@@ -43,4 +43,43 @@ inline dim3 pixel_grid(int h, int w) {
 
 inline dim3 pixel_block() { return dim3(kBlockX, kBlockY); }
 
+// Union-find over a parent array of flat indices (K4, ccl.cu, and the
+// links CCL, links_ccl.cu).  Every pointer only ever decreases, by
+// atomicMin, and stays inside its component, so each root is its
+// component's minimum flat index whatever order the threads run in.
+__device__ __forceinline__ int load_parent(const int* p) {
+  return *(const volatile int*)p;
+}
+
+// root of x, halving the path on the way (each visited node is pointed at
+// its grandparent)
+__device__ inline int find_root(int* parent, int x) {
+  while (true) {
+    const int px = load_parent(parent + x);
+    if (px == x) return x;
+    const int gp = load_parent(parent + px);
+    if (gp < px) atomicMin(parent + x, gp);
+    x = gp;
+  }
+}
+
+// join the sets of a and b, the larger root linked under the smaller
+__device__ inline void unite(int* parent, int a, int b) {
+  while (true) {
+    a = find_root(parent, a);
+    b = find_root(parent, b);
+    if (a == b) return;
+    if (a > b) {
+      const int t = a;
+      a = b;
+      b = t;
+    }
+    // link root b under a; if b stopped being a root meanwhile, retry
+    // with what it points to now
+    const int old = atomicMin(parent + b, a);
+    if (old == b) return;
+    b = old;
+  }
+}
+
 }  // namespace rd

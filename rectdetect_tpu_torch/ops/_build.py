@@ -46,6 +46,10 @@ SIGNATURES = {
     "rd_seg_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rd_blblur": (_P, _P, _P, _P, _I, _I, _I, _P),
     "rd_quant_despeckle": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rd_merge_mask": (_P, _P, _I, _I, _P),
+    "rd_label_merge": (_P, _P, _P, _P, _I, _I, _P),
+    "rd_despeckle2": (_P, _P, _P, _I, _I, _I, _P),
+    "rd_distinct_bids": (_P, _P, _I, _I, _P),
 }
 
 _lib = None

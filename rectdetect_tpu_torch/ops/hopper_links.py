@@ -1,0 +1,44 @@
+"""Kernel #9 links CCL: the region merge's labels (labelxPreprocess +
+labelMergeMain, oclrect.cl:289-334), the minimum flat index of each
+4-connected component over the merge links, every pixel foreground.
+
+Replaces the TPU kernel rectdetect_tpu/ops/pallas_ccl.py:
+_links_block_kernel with its seam union and resolve (label_links_blocked,
+label_merge_exact).  CUDA source: csrc/links_ccl.cu, K4's union-find
+(atomicMin linking, path halving) over the links, which the merge pass
+evaluates itself from the colours, the merge mask and the strong edges
+(regions.merge_pairs); bound by the latency of dependent loads and
+atomics.  Roots are component minima whatever order the atomics run in,
+so the labels are exact and deterministic.
+
+`label_merge` takes the plain version (ops/regions.py: merge_pairs +
+label_links) for CPU tensors and launches the kernel for CUDA tensors;
+there is no other path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rectdetect_tpu_torch.ops import _build
+from rectdetect_tpu_torch.ops.regions import label_merge as label_merge_plain
+
+launches = 0
+
+
+def label_merge(packed: torch.Tensor, mask: torch.Tensor,
+                edge_label: torch.Tensor) -> torch.Tensor:
+    """packed (H,W) int32 colours, mask (H,W) int32 merge mask, edge_label
+    (H,W) int32 (> 0 blocks) -> (H,W) int32 region labels."""
+    global launches
+    if not _build.on_cuda(packed, mask, edge_label):
+        return label_merge_plain(packed, mask, edge_label)
+    h, w = packed.shape
+    for t, name in ((packed, "packed"), (mask, "mask"),
+                    (edge_label, "edge_label")):
+        _build.check(t, name, torch.int32, (h, w))
+    out = torch.empty_like(packed)
+    _build.launch("rd_label_merge", packed.device, packed.data_ptr(),
+                  mask.data_ptr(), edge_label.data_ptr(), out.data_ptr(), h, w)
+    launches += 1
+    return out

@@ -1,0 +1,38 @@
+"""Kernel #6 merge_mask: the positive junction map of the strong-edge
+labels and the merge mask built on it (simpleJunction + mkMergeMask0/1,
+oclrect.cl:74-95, 246-287).
+
+Replaces the TPU kernel rectdetect_tpu/ops/pallas_morph.py:
+_merge_mask_kernel (merge_mask_pallas).  CUDA source: csrc/merge_mask.cu,
+one thread per output pixel over shared-memory tiles of the "label > 0"
+map and the junction code, so neither map reaches device memory; bound by
+device memory (8 B per pixel).
+
+`junction_merge_mask` takes the plain version (ops/regions.py) for a CPU
+tensor and launches the kernel for a CUDA tensor; there is no other path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rectdetect_tpu_torch.ops import _build
+from rectdetect_tpu_torch.ops.regions import (
+    junction_merge_mask as junction_merge_mask_plain)
+
+launches = 0
+
+
+def junction_merge_mask(strong_lbl: torch.Tensor) -> torch.Tensor:
+    """strong_lbl (H,W) int32 (labels > 0 are edges) -> mask (H,W) int32
+    0/1."""
+    global launches
+    if not _build.on_cuda(strong_lbl):
+        return junction_merge_mask_plain(strong_lbl)
+    h, w = strong_lbl.shape
+    _build.check(strong_lbl, "strong_lbl", torch.int32, (h, w))
+    out = torch.empty_like(strong_lbl)
+    _build.launch("rd_merge_mask", strong_lbl.device, strong_lbl.data_ptr(),
+                  out.data_ptr(), h, w)
+    launches += 1
+    return out

@@ -190,15 +190,21 @@ def refine(arena: SegmentArena, label, comp: Compaction) -> SegmentArena:
 
 
 def polyline_execute(edge_binary, minerror: float, size_thre: int, cap: int,
-                     cfg: PipelineConfig = DEFAULT_CONFIG):
-    """Binary edge image (H,W) int32 -> (SegmentArena, lsid (H,W) int32)."""
+                     cfg: PipelineConfig = DEFAULT_CONFIG,
+                     return_comp: bool = False):
+    """Binary edge image (H,W) int32 -> (SegmentArena, lsid (H,W) int32),
+    and with return_comp also the arc Compaction, which covers every
+    lsid > 0 pixel (the hypotheses' pair table gathers through it)."""
     arena, dense, number, comp_arc = mkpl_inputs(edge_binary, size_thre, cap,
                                                  cfg)
     subdivide = (hopper_mkpl.mkpl_subdivide if cfg.mkpl_pallas
                  else mkpl.mkpl_subdivide)
     arena, lsid = subdivide(arena, dense, number, minerror, cfg.mkpl_iters,
                             comp_arc)
-    return refine(arena, lsid, comp_arc), lsid
+    arena = refine(arena, lsid, comp_arc)
+    if return_comp:
+        return arena, lsid, comp_arc
+    return arena, lsid
 
 
 def mkpl_inputs(edge_binary, size_thre: int, cap: int,

@@ -1,11 +1,14 @@
-"""Region smoothing of the rect pipeline, plain PyTorch (port of the
-blblur / quantize / despeckle part of rectdetect_tpu/ops/regions.py).
+"""Region smoothing and region merge of the rect pipeline, plain PyTorch
+(port of rectdetect_tpu/ops/regions.py).
 
 Everything works on the packed-Lab int32 plane (core/color.py), as the
 reference does, so the integer results (blblur's truncated averages, the
 quantize lattice) are exact.  These are the plain versions of kernels
-#12 blblur (ops/hopper_blblur.py) and #5 quant_despeckle
-(ops/hopper_quant.py).
+#12 blblur (ops/hopper_blblur.py), #5 quant_despeckle
+(ops/hopper_quant.py), #6 merge mask (ops/hopper_merge_mask.py), #9 links
+CCL (ops/hopper_links.py) and #8 despeckle2 (ops/hopper_despeckle2.py).
+The region merge's labels are the minimum flat index of each region, so
+every output here is an exact integer map.
 
 Floats in quantize + despeckle, as jitted XLA:CPU evaluates them (found
 by comparing with the jitted JAX functions):
@@ -20,10 +23,12 @@ by comparing with the jitted JAX functions):
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from rectdetect_tpu_torch.core import color
 from rectdetect_tpu_torch.ops import fp
-from rectdetect_tpu_torch.ops.shifts import pad2d, shifted
+from rectdetect_tpu_torch.ops.morphology import simple_junction
+from rectdetect_tpu_torch.ops.shifts import interior_mask, pad2d, shifted
 
 BLBLURSIZE = 4  # oclrect.cl:72
 
@@ -156,3 +161,158 @@ def quantize_despeckle(packed: torch.Tensor, edge_mag: torch.Tensor,
                        n2: int = 24) -> torch.Tensor:
     """quantize_packed + despeckle (oclrect.c:300-303)."""
     return despeckle(quantize_packed(packed, n0, n1, n2), edge_mag)
+
+
+def _disk_offsets(rmax: int, lo_sq: int, hi_sq: int) -> list[tuple[int, int]]:
+    """The (dy, dx) offsets with lo_sq <= dy^2 + dx^2 < hi_sq."""
+    return [(dy, dx) for dy in range(-rmax, rmax + 1)
+            for dx in range(-rmax, rmax + 1)
+            if lo_sq <= dy * dy + dx * dx < hi_sq]
+
+
+RING_16_36 = _disk_offsets(6, 16, 36)   # mkMergeMask0, oclrect.cl:252-258
+DISK_64 = _disk_offsets(8, 0, 64)       # mkMergeMask1 ends, oclrect.cl:268
+DISK_16 = _disk_offsets(4, 0, 16)       # mkMergeMask1 junctions, :278
+
+
+def _dilate(mask: torch.Tensor, offsets) -> torch.Tensor:
+    """Binary dilation by a symmetric structuring element, pixels outside
+    the frame reading 0: a float convolution of 0/1 values, whose integer
+    sums are exact in any order."""
+    r = max(max(abs(dy), abs(dx)) for dy, dx in offsets)
+    ker = torch.zeros((2 * r + 1, 2 * r + 1), dtype=torch.float32)
+    for dy, dx in offsets:
+        ker[dy + r, dx + r] = 1.0
+    x = mask.to(torch.float32)[None, None]
+    return F.conv2d(x, ker.to(mask.device)[None, None], padding=r)[0, 0] > 0.5
+
+
+def merge_mask(junction: torch.Tensor) -> torch.Tensor:
+    """mkMergeMask0 + mkMergeMask1 (oclrect.cl:246-287): the force-merge
+    ring 16 <= d^2 < 36 around junctions, cleared inside the d^2 < 64 disk
+    around line ends (junction == 2) and the d^2 < 16 disk around junction
+    cores (junction > 2).  Returns (H,W) int32 0/1."""
+    any_jn = junction != 0
+    ends = junction == 2
+    m = _dilate(any_jn, RING_16_36)
+    clear = _dilate(ends, DISK_64) | _dilate(any_jn & ~ends, DISK_16)
+    return (m & ~clear).to(torch.int32)
+
+
+def junction_merge_mask(strong_lbl: torch.Tensor) -> torch.Tensor:
+    """simple_junction(positive_only) + merge_mask: the plain version of
+    kernel #6 (ops/hopper_merge_mask.py)."""
+    return merge_mask(simple_junction(strong_lbl, positive_only=True))
+
+
+def merge_pairs(packed: torch.Tensor, mask: torch.Tensor,
+                edge_label: torch.Tensor):
+    """Mergeability of horizontally / vertically adjacent pixels under
+    labelMergeMain's rules (oclrect.cl:300-334) plus the labelxPreprocess
+    seed links (oclrect.cl:289-298), as regions._merge_pairs of the JAX
+    package: for a pair (a, b), b right of or below a,
+        edge_label[b] <= 0 and (colours equal or mask[a] or mask[b]),
+    the merging pixel interior; preprocess adds colour-equal links
+    regardless (up always, left only where the up pixel differs).
+    Returns (mh (H, W-1), mv (H-1, W)) bool."""
+    h, w = packed.shape
+    eq_h = packed[:, 1:] == packed[:, :-1]
+    eq_v = packed[1:, :] == packed[:-1, :]
+    m = mask != 0
+    blocked_h = edge_label[:, 1:] > 0
+    blocked_v = edge_label[1:, :] > 0
+    inter = interior_mask(h, w, 1, packed.device)
+    mh = ~blocked_h & ((inter[:, :-1] & (eq_h | m[:, :-1])) |
+                       (inter[:, 1:] & (eq_h | m[:, 1:])))
+    mv = ~blocked_v & ((inter[:-1, :] & (eq_v | m[:-1, :])) |
+                       (inter[1:, :] & (eq_v | m[1:, :])))
+    up_eq = torch.zeros((h, w), dtype=torch.bool, device=packed.device)
+    up_eq[1:, :] = eq_v
+    return mh | (eq_h & ~up_eq[:, 1:]), mv | eq_v
+
+
+def label_links(mh: torch.Tensor, mv: torch.Tensor) -> torch.Tensor:
+    """Exact 4-connected labels over the links (mh (H, W-1), mv (H-1, W)),
+    every pixel foreground: the minimum flat index of each component.
+    Min-label propagation along the links, hooking onto the old roots by
+    scatter-min and pointer jumping, to the fixpoint."""
+    h, w = mh.shape[0], mv.shape[1]
+    n = h * w
+    label = torch.arange(n, dtype=torch.int32, device=mh.device).reshape(h, w)
+    while True:
+        g = label.clone()
+        g[:, 1:] = torch.minimum(g[:, 1:], torch.where(mh, label[:, :-1], n))
+        g[:, :-1] = torch.minimum(g[:, :-1], torch.where(mh, label[:, 1:], n))
+        g[1:, :] = torch.minimum(g[1:, :], torch.where(mv, label[:-1, :], n))
+        g[:-1, :] = torch.minimum(g[:-1, :], torch.where(mv, label[1:, :], n))
+        flat, gf = label.reshape(-1), g.reshape(-1)
+        new = flat.scatter_reduce(0, flat.long(), gf, reduce="amin",
+                                  include_self=True)
+        new = torch.minimum(new, gf)
+        for _ in range(4):
+            new = new[new.long()]
+        new = new.reshape(h, w)
+        if torch.equal(new, label):
+            return label
+        label = new
+
+
+def label_merge(packed: torch.Tensor, mask: torch.Tensor,
+                edge_label: torch.Tensor) -> torch.Tensor:
+    """Region-merge CCL (labelxPreprocess + labelMergeMain,
+    oclrect.cl:289-334) at its exact fixpoint, min-flat-index labels: the
+    plain version of kernel #9 (ops/hopper_links.py)."""
+    return label_links(*merge_pairs(packed, mask, edge_label))
+
+
+def label_sizes(label: torch.Tensor) -> torch.Tensor:
+    """calcSize (oclrect.cl:336-348): pixel count per label, (H*W,) int32;
+    every pixel is labelled, with a value in [0, H*W)."""
+    n = label.numel()
+    tgt = torch.clamp(label.reshape(-1), 0, n - 1).long()
+    sizes = torch.zeros((n,), dtype=torch.int32, device=label.device)
+    return sizes.index_add_(0, tgt, torch.ones_like(tgt, dtype=torch.int32))
+
+
+def despeckle2(label: torch.Tensor, sizes: torch.Tensor,
+               thre: int = 16) -> torch.Tensor:
+    """Regions of <= thre px take the label of the largest in-frame 3x3
+    neighbour (despeckle2, oclrect.cl:350-371), the first maximum in
+    (dy, dx) scan order."""
+    h, w = label.shape
+    n = h * w
+    sz_at = sizes[torch.clamp(label, 0, n - 1).long()]
+    lp = pad2d(label, 1, "zero")
+    # out-of-frame neighbours have size 0: never larger than the best
+    sp = pad2d(sz_at, 1, "zero")
+    best_sz = torch.zeros_like(label)
+    best_lb = label
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            s = shifted(sp, 1, dy, dx, h, w)
+            take = s > best_sz
+            best_sz = torch.where(take, s, best_sz)
+            best_lb = torch.where(take, shifted(lp, 1, dy, dx, h, w), best_lb)
+    return torch.where(sz_at <= thre, best_lb, label).to(torch.int32)
+
+
+def sizes_despeckle2(label: torch.Tensor, thre: int = 16) -> torch.Tensor:
+    """calcSize + despeckle2 (oclrect.cl:336-371): the plain version of
+    kernel #8 (ops/hopper_despeckle2.py).  The JAX package's run-length
+    form (region_run_factor) gives the same output; the port runs the
+    dense form only."""
+    return despeckle2(label, label_sizes(label), thre)
+
+
+def mark_boundary(label: torch.Tensor) -> torch.Tensor:
+    """Pixels within 2 px (a 5x5 window, edge padding) of a different
+    region keep their label, all others -1 (markBoundary,
+    oclrect.cl:373-390); the 2-px frame border is -1."""
+    h, w = label.shape
+    lp = pad2d(label, 2, "edge")
+    diff = torch.zeros((h, w), dtype=torch.bool, device=label.device)
+    for dy in range(-2, 3):
+        for dx in range(-2, 3):
+            diff |= shifted(lp, 2, dy, dx, h, w) != label
+    keep = interior_mask(h, w, 2, label.device) & diff
+    return torch.where(keep, label, -1).to(torch.int32)

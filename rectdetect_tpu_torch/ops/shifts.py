@@ -31,12 +31,16 @@ def reflect_index(n: int, r: int, device=None) -> torch.Tensor:
 
 
 def pad2d(img: torch.Tensor, r: int, mode: str = "mirror", constant=0):
-    """Pad the last two dims by r: "mirror" (reflect-101) or "zero"
-    (filled with `constant`)."""
-    if mode == "mirror":
+    """Pad the last two dims by r: "mirror" (reflect-101), "edge" (the
+    border pixel repeated) or "zero" (filled with `constant`)."""
+    if mode in ("mirror", "edge"):
         h, w = img.shape[-2], img.shape[-1]
-        iy = reflect_index(h, r, img.device)
-        ix = reflect_index(w, r, img.device)
+        if mode == "mirror":
+            iy = reflect_index(h, r, img.device)
+            ix = reflect_index(w, r, img.device)
+        else:
+            iy = torch.arange(-r, h + r, device=img.device).clamp(0, h - 1)
+            ix = torch.arange(-r, w + r, device=img.device).clamp(0, w - 1)
         return img.index_select(-2, iy).index_select(-1, ix)
     if mode == "zero":
         return F.pad(img, (r, r, r, r), value=constant)

@@ -1,23 +1,50 @@
-"""The rect pipeline's edge labeling and region smoothing (port of part of
-rectdetect_tpu/pipeline/rect.py:rect_tail).
+"""The rect pipeline from the frame to the hypotheses (port of
+rectdetect_tpu/pipeline/rect.py:rect_tail up to _hypotheses).
 
-Mirrors oclrect.c:262-312: the weak/strong edge labels (strings
-morphology, kernel K3; exact labels, K4; the strength pair with the
-segmented scan, #10), then the edge-limited blur (#12) and quantize +
-despeckle (#5) of the packed-Lab plane.  Together they give the maps the
-region merge reads: weak_lbl, strong_lbl, blurred and despeck.
+Mirrors oclrect.c:262-361 and the group-building half of executeCPUTask
+(oclrect.c:1049-1188): the weak/strong edge labels (strings morphology,
+kernel K3; exact labels, K4; the strength pair with the segmented scan,
+#10), the edge-limited blur (#12) and quantize + despeckle (#5) of the
+packed-Lab plane, the region merge (merge mask #6, links CCL #9,
+despeckle2 #8), the boundary labels (mark_boundary, K4 on its foreground),
+the polylines of the strong edges, and the two hypothesis sources: region
+boundaries (pair table with distinct bids #7, probes, clipping) and whole
+polylines.  `rect_hypotheses` runs the chain; its outputs are the input
+of quad reduction.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from rectdetect_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
-from rectdetect_tpu_torch.ops import ccl
+from rectdetect_tpu_torch.geometry.clip import clip_segments
+from rectdetect_tpu_torch.ops import ccl, reduce_ls
+from rectdetect_tpu_torch.ops.compact import Compaction, compact_mask
 from rectdetect_tpu_torch.ops.hopper_blblur import blblur
 from rectdetect_tpu_torch.ops.hopper_ccl import label_components
+from rectdetect_tpu_torch.ops.hopper_despeckle2 import sizes_despeckle2
+from rectdetect_tpu_torch.ops.hopper_links import label_merge
+from rectdetect_tpu_torch.ops.hopper_merge_mask import junction_merge_mask
 from rectdetect_tpu_torch.ops.hopper_morph import strings_chain
 from rectdetect_tpu_torch.ops.hopper_quant import quantize_despeckle
+from rectdetect_tpu_torch.ops.mkpl import SegmentArena
+from rectdetect_tpu_torch.ops.polyline import polyline_execute
+from rectdetect_tpu_torch.ops.regions import mark_boundary
+from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
+
+
+class RectHypotheses(NamedTuple):
+    """rect_hypotheses' result: the stage maps and the hypotheses."""
+    mask: torch.Tensor      # (H,W) int32 0/1 merge mask
+    seg: torch.Tensor       # (H,W) int32 region labels
+    boundary: torch.Tensor  # (H,W) int32 boundary labels, -1 elsewhere
+    lsid: torch.Tensor      # (H,W) int32 segment id per polyline pixel
+    segs: torch.Tensor      # (2G,K,2,2) float32 member segments
+    valid: torch.Tensor     # (2G,K) bool
+    status: torch.Tensor    # (2G,) int32: 0 region source, 2 polyline source
 
 
 def weak_strong_labels(edge_bin: torch.Tensor, edge_thin: torch.Tensor,
@@ -60,3 +87,110 @@ def region_smoothing(packed0: torch.Tensor, weak_lbl: torch.Tensor,
     n = cfg.quantize_levels
     despeck = quantize_despeckle(blurred, edge_thin, n, n, n)
     return blurred, despeck
+
+
+def region_merge(despeck: torch.Tensor, strong_lbl: torch.Tensor,
+                 cfg: PipelineConfig = DEFAULT_CONFIG):
+    """Merge masks, region CCL and small-region cleanup (oclrect.c:314-336):
+    the merge mask of the strong edges (#6), the exact region labels over
+    the merge links (#9), then regions of <= despeckle2_thre pixels absorbed
+    (#8).  Returns (mask, seg), (H,W) int32 each; seg holds min-flat-index
+    region labels."""
+    mask = junction_merge_mask(strong_lbl)
+    seg = label_merge(despeck, mask, strong_lbl)
+    return mask, sizes_despeckle2(seg, cfg.despeckle2_thre)
+
+
+def boundary_labels(seg: torch.Tensor, cfg: PipelineConfig = DEFAULT_CONFIG):
+    """Boundary labeling (oclrect.c:340-342) on the boundary_comp=1 path:
+    mark_boundary, the boundary foreground compacted into
+    max(4096, H*W // boundary_sparse_factor) slots, and exact 8-connected
+    labels of the marked pixels (K4, background -1).  Foreground pixels
+    beyond the compaction's capacity become -1, as on the JAX package's TPU
+    path (pallas_ccl._label_sparse); a kept pixel's component minimum comes
+    first in flat order, so it is kept too.  Returns (boundary (H,W) int32,
+    the Compaction)."""
+    if not (cfg.sparse_factor and cfg.boundary_comp) or \
+            cfg.boundary_tpu_sparse:
+        raise NotImplementedError("the port runs the compacted boundary "
+                                  "labels only (sparse_factor > 0, "
+                                  "boundary_comp=1, boundary_tpu_sparse "
+                                  "off)")
+    ih, iw = seg.shape
+    n = ih * iw
+    spb = max(4096, n // cfg.boundary_sparse_factor)
+    bmark = mark_boundary(seg)
+    bcomp = compact_mask((bmark != -1).reshape(-1), spb)
+    lbl = label_components(bmark, -1)
+    kept = (bcomp.slot_of[:n] < spb).reshape(ih, iw)
+    return torch.where(kept, lbl, -1), bcomp
+
+
+def hypotheses(arena: SegmentArena, lsid: torch.Tensor,
+               boundary: torch.Tensor, iw: int, ih: int,
+               cfg: PipelineConfig, comp: Compaction, bcomp: Compaction):
+    """Both hypothesis sources (oclrect.c:1064-1217) -> (segs (2G,K,2,2)
+    float32, valid (2G,K) bool, status (2G,) int32), G = max_groups, K =
+    max_group_segs.  comp: the polyline's arc compaction; bcomp: the
+    boundary compaction (boundary_labels)."""
+    gmax = cfg.max_groups
+    k = cfg.max_group_segs
+    nentry = iw * ih * 4 // 5
+    table = reduce_ls.pair_bbox_table(boundary, lsid, nentry, comp)
+    flat2dense, _, roots = reduce_ls.densify_labels_sparse(
+        boundary, bcomp, gmax, bg=-1)
+
+    # source A: region boundaries (oclrect.c:1064-1171)
+    ids_a, mv_a, counts = reduce_ls.probe_members(
+        boundary, arena, gmax, flat2dense, k, cfg.probe_n, cfg.probe_dist,
+        by_length=bool(cfg.members_by_length))
+    group_ok_a = counts[1:] >= 4                        # oclrect.c:1108
+    seg_xy = torch.stack([arena.sx, arena.sy, arena.ex, arena.ey], dim=1)
+    raw_a = seg_xy[ids_a.long()]                        # (G,K,4)
+    segid_a = roots[1:][:, None].expand_as(ids_a)       # flat root label
+    hsh = reduce_ls.hash_slot(ids_a, segid_a, nentry).long()
+    own_ls = table.owner_lsid[hsh]
+    own_bid = table.owner_bid[hsh]
+    bb = table.bb[hsh]                                  # (G,K,4)
+    boxes = torch.stack([iw - bb[..., 0], ih - bb[..., 2], bb[..., 1],
+                         bb[..., 3]], dim=-1).to(torch.float32)
+    clipped = clip_segments(raw_a, boxes)
+    owned = (own_ls == ids_a) & (own_bid == segid_a)
+    empty = own_ls == 0
+    # owner match -> clipped (dropped where the clip rejects); another
+    # owner -> unclipped; empty slot -> dropped (oclrect.c:1116-1131)
+    use = torch.where(owned[..., None], clipped, raw_a)
+    valid_a = mv_a & group_ok_a[:, None] & ~empty & \
+        ~(owned & torch.isnan(clipped[..., 0]))
+    segs_a = torch.nan_to_num(use).reshape(gmax, k, 2, 2)
+
+    # source B: whole polylines (oclrect.c:1175-1217)
+    ids_b, mv_b = reduce_ls.chain_members(
+        arena, gmax, k, cfg.ls_min_len_polyline,
+        by_length=bool(cfg.members_by_length))
+    segs_b = seg_xy[ids_b.long()].reshape(gmax, k, 2, 2)
+
+    dev = lsid.device
+    status = torch.cat([torch.zeros((gmax,), dtype=torch.int32, device=dev),
+                        torch.full((gmax,), 2, dtype=torch.int32,
+                                   device=dev)])
+    return (torch.cat([segs_a, segs_b]), torch.cat([valid_a, mv_b]), status)
+
+
+def rect_hypotheses(bgr: torch.Tensor,
+                    cfg: PipelineConfig = DEFAULT_CONFIG) -> RectHypotheses:
+    """BGR (H,W,3) uint8 frame, on the CPU or a CUDA device -> the stage
+    maps and the hypotheses that quad reduction reads (the JAX package's
+    rect_tail up to _hypotheses)."""
+    fe = edge_frontend(bgr, cfg)
+    weak_lbl, strong_lbl = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
+    _, despeck = region_smoothing(fe.packed0, weak_lbl, fe.edge_thin, cfg)
+    mask, seg = region_merge(despeck, strong_lbl, cfg)
+    boundary, bcomp = boundary_labels(seg, cfg)
+    ih, iw = seg.shape
+    arena, lsid, comp = polyline_execute(
+        (strong_lbl > 0).to(torch.int32), cfg.minerror_rect,
+        cfg.size_thre_rect, cfg.ls_cap_for(iw, ih), cfg, return_comp=True)
+    segs, valid, status = hypotheses(arena, lsid, boundary, iw, ih, cfg,
+                                     comp, bcomp)
+    return RectHypotheses(mask, seg, boundary, lsid, segs, valid, status)

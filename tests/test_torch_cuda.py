@@ -1,6 +1,6 @@
 """PyTorch port on a CUDA card: each kernel against its plain version, and
-the poly path and the rect path's region maps on the card against the
-same paths on the CPU.
+the poly path, the rect path's region maps and rect_hypotheses on the
+card against the same paths on the CPU.
 
 These tests need a card and skip without one.  They import neither JAX
 nor the JAX package, so they run where only PyTorch is installed; the
@@ -13,8 +13,10 @@ K1/K2 float outputs and arena floats within atol 2e-4 (the Pallas
 kernels' contract; the plain version's float64 emulation of a fused
 multiply-add may round twice on a tie), edge_thin > 0 equal.  The mkpl
 kernel's arena is held bit-equal to the plain subdivision on the card
-(the same float operations on both sides); seg_scan, blblur and
-quant_despeckle are integer-valued and equal.
+(the same float operations on both sides); seg_scan, blblur,
+quant_despeckle, merge_mask, label_merge, despeckle2 and distinct_bids
+are integer-valued and equal; rect_hypotheses' maps, valid and status
+equal, segs within atol 2e-4.
 """
 
 import numpy as np
@@ -22,13 +24,17 @@ import pytest
 import torch
 
 from rectdetect_tpu_torch.config import PipelineConfig
-from rectdetect_tpu_torch.ops import (hopper_blblur, hopper_ccl, hopper_grad,
+from rectdetect_tpu_torch.ops import (hopper_bids, hopper_blblur, hopper_ccl,
+                                      hopper_despeckle2, hopper_grad,
+                                      hopper_links, hopper_merge_mask,
                                       hopper_mkpl, hopper_morph, hopper_quant,
                                       hopper_scan, hopper_thin, mkpl,
                                       polyline, regions)
 from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
 from rectdetect_tpu_torch.pipeline.poly import poly_frame
-from rectdetect_tpu_torch.pipeline.rect import (region_smoothing,
+from rectdetect_tpu_torch.pipeline.rect import (boundary_labels,
+                                                rect_hypotheses,
+                                                region_smoothing,
                                                 weak_strong_labels)
 
 pytestmark = pytest.mark.cuda
@@ -249,3 +255,53 @@ def test_region_maps_on_card_match_cpu_and_count_launches():
     assert int((outs[1][0] > 0).sum()) > 50
     for name, g, c in zip(("weak", "strong", "blurred", "despeck"), *outs):
         assert torch.equal(g, c), name
+
+
+def test_region_merge_and_bids_kernels_match_plain():
+    """merge_mask (labels > 0, = 0 and < 0), label_merge, despeckle2 and
+    distinct_bids on frames whose sides are not multiples of the 32x32
+    tiles, one region spanning most of the frame."""
+    _need_card()
+    r = np.random.default_rng(12)
+    for h, w in ((37, 53), (96, 128), (70, 33)):
+        strong = (r.random((h, w)) < 0.08) * r.integers(1, 900, (h, w))
+        strong[h // 3, 3:w - 3] = 5
+        strong[3:h - 3, w // 3] = 6
+        strong = np.where(r.random((h, w)) < 0.05, -1, strong)
+        strong = torch.from_numpy(strong.astype(np.int32)).cuda()
+        colours = np.kron(r.integers(0, 3, (h // 4 + 1, w // 4 + 1)),
+                          np.ones((4, 4), np.int64))[:h, :w]
+        colours[: h // 2, : w // 2] = 7
+        colours = np.where(r.random((h, w)) < 0.06, 9, colours)
+        packed = torch.from_numpy(colours.astype(np.int32)).cuda()
+        mask = hopper_merge_mask.junction_merge_mask(strong)
+        assert torch.equal(mask, regions.junction_merge_mask(strong))
+        assert int(mask.sum()) > 0
+        seg0 = hopper_links.label_merge(packed, mask, strong)
+        assert torch.equal(seg0, regions.label_merge(packed, mask, strong))
+        for thre in (16, 3):
+            seg = hopper_despeckle2.sizes_despeckle2(seg0, thre)
+            assert torch.equal(seg, regions.sizes_despeckle2(seg0, thre))
+        boundary = boundary_labels(seg)[0]
+        assert int((boundary >= 0).sum()) > 0
+        for a, b in zip(hopper_bids.distinct_bids(boundary),
+                        hopper_bids.distinct_bids_plain(boundary)):
+            assert torch.equal(a, b)
+    with pytest.raises(TypeError):
+        hopper_links.label_merge(packed, mask.float(), strong)
+
+
+def test_rect_hypotheses_on_card_matches_cpu_and_counts_launches():
+    _need_card()
+    bgr = _scene()
+    mods = (hopper_merge_mask, hopper_links, hopper_despeckle2, hopper_bids,
+            hopper_ccl, hopper_mkpl)
+    for m in mods:
+        m.launches = 0
+    got = rect_hypotheses(bgr.cuda())
+    assert all(m.launches >= 1 for m in mods)
+    want = rect_hypotheses(bgr)
+    for f in ("mask", "seg", "boundary", "lsid", "valid", "status"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    torch.testing.assert_close(got.segs.cpu(), want.segs, rtol=0, atol=ATOL)
+    assert int(want.valid.any(1).sum()) >= 1

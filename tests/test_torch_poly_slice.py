@@ -103,11 +103,13 @@ def test_port_imports_no_jax():
         "from rectdetect_tpu_torch.pipeline.poly import poly_frame\n"
         "from rectdetect_tpu_torch import convert\n"
         "from rectdetect_tpu_torch.apps import poly, profile_poly\n"
-        "from rectdetect_tpu_torch.ops import (hopper_blblur, hopper_mkpl,"
-        " hopper_quant, hopper_scan, mkpl, regions)\n"
+        "from rectdetect_tpu_torch.ops import (hopper_bids, hopper_blblur,"
+        " hopper_despeckle2, hopper_links, hopper_merge_mask, hopper_mkpl,"
+        " hopper_quant, hopper_scan, mkpl, reduce_ls, regions)\n"
+        "from rectdetect_tpu_torch.geometry import clip\n"
         "from rectdetect_tpu_torch.pipeline.frontend import edge_frontend\n"
         "from rectdetect_tpu_torch.pipeline.rect import ("
-        "region_smoothing, weak_strong_labels)\n"
+        "rect_hypotheses, region_smoothing, weak_strong_labels)\n"
         "import chip_smoke\n"
         "img = torch.from_numpy(np.random.default_rng(0).integers("
         "0, 256, (24, 32, 3), dtype=np.uint8))\n"
@@ -115,6 +117,7 @@ def test_port_imports_no_jax():
         "fe = edge_frontend(img)\n"
         "weak, _ = weak_strong_labels(fe.edge_bin, fe.edge_thin)\n"
         "region_smoothing(fe.packed0, weak, fe.edge_thin)\n"
+        "rect_hypotheses(img)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'rectdetect_tpu' or "
         "m.startswith('rectdetect_tpu.'))\n"
