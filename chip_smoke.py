@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's poly path and the rect path from the frame to
-the hypotheses once on a CUDA card, at 1280x720, and check them end to
-end.
+"""Drive the PyTorch port's poly path and rect path (rect_frame, frame ->
+rectangles with their pose) once on a CUDA card, at 1280x720, and check
+them end to end.
 
     python3 chip_smoke.py
 
@@ -10,12 +10,14 @@ PyTorch built for CUDA.  Phases (any failed check exits non-zero before
 the final line):
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build from rectdetect_tpu_torch/csrc, timed;
-  3. each of the twelve kernels (K1 edge_front, K2 thinthres, K3
+  3. each of the fourteen kernels (K1 edge_front, K2 thinthres, K3
      strings_chain, K4 label_components, mkpl, seg_scan, blblur,
-     quant_despeckle, merge_mask, label_merge, despeckle2, distinct_bids)
-     against its plain PyTorch version on the card, at the real 720p
-     intermediates of bench.synth_frame(720, 1280, seed=0), with kernel
-     and plain times (CUDA-event medians); mkpl also under arena overflow;
+     quant_despeckle, merge_mask, label_merge, despeckle2, distinct_bids,
+     hyp, pose) against its plain PyTorch version on the card, at the real
+     720p intermediates of bench.synth_frame(720, 1280, seed=0), with
+     kernel and plain times (CUDA-event medians); mkpl also under arena
+     overflow, hyp also on two 384-group corpora, pose also on 384
+     projected rectangles and degenerate quads;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after: pipeline.poly.poly_frame with DEFAULT_CONFIG
      (held bit for bit against the mkpl_pallas=0 run and against the JAX
@@ -23,10 +25,15 @@ the final line):
      weak_strong_labels -> region_smoothing (held against
      tests/data/rect_regions_720p_synth.npz), and pipeline.rect
      rect_hypotheses, frame -> hypotheses (held against
-     tests/data/rect_hyp_720p_synth.npz); each path must launch its
-     kernels, and a second run must be bit-identical;
+     tests/data/rect_hyp_720p_synth.npz), and pipeline.rect.rect_frame,
+     frame -> RectResult (hyp and pose launched once each; held
+     bit for bit against the hyp_pallas=0 run and against
+     tests/data/rect_frame_720p_synth.npz: valid and status equal, the
+     accepted corner sets matched one to one within 2 px); each path must
+     launch its kernels, and a second run must be bit-identical;
   5. the DEFAULT_CONFIG frame time beside the mkpl_pallas=0 frame time,
-     timed in turns, and the rect stages' times (CUDA-event medians).
+     timed in turns, the rect stages' times and the rect_frame time and
+     frame rate (CUDA-event medians).
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -53,6 +60,20 @@ FLOAT_ATOL = 2e-4
 # arena floats against the JAX fixture: bit-equal is expected, the stated
 # limit is the port's arena tolerance
 ARENA_ATOL = 1e-4
+# hyp corners where ok: the Pallas kernel's contract with XLA
+# (tests/test_pallas_hyp.py); the CUDA kernel runs the plain version's
+# float operations, so bit-equal is expected
+CORNER_ATOL = 1e-3
+# pose value and 3D corners, relative: the kernel runs the plain version's
+# float operations, so bit-equal is expected; 12 CG iterations can grow an
+# ulp of difference, which this bound would still admit
+POSE_RTOL = 1e-3
+# lower bounds on the float operations of one evaluation of the pose
+# objective (csrc/pose.cu quad_value: 185 on floats); a jet with N seed
+# directions does at least 2N more for each operation on the value except
+# the two constant subtractions and the two floors
+POSE_VALUE_OPS = 185
+POSE_JET_OPS_PER_DIR = 2 * (POSE_VALUE_OPS - 4)
 # the least time of a kernel: bytes over the H100 SXM's memory rate,
 # operations over its float32 rate outside the tensor cores (NVIDIA's data
 # sheet; it gives no int32 rate, and the H100 runs int32 no faster, so
@@ -100,21 +121,26 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from bench import synth_frame
+        from rectdetect_tpu_torch.apps.common import TAN_AOV
         from rectdetect_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
         from rectdetect_tpu_torch.core import color
         from rectdetect_tpu_torch.ops import (_build, blur, ccl, hopper_bids,
                                               hopper_blblur, hopper_ccl,
                                               hopper_despeckle2, hopper_grad,
-                                              hopper_links, hopper_merge_mask,
-                                              hopper_mkpl, hopper_morph,
+                                              hopper_hyp, hopper_links,
+                                              hopper_merge_mask, hopper_mkpl,
+                                              hopper_morph, hopper_pose,
                                               hopper_quant, hopper_scan,
                                               hopper_thin, mkpl, polyline,
                                               regions)
+        from rectdetect_tpu_torch import parity
+        from rectdetect_tpu_torch.geometry import pose, quad
         from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
         from rectdetect_tpu_torch.pipeline.poly import live_segments, poly_frame
         from rectdetect_tpu_torch.pipeline.rect import (
-            boundary_labels, hypotheses, rect_hypotheses, region_merge,
-            region_smoothing, weak_strong_labels)
+            boundary_labels, hypotheses, rect_frame, rect_geometry,
+            rect_hypotheses, region_merge, region_smoothing,
+            weak_strong_labels)
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the repository root")
     dev = torch.device("cuda", 0)
@@ -406,6 +432,108 @@ def main() -> int:
            cuda_ms(torch, lambda: hopper_bids.distinct_bids_plain(boundary),
                    3), nb(boundary, *bids), H * W)
 
+    def top(t, where):
+        """The largest of t where `where` holds, 0.0 if nowhere."""
+        t = t[where]
+        return t.max().item() if t.numel() else 0.0
+
+    # the quad reduction on the 720p hypotheses and on two corpora of 384
+    # groups (the 720p frame fills 6 of its 384)
+    hyp = rect_hypotheses(bgr, cfg)
+    corpora = [("720p hypotheses", hyp.segs, hyp.valid)] + [
+        (f"corpus seed {sd} scale {sc}",
+         *(torch.from_numpy(a).to(dev) for a in parity.segment_groups(
+             sd, 2 * cfg.max_groups, cfg.max_group_segs, sc)))
+        for sd, sc in ((0, 1.0), (2, 0.03))]
+    hv = cfg.hull_max_vertices
+    err = 0.0
+    for name, segs_c, valid_c in corpora:
+        corners, ok = hopper_hyp.reduce_groups(segs_c, valid_c, hv)
+        corners_p, ok_p = quad.reduce_groups(segs_c, valid_c, hv)
+        torch.cuda.synchronize()
+        e = top((corners - corners_p).abs(), ok & ok_p)
+        nbits = int((corners == corners_p).sum() +
+                    (corners.isnan() & corners_p.isnan()).sum())
+        phase(f"phase 3 hyp {name}: ok equal {torch.equal(ok, ok_p)} "
+              f"({int(ok.sum())} of {ok.numel()} groups ok); corners where "
+              f"ok max_abs_err {e!r}; {nbits} of {corners.numel()} corner "
+              f"values bit-equal")
+        if not torch.equal(ok, ok_p) or not e <= CORNER_ATOL:
+            fail(f"hyp on {name}: ok differs or corners differ by {e}")
+        err = max(err, e)
+
+    def hull_ops(segs_c, valid_c):
+        """A lower bound on the hull's pair tests: each step the winner is
+        tested against every other valid endpoint and each other candidate
+        at least once (2 (n - 1) tests of 9 operations), over the steps
+        each group's walk takes (its vertex count, at most hv - 1)."""
+        sq = ((segs_c[..., 1, :] - segs_c[..., 0, :]) ** 2).sum(-1)
+        v = quad.remove_short(sq, valid_c & (sq > 0))
+        n = 2 * v.sum(-1)
+        pts = segs_c.reshape(segs_c.shape[0], -1, 2)
+        _, hvalid = quad.jarvis_hull(pts[..., 0], pts[..., 1],
+                                     v.repeat_interleave(2, dim=-1), hv)
+        steps = hvalid.sum(-1).clamp(max=hv - 1)
+        return int((steps * 2 * (n - 1).clamp(min=0) * 9).sum())
+
+    corners, ok = hopper_hyp.reduce_groups(hyp.segs, hyp.valid, hv)
+    record("hyp", "hyp.cu", "rectdetect_tpu/ops/pallas_hyp.py:69", err,
+           cuda_ms(torch, lambda: hopper_hyp.reduce_groups(
+               hyp.segs, hyp.valid, hv), 20),
+           cuda_ms(torch, lambda: quad.reduce_groups(hyp.segs, hyp.valid,
+                                                     hv), 5),
+           nb(hyp.segs, hyp.valid, corners, ok),
+           hull_ops(hyp.segs, hyp.valid))
+
+    # the pose on the 720p quads and on 384 projected rectangles and
+    # degenerate quads
+    quads = [("720p quads", corners)] + [
+        ("projected rectangles", torch.from_numpy(parity.pose_quads(
+            0, 336, 48, W, H, TAN_AOV)).to(dev))]
+    pose_args = (W, H, TAN_AOV, cfg.cg_iters, cfg.cg_line_search_iters)
+    err = 0.0
+    for name, q in quads:
+        got = hopper_pose.pose_estimate(q, *pose_args)
+        want = pose.pose_estimate(q, *pose_args)
+        torch.cuda.synchronize()
+        screens = [pose.looks_like_a_screen(*r, cfg.accept_value,
+                                            cfg.aspect_limit,
+                                            cfg.offset_ratio_limit)
+                   for r in (got, want)]
+        same_nan = all(torch.equal(a.isnan(), b.isnan())
+                       for a, b in zip(got[1:], want[1:]))
+        rel = [top((a - b).abs() / b.abs().clamp(min=1e-6),
+                   a.isfinite() & b.isfinite())
+               for a, b in zip(got[1:], want[1:])]
+        nbits = [int((a == b).sum() + (a.isnan() & b.isnan()).sum())
+                 for a, b in zip(got[1:], want[1:])]
+        away = (want[2] - cfg.accept_value).abs() > 1e-3
+        n_screen = int((screens[0] != screens[1])[away].sum())
+        phase(f"phase 3 pose {name}: c2 equal {torch.equal(got[0], want[0])}; "
+              f"NaN in the same places {same_nan}; c3 max rel diff "
+              f"{rel[0]!r} ({nbits[0]} of {got[1].numel()} bit-equal); value "
+              f"max rel diff {rel[1]!r} ({nbits[1]} of {got[2].numel()} "
+              f"bit-equal); screen bits differ at {n_screen} groups with "
+              f"value > 1e-3 from accept_value ({int(screens[1].sum())} "
+              f"screens)")
+        if not (torch.equal(got[0], want[0]) and same_nan
+                and max(rel) <= POSE_RTOL and n_screen == 0):
+            fail(f"pose on {name} differs from the plain version")
+        err = max([err] + [top((a - b).abs(), a.isfinite() & b.isfinite())
+                           for a, b in zip(got[1:], want[1:])])
+    g = corners.shape[0]
+    n_jet4 = cfg.cg_iters + 1
+    n_jet1 = cfg.cg_iters * cfg.cg_line_search_iters
+    pose_ops = 2 * g * (n_jet4 * (POSE_VALUE_OPS + 4 * POSE_JET_OPS_PER_DIR)
+                        + n_jet1 * (POSE_VALUE_OPS + POSE_JET_OPS_PER_DIR)
+                        + (n_jet1 + 1) * POSE_VALUE_OPS)
+    c2_t, c3_t, val_t = hopper_pose.pose_estimate(corners, *pose_args)
+    record("pose", "pose.cu", "rectdetect_tpu/geometry/pose.py:205", err,
+           cuda_ms(torch, lambda: hopper_pose.pose_estimate(
+               corners, *pose_args), 20),
+           cuda_ms(torch, lambda: pose.pose_estimate(corners, *pose_args), 3),
+           nb(corners, c2_t, c3_t, val_t), pose_ops)
+
     # ---- 4. the main paths -----------------------------------------------
     counters = {"edge_front": hopper_grad, "thinthres": hopper_thin,
                 "strings_chain": hopper_morph,
@@ -414,7 +542,8 @@ def main() -> int:
                 "quant_despeckle": hopper_quant,
                 "merge_mask": hopper_merge_mask, "label_merge": hopper_links,
                 "despeckle2": hopper_despeckle2,
-                "distinct_bids": hopper_bids}
+                "distinct_bids": hopper_bids, "hyp": hopper_hyp,
+                "pose": hopper_pose}
     launches = {}
 
     def drive(path, names, fn):
@@ -523,7 +652,8 @@ def main() -> int:
             region["weak_gt0_mismatch"] or region["strong_gt0_mismatch"]:
         fail("the region maps differ from the JAX fixture")
 
-    hyp = drive("rect_hypotheses", list(counters),
+    hyp = drive("rect_hypotheses", [k for k in counters
+                                    if k not in ("hyp", "pose")],
                 lambda: rect_hypotheses(bgr, cfg))
     hyp2 = rect_hypotheses(bgr, cfg)
     torch.cuda.synchronize()
@@ -554,6 +684,53 @@ def main() -> int:
     if not (all(v for k, v in hstage.items() if k.endswith("_equal"))
             and hstage["segs_max_diff"] <= ARENA_ATOL):
         fail("rect_hypotheses differs from the JAX fixture")
+
+    res = drive("rect_frame", list(counters),
+                lambda: rect_frame(bgr, TAN_AOV, cfg))
+    once = {k: launches[k] for k in ("hyp", "pose")}
+    if once != {"hyp": 1, "pose": 1}:
+        fail(f"rect_frame launched hyp and pose {once} times, not once each")
+    res2 = rect_frame(bgr, TAN_AOV, cfg)
+    res_p = rect_frame(bgr, TAN_AOV, PipelineConfig(hyp_pallas=0))
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(res, res2))
+    same_p = all(torch.equal(x, y) for x, y in zip(res, res_p))
+    phase(f"phase 4 rect_frame second run bit-identical: {same}; "
+          f"bit-identical to the hyp_pallas=0 run: {same_p}")
+    if not (same and same_p):
+        fail("rect_frame runs on the card differ")
+    n_groups = 2 * cfg.max_groups
+    if tuple(res.c2.shape) != (n_groups, 4, 2) or \
+            tuple(res.c3.shape) != (n_groups, 4, 3) or \
+            not all(torch.isfinite(t).all() for t in (res.c2, res.c3)) or \
+            not torch.isfinite(res.value[res.valid]).all():
+        fail("rect_frame: wrong shapes or non-finite values")
+    rf = np.load(os.path.join(ROOT, "tests", "data",
+                              "rect_frame_720p_synth.npz"))
+    phase(f"phase 4 rect_frame fixture: "
+          f"{json.loads(str(rf['meta']))['reference']}")
+    valid_np = res.valid.cpu().numpy()
+    c2_np = res.c2.cpu().numpy()
+    both = valid_np & rf["valid"]
+    mine = parity.accepted_corner_sets(c2_np, valid_np)
+    ref = parity.accepted_corner_sets(rf["c2"], rf["valid"])
+    n_match, only_port, only_ref = parity.match_sets(mine, ref)
+    fstage = {
+        "valid_equal": bool((valid_np == rf["valid"]).all()),
+        "status_equal": bool((res.status.cpu().numpy() == rf["status"]).all()),
+        "valid": int(valid_np.sum()),
+        "screens": int((res.status.cpu().numpy() & 1).sum()),
+        "c2_max_diff": float(np.abs(c2_np - rf["c2"])[both].max())
+        if both.any() else 0.0,
+        "value_max_diff": float(np.abs(res.value.cpu().numpy()[both]
+                                       - rf["value"][both]).max())
+        if both.any() else 0.0,
+        "corner_sets": len(mine), "corner_sets_ref": len(ref),
+        "matched": n_match, "port_only": only_port, "ref_only": only_ref}
+    phase(f"phase 4 rect_frame vs fixture: {json.dumps(fstage)}")
+    if not (fstage["valid_equal"] and fstage["status_equal"]
+            and only_port == 0 and only_ref == 0 and n_match == len(ref)):
+        fail("rect_frame differs from the JAX fixture")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 
@@ -613,6 +790,37 @@ def main() -> int:
              lambda: rect_hypotheses(bgr, cfg), 20)):
         phase(f"phase 5 {name} 720p: median {cuda_ms(torch, fn, reps):.3f} "
               f"ms (CUDA events, {reps} runs)")
+    corners_t, _ = hopper_hyp.reduce_groups(hyp.segs, hyp.valid, hv)
+    for name, fn in (
+            ("quad reduction (hyp)", lambda: hopper_hyp.reduce_groups(
+                hyp.segs, hyp.valid, hv)),
+            ("pose", lambda: hopper_pose.pose_estimate(corners_t,
+                                                       *pose_args)),
+            ("rect_geometry (hypotheses -> RectResult)",
+             lambda: rect_geometry(hyp.segs, hyp.valid, hyp.status, W, H,
+                                   TAN_AOV, cfg))):
+        phase(f"phase 5 {name} 720p: median {cuda_ms(torch, fn, 20):.3f} ms "
+              f"(CUDA events, 20 runs)")
+    for _ in range(3):
+        rect_frame(bgr, TAN_AOV, cfg)
+    torch.cuda.synchronize()
+    times, walls = [], []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        w0 = time.perf_counter()
+        start.record()
+        rect_frame(bgr, TAN_AOV, cfg)
+        end.record()
+        end.synchronize()
+        walls.append((time.perf_counter() - w0) * 1e3)
+        times.append(start.elapsed_time(end))
+    med = statistics.median(times)
+    phase(f"phase 5 rect_frame 720p DEFAULT_CONFIG: median {med:.3f} ms "
+          f"(CUDA events, 20 frames, min {min(times):.3f}, max "
+          f"{max(times):.3f}); host wall median "
+          f"{statistics.median(walls):.3f} ms; {1000.0 / med:.2f} frames/s; "
+          f"card {card}")
     phase(f"phase 5 peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; card {card}")
 

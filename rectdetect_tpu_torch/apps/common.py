@@ -3,10 +3,15 @@
 
 from __future__ import annotations
 
+import math
 import sys
 
 import numpy as np
 import torch
+
+# tan of half the rect tools' 72-degree horizontal angle of view
+# (rect.cpp:84)
+TAN_AOV = math.tan(math.radians(72.0) / 2)
 
 
 def pick_device(spec: str) -> torch.device:
@@ -77,3 +82,29 @@ def draw_segments(img: np.ndarray, segs, alternating: bool) -> None:
             draw_line(img, (s["x0"], s["y0"]), (s["x1"], s["y1"]), color)
             j = s["right"]
             cnt += 1
+
+
+def draw_rect(img: np.ndarray, c2, color, thickness: int) -> None:
+    """showRect (rect.cpp:33-46): the 4 sides, `thickness` px wide, and
+    both diagonals, 1 px."""
+    pts = [(float(x), float(y)) for x, y in c2]
+    for i in range(4):
+        for dy in range(thickness):
+            for dx in range(thickness):
+                a, b = pts[i], pts[(i + 1) % 4]
+                draw_line(img, (a[0] + dx, a[1] + dy), (b[0] + dx, b[1] + dy),
+                          color)
+    draw_line(img, pts[0], pts[2], color)
+    draw_line(img, pts[1], pts[3], color)
+
+
+# status -> (BGR colour, thickness) (rect.cpp:107-121): hypotheses in
+# blue, screens (status bit 0) in orange, polyline-sourced screens in red
+RECT_STYLE_STILL = {0: ((255, 0, 0), 1), 2: ((255, 0, 0), 1),
+                    1: ((0, 200, 255), 2), 3: ((0, 0, 255), 2)}
+
+
+def draw_rects(img: np.ndarray, rects, style) -> None:
+    for r in rects:
+        color, thickness = style.get(r["status"], ((255, 255, 255), 1))
+        draw_rect(img, r["c2"], color, thickness)

@@ -1,5 +1,4 @@
-"""Where a poly frame's time, and the rect path's time up to the
-hypotheses, go on a CUDA card.
+"""Where a poly frame's time, and a rect frame's time, go on a CUDA card.
 
 Usage: python -m rectdetect_tpu_torch.apps.profile_poly [frames] [image]
 
@@ -9,14 +8,15 @@ the repository root), with DEFAULT_CONFIG.  Prints, for the CUDA device 0:
     front-end, labels + strength filter, polyline stage, whole poly
     frame; the rect path's edge labeling (weak_strong_labels), region
     smoothing (blblur + quantize/despeckle), region merge, boundary
-    labels, polylines of the strong edges, hypotheses, and the whole
-    rect_hypotheses;
+    labels, polylines of the strong edges, hypotheses, quad reduction
+    (#15), pose, the whole geometry tail (reduction, pose, screen test,
+    sanitising), the whole rect_hypotheses and the whole rect_frame;
   * for the poly frame, the region path (front-end, edge labeling,
-    region smoothing), rect_hypotheses and its hypotheses stage alone, a
-    torch.profiler table of the ops with the most device time over 5
-    runs, the summed kernel time, the kernel launches per run and the
-    device idle share of the profiled wall time (1 - kernel time / wall
-    time).
+    region smoothing), rect_hypotheses, its hypotheses stage alone, the
+    geometry tail and rect_frame, a torch.profiler table of the ops with
+    the most device time over 5 runs, the summed kernel time, the kernel
+    launches per run and the device idle share of the profiled wall time
+    (1 - kernel time / wall time).
 """
 
 from __future__ import annotations
@@ -28,15 +28,16 @@ import time
 import torch
 
 from rectdetect_tpu_torch.apps import common
+from rectdetect_tpu_torch.apps.common import TAN_AOV
 
 
 def _stages(bgr, cfg):
-    from rectdetect_tpu_torch.ops import ccl, polyline
+    from rectdetect_tpu_torch.ops import ccl, hopper_hyp, hopper_pose, polyline
     from rectdetect_tpu_torch.ops.hopper_ccl import label_components
     from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
     from rectdetect_tpu_torch.pipeline.rect import (
-        boundary_labels, hypotheses, region_merge, region_smoothing,
-        weak_strong_labels)
+        boundary_labels, hypotheses, rect_geometry, region_merge,
+        region_smoothing, weak_strong_labels)
 
     h, w = bgr.shape[:2]
     state = {}
@@ -81,8 +82,20 @@ def _stages(bgr, cfg):
 
     def hyp():
         arena, lsid, comp = state["pl"]
-        hypotheses(arena, lsid, state["boundary"], w, h, cfg, comp,
-                   state["bcomp"])
+        state["hyp"] = hypotheses(arena, lsid, state["boundary"], w, h, cfg,
+                                  comp, state["bcomp"])
+
+    def reduce():
+        segs, valid, _ = state["hyp"]
+        state["corners"] = hopper_hyp.reduce_groups(
+            segs, valid, cfg.hull_max_vertices)[0]
+
+    def pose():
+        hopper_pose.pose_estimate(state["corners"], w, h, TAN_AOV,
+                                  cfg.cg_iters, cfg.cg_line_search_iters)
+
+    def geometry():
+        rect_geometry(*state["hyp"], w, h, TAN_AOV, cfg)
 
     return (("front-end (colour, blur, K1, K2)", frontend),
             ("labels + strength (K4)", labels),
@@ -92,7 +105,10 @@ def _stages(bgr, cfg):
             ("rect region merge (#6, #9, #8)", merge),
             ("rect boundary labels (K4)", boundary),
             ("rect polylines of the strong edges", rect_polyline),
-            ("rect hypotheses (#7, tables, members)", hyp))
+            ("rect hypotheses (#7, tables, members)", hyp),
+            ("rect quad reduction (#15)", reduce),
+            ("rect pose (pose kernel)", pose),
+            ("rect geometry: reduction, pose, screen", geometry))
 
 
 def _profile(name, fn, runs=5):
@@ -141,7 +157,8 @@ def main(argv=None) -> int:
     from rectdetect_tpu_torch.config import DEFAULT_CONFIG
     from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
     from rectdetect_tpu_torch.pipeline.poly import poly_frame
-    from rectdetect_tpu_torch.pipeline.rect import (rect_hypotheses,
+    from rectdetect_tpu_torch.pipeline.rect import (rect_frame,
+                                                    rect_hypotheses,
                                                     region_smoothing,
                                                     weak_strong_labels)
 
@@ -151,7 +168,9 @@ def main(argv=None) -> int:
     stages = _stages(bgr, cfg) + (
         ("whole frame (poly_frame)", lambda: poly_frame(bgr, cfg)),
         ("rect_hypotheses (frame -> hypotheses)",
-         lambda: rect_hypotheses(bgr, cfg)))
+         lambda: rect_hypotheses(bgr, cfg)),
+        ("rect_frame (frame -> rectangles)",
+         lambda: rect_frame(bgr, TAN_AOV, cfg)))
     for _ in range(3):
         for _, fn in stages:
             fn()
@@ -169,7 +188,7 @@ def main(argv=None) -> int:
     print(f"{torch.cuda.get_device_name(0)}; frame {img.shape[1]}x"
           f"{img.shape[0]}; CUDA-event medians over {frames} frames:")
     for name, ts in times.items():
-        print(f"  {name:40s} {statistics.median(ts):9.3f} ms "
+        print(f"  {name:42s} {statistics.median(ts):9.3f} ms "
               f"(min {min(ts):.3f}, max {max(ts):.3f})")
 
     def region_path():
@@ -181,8 +200,10 @@ def main(argv=None) -> int:
     _profile("edge_frontend -> weak_strong_labels -> region_smoothing",
              region_path)
     _profile("rect_hypotheses", lambda: rect_hypotheses(bgr, cfg))
-    hyp = dict(stages)["rect hypotheses (#7, tables, members)"]
-    _profile("hypotheses", hyp)
+    named = dict(stages)
+    _profile("hypotheses", named["rect hypotheses (#7, tables, members)"])
+    _profile("rect geometry", named["rect geometry: reduction, pose, screen"])
+    _profile("rect_frame", lambda: rect_frame(bgr, TAN_AOV, cfg))
     return 0
 
 

@@ -36,10 +36,11 @@ NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argument types (pointers, ints, float, stream)
 SIGNATURES = {
     "rd_edge_front": (_P, _P, _P, _I, _I, _P),
-    "rd_thin": (_P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+    "rd_thin": (_P, _P, _P, _I, _I, _I, _F, _P),
     "rd_strings_chain": (_P, _P, _P, _P, _I, _I, _I, _P),
     "rd_label_components": (_P, _P, _P, _I, _I, _I, _P),
     "rd_mkpl": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -50,6 +51,8 @@ SIGNATURES = {
     "rd_label_merge": (_P, _P, _P, _P, _I, _I, _P),
     "rd_despeckle2": (_P, _P, _P, _I, _I, _I, _P),
     "rd_distinct_bids": (_P, _P, _I, _I, _P),
+    "rd_hyp": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "rd_pose": (_P, _P, _P, _P, _I, _F, _F, _F, _I, _I, _P),
 }
 
 _lib = None

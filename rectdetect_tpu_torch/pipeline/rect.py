@@ -1,16 +1,17 @@
-"""The rect pipeline from the frame to the hypotheses (port of
-rectdetect_tpu/pipeline/rect.py:rect_tail up to _hypotheses).
+"""The rect pipeline: frame -> detected rectangles with their 3D pose (port
+of rectdetect_tpu/pipeline/rect.py:rect_frame, one frame at a time).
 
-Mirrors oclrect.c:262-361 and the group-building half of executeCPUTask
-(oclrect.c:1049-1188): the weak/strong edge labels (strings morphology,
-kernel K3; exact labels, K4; the strength pair with the segmented scan,
-#10), the edge-limited blur (#12) and quantize + despeckle (#5) of the
-packed-Lab plane, the region merge (merge mask #6, links CCL #9,
-despeckle2 #8), the boundary labels (mark_boundary, K4 on its foreground),
-the polylines of the strong edges, and the two hypothesis sources: region
-boundaries (pair table with distinct bids #7, probes, clipping) and whole
-polylines.  `rect_hypotheses` runs the chain; its outputs are the input
-of quad reduction.
+Mirrors oclrect.c:262-381 and executeCPUTask (oclrect.c:1049-1226): the
+weak/strong edge labels (strings morphology, kernel K3; exact labels, K4;
+the strength pair with the segmented scan, #10), the edge-limited blur
+(#12) and quantize + despeckle (#5) of the packed-Lab plane, the region
+merge (merge mask #6, links CCL #9, despeckle2 #8), the boundary labels
+(mark_boundary, K4 on its foreground), the polylines of the strong edges,
+the two hypothesis sources: region boundaries (pair table with distinct
+bids #7, probes, clipping) and whole polylines, then the quad reduction
+(#15) and the pose (its own kernel) of every group, the screen test and
+the result's sanitising.  `rect_hypotheses` runs the chain up to the
+hypotheses, `rect_geometry` the rest, `rect_frame` both.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ from typing import NamedTuple
 import torch
 
 from rectdetect_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
+from rectdetect_tpu_torch.geometry import pose, quad
 from rectdetect_tpu_torch.geometry.clip import clip_segments
-from rectdetect_tpu_torch.ops import ccl, reduce_ls
+from rectdetect_tpu_torch.ops import ccl, hopper_hyp, hopper_pose, reduce_ls
 from rectdetect_tpu_torch.ops.compact import Compaction, compact_mask
 from rectdetect_tpu_torch.ops.hopper_blblur import blblur
 from rectdetect_tpu_torch.ops.hopper_ccl import label_components
@@ -34,6 +36,17 @@ from rectdetect_tpu_torch.ops.mkpl import SegmentArena
 from rectdetect_tpu_torch.ops.polyline import polyline_execute
 from rectdetect_tpu_torch.ops.regions import mark_boundary
 from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
+
+
+class RectResult(NamedTuple):
+    """Detected rectangles; fixed capacity 2G with a valid mask (the
+    reference returns a dynamic rect_t list, oclrect.h:5-15)."""
+    c2: torch.Tensor      # (2G,4,2) float32 image corners, top-left first
+    c3: torch.Tensor      # (2G,4,3) float32 3D corners (unit-side scale)
+    value: torch.Tensor   # (2G,) float32 pose residual, inf where not valid
+    status: torch.Tensor  # (2G,) int32 bit0: looks like a screen;
+    #                       bit1: polyline source
+    valid: torch.Tensor   # (2G,) bool: the hypothesis survived reduction
 
 
 class RectHypotheses(NamedTuple):
@@ -194,3 +207,57 @@ def rect_hypotheses(bgr: torch.Tensor,
     segs, valid, status = hypotheses(arena, lsid, boundary, iw, ih, cfg,
                                      comp, bcomp)
     return RectHypotheses(mask, seg, boundary, lsid, segs, valid, status)
+
+
+def rect_geometry(segs: torch.Tensor, valid: torch.Tensor,
+                  status: torch.Tensor, iw: int, ih: int, tan_aov: float,
+                  cfg: PipelineConfig = DEFAULT_CONFIG) -> RectResult:
+    """The hypotheses -> RectResult (the reduction and pose of
+    rect_geometry_tail, rectdetect_tpu/pipeline/rect.py:355-379): each group
+    reduced to a quad (#15), its pose (the pose kernel), the screen test,
+    status bit 0, then the sanitising: a group whose pose residual is not
+    finite is not valid, and a group that is not valid gets value inf and
+    zero corners.  `hyp_pallas` selects the kernels on a CUDA device (1,
+    the default) or the plain versions (0); a CPU tensor always takes the
+    plain versions.  tan_aov: tan of half the horizontal angle of view,
+    divided into iw/2 in float32."""
+    if cfg.hyp_pallas:
+        reduce_fn, pose_fn = hopper_hyp.reduce_groups, \
+            hopper_pose.pose_estimate
+    else:
+        reduce_fn, pose_fn = quad.reduce_groups, pose.pose_estimate
+    corners, ok = reduce_fn(segs, valid, cfg.hull_max_vertices)
+    c2, c3, val = pose_fn(corners, iw, ih, tan_aov, cfg.cg_iters,
+                          cfg.cg_line_search_iters)
+    screen = pose.looks_like_a_screen(c2, c3, val, cfg.accept_value,
+                                      cfg.aspect_limit,
+                                      cfg.offset_ratio_limit)
+    status = status | screen.to(torch.int32)
+    # degenerate groups carry NaN through the pose; sanitise so that
+    # reductions over the fixed-capacity result are safe
+    ok = ok & torch.isfinite(val)
+    val = torch.where(ok, val, float("inf"))
+    c2 = torch.where(ok[:, None, None], torch.nan_to_num(c2), 0.0)
+    c3 = torch.where(ok[:, None, None], torch.nan_to_num(c3), 0.0)
+    return RectResult(c2=c2, c3=c3, value=val, status=status, valid=ok)
+
+
+def rect_frame(bgr: torch.Tensor, tan_aov: float,
+               cfg: PipelineConfig = DEFAULT_CONFIG) -> RectResult:
+    """BGR (H,W,3) uint8 frame, on the CPU or a CUDA device -> RectResult.
+    The JAX package's batched form (rect_frames, (B,H,W,3)) is not ported."""
+    if bgr.dim() != 3:
+        raise NotImplementedError("rect_frame takes one (H,W,3) frame; the "
+                                  "batched rect_frames is not ported yet")
+    hyp = rect_hypotheses(bgr, cfg)
+    ih, iw = bgr.shape[:2]
+    return rect_geometry(hyp.segs, hyp.valid, hyp.status, iw, ih, tan_aov,
+                         cfg)
+
+
+def live_rects(res: RectResult) -> list[dict]:
+    """Host side: the surviving hypotheses as a list of dicts (the rect_t
+    list consumption, rect.cpp:107-121)."""
+    c2, c3, val, stat, ok = (t.cpu().numpy() for t in res)
+    return [{"c2": c2[i], "c3": c3[i], "value": float(val[i]),
+             "status": int(stat[i])} for i in range(c2.shape[0]) if ok[i]]

@@ -1,6 +1,6 @@
 """PyTorch port on a CUDA card: each kernel against its plain version, and
-the poly path, the rect path's region maps and rect_hypotheses on the
-card against the same paths on the CPU.
+the poly path, the rect path's region maps, rect_hypotheses and
+rect_frame on the card against the same paths on the CPU.
 
 These tests need a card and skip without one.  They import neither JAX
 nor the JAX package, so they run where only PyTorch is installed; the
@@ -16,23 +16,31 @@ kernel's arena is held bit-equal to the plain subdivision on the card
 (the same float operations on both sides); seg_scan, blblur,
 quant_despeckle, merge_mask, label_merge, despeckle2 and distinct_bids
 are integer-valued and equal; rect_hypotheses' maps, valid and status
-equal, segs within atol 2e-4.
+equal, segs within atol 2e-4.  The hyp and pose kernels run their plain
+versions' float operations, so `ok` and c2 are held equal and the other
+floats within rtol 1e-3 (bit-equal expected); rect_frame's valid and
+status equal, its corners within 2e-4 px.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+from rectdetect_tpu_torch import parity
 from rectdetect_tpu_torch.config import PipelineConfig
-from rectdetect_tpu_torch.ops import (hopper_bids, hopper_blblur, hopper_ccl,
-                                      hopper_despeckle2, hopper_grad,
-                                      hopper_links, hopper_merge_mask,
-                                      hopper_mkpl, hopper_morph, hopper_quant,
+from rectdetect_tpu_torch.geometry import pose, quad
+from rectdetect_tpu_torch.ops import (_build, hopper_bids, hopper_blblur,
+                                      hopper_ccl, hopper_despeckle2,
+                                      hopper_grad, hopper_hyp, hopper_links,
+                                      hopper_merge_mask, hopper_mkpl,
+                                      hopper_morph, hopper_pose, hopper_quant,
                                       hopper_scan, hopper_thin, mkpl,
                                       polyline, regions)
 from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
 from rectdetect_tpu_torch.pipeline.poly import poly_frame
-from rectdetect_tpu_torch.pipeline.rect import (boundary_labels,
+from rectdetect_tpu_torch.pipeline.rect import (boundary_labels, rect_frame,
                                                 rect_hypotheses,
                                                 region_smoothing,
                                                 weak_strong_labels)
@@ -40,6 +48,8 @@ from rectdetect_tpu_torch.pipeline.rect import (boundary_labels,
 pytestmark = pytest.mark.cuda
 
 ATOL = 2e-4
+POSE_RTOL = 1e-3
+TAN_AOV = math.tan(math.radians(72.0) / 2)
 
 
 def _need_card():
@@ -305,3 +315,89 @@ def test_rect_hypotheses_on_card_matches_cpu_and_counts_launches():
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
     torch.testing.assert_close(got.segs.cpu(), want.segs, rtol=0, atol=ATOL)
     assert int(want.valid.any(1).sum()) >= 1
+
+
+@pytest.mark.parametrize("seed,scale,k", [(0, 1.0, 48), (2, 0.03, 48),
+                                          (3, 1.0, 13)])
+def test_hyp_kernel_matches_plain(seed, scale, k):
+    """384 groups of the randomized corpus (quads, axis-aligned quads, a
+    duplicate-heavy and a zero-length group), also at an odd K."""
+    _need_card()
+    segs, valid = parity.segment_groups(seed, 384, k, scale)
+    segs = torch.from_numpy(segs).cuda()
+    valid = torch.from_numpy(valid).cuda()
+    got_c, got_ok = hopper_hyp.reduce_groups(segs, valid, 24)
+    want_c, want_ok = quad.reduce_groups(segs, valid, 24)
+    assert torch.equal(got_ok, want_ok)
+    assert int(want_ok.sum()) >= 10
+    torch.testing.assert_close(got_c[want_ok], want_c[want_ok], rtol=0,
+                               atol=1e-3)
+    torch.testing.assert_close(got_c, want_c, rtol=0, atol=0, equal_nan=True)
+
+
+def test_hyp_kernel_empty_groups():
+    _need_card()
+    segs = torch.zeros((5, 48, 2, 2), device="cuda")
+    valid = torch.zeros((5, 48), dtype=torch.bool, device="cuda")
+    corners, ok = hopper_hyp.reduce_groups(segs, valid, 24)
+    assert corners.shape == (5, 4, 2) and not ok.any()
+
+
+def test_pose_kernel_matches_plain():
+    _need_card()
+    q = torch.from_numpy(parity.pose_quads(1, 56, 8, 640, 480,
+                                           TAN_AOV)).cuda()
+    got = hopper_pose.pose_estimate(q, 640, 480, TAN_AOV)
+    want = pose.pose_estimate(q, 640, 480, TAN_AOV)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=POSE_RTOL, atol=1e-6,
+                                   equal_nan=True)
+    assert int(pose.looks_like_a_screen(*want).sum()) >= 40
+
+
+def test_rect_frame_on_card_launches_hyp_and_pose_once():
+    _need_card()
+    bgr = _scene()
+    hopper_hyp.launches = hopper_pose.launches = 0
+    got = rect_frame(bgr.cuda(), TAN_AOV)
+    torch.cuda.synchronize()
+    assert (hopper_hyp.launches, hopper_pose.launches) == (1, 1)
+    want = rect_frame(bgr, TAN_AOV)
+    for f in ("valid", "status"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    torch.testing.assert_close(got.c2.cpu(), want.c2, rtol=0, atol=ATOL)
+    assert int(want.valid.sum()) >= 1
+
+
+def test_hyp_pallas_0_runs_the_plain_versions_on_card():
+    _need_card()
+    bgr = _scene().cuda()
+    hopper_hyp.launches = hopper_pose.launches = 0
+    plain = rect_frame(bgr, TAN_AOV, PipelineConfig(hyp_pallas=0))
+    torch.cuda.synchronize()
+    assert (hopper_hyp.launches, hopper_pose.launches) == (0, 0)
+    kern = rect_frame(bgr, TAN_AOV)
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+
+
+def test_failed_launch_raises_without_fallback():
+    """A CUDA tensor the kernel cannot take raises in the wrapper, and a
+    launch the kernel refuses raises from its error code; neither falls
+    back to a plain version."""
+    _need_card()
+    segs = torch.zeros((3, 65, 2, 2), device="cuda")
+    valid = torch.ones((3, 65), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError):
+        hopper_hyp.reduce_groups(segs, valid, 24)
+    with pytest.raises(TypeError):
+        hopper_pose.pose_estimate(torch.zeros((3, 4, 2), device="cuda",
+                                              dtype=torch.float64),
+                                  640, 480, TAN_AOV)
+    corners = torch.empty((3, 4, 2), device="cuda")
+    ok = torch.empty((3,), dtype=torch.bool, device="cuda")
+    with pytest.raises(RuntimeError):
+        _build.launch("rd_hyp", segs.device, segs.data_ptr(),
+                      valid.data_ptr(), corners.data_ptr(), ok.data_ptr(),
+                      3, 65, 24, 0.0025)

@@ -101,15 +101,16 @@ def test_port_imports_no_jax():
     code = (
         "import sys, numpy as np, torch\n"
         "from rectdetect_tpu_torch.pipeline.poly import poly_frame\n"
-        "from rectdetect_tpu_torch import convert\n"
-        "from rectdetect_tpu_torch.apps import poly, profile_poly\n"
+        "from rectdetect_tpu_torch import convert, parity\n"
+        "from rectdetect_tpu_torch.apps import poly, profile_poly, rect\n"
         "from rectdetect_tpu_torch.ops import (hopper_bids, hopper_blblur,"
-        " hopper_despeckle2, hopper_links, hopper_merge_mask, hopper_mkpl,"
-        " hopper_quant, hopper_scan, mkpl, reduce_ls, regions)\n"
-        "from rectdetect_tpu_torch.geometry import clip\n"
+        " hopper_despeckle2, hopper_hyp, hopper_links, hopper_merge_mask,"
+        " hopper_mkpl, hopper_pose, hopper_quant, hopper_scan, mkpl,"
+        " reduce_ls, regions)\n"
+        "from rectdetect_tpu_torch.geometry import clip, pose, quad\n"
         "from rectdetect_tpu_torch.pipeline.frontend import edge_frontend\n"
         "from rectdetect_tpu_torch.pipeline.rect import ("
-        "rect_hypotheses, region_smoothing, weak_strong_labels)\n"
+        "rect_frame, region_smoothing, weak_strong_labels)\n"
         "import chip_smoke\n"
         "img = torch.from_numpy(np.random.default_rng(0).integers("
         "0, 256, (24, 32, 3), dtype=np.uint8))\n"
@@ -117,7 +118,7 @@ def test_port_imports_no_jax():
         "fe = edge_frontend(img)\n"
         "weak, _ = weak_strong_labels(fe.edge_bin, fe.edge_thin)\n"
         "region_smoothing(fe.packed0, weak, fe.edge_thin)\n"
-        "rect_hypotheses(img)\n"
+        "rect_frame(img, 0.7)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'rectdetect_tpu' or "
         "m.startswith('rectdetect_tpu.'))\n"

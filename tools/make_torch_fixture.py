@@ -2,9 +2,9 @@
 port against, from the JAX package run on the CPU on
 bench.synth_frame(720, 1280, seed=0).
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [poly|rect|hyp] [out.npz]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [poly|rect|hyp|frame] [out.npz]
 
-Without arguments it writes all three.
+Without arguments it writes all of them.
 
 `poly`: the poly path with PipelineConfig(mkpl_pallas=0), into
 tests/data/poly_720p_synth.npz, holding
@@ -40,12 +40,27 @@ come from converged labels where the fixed-pass ones change them (as
 boundary where the JAX CPU path's fixed-pass labels differ from it, with
 the pixels beyond the boundary compaction's capacity dropped to -1, as
 the JAX package's TPU path drops them (pallas_ccl._label_sparse).
+
+`frame`: the rest of rect_frame, from the hypotheses to the RectResult,
+with the default PipelineConfig and tan_aov = tan(36 degrees): the `hyp`
+fixture's segs, valid and status through rect_geometry_tail's
+quad.reduce_groups, pose.pose_estimate, looks_like_a_screen and the
+result's sanitising, jitted, into tests/data/rect_frame_720p_synth.npz,
+holding the RectResult (c2, c3, value, status, valid), the reduction's
+corners and ok, and `meta`, which also says whether the interpreted
+pallas_hyp.reduce_groups_pallas agrees with reduce_groups on ok and on
+the corners to 1e-3.  It also writes tests/data/rect_frame_small.npz: the
+two-quad 192x144 scene of tests/test_rect_pipeline.py (draw_scene) through
+the `hyp` chain and the same tail, with the frame itself and its
+hypotheses, so that a test can run the whole rect_frame on it without
+compiling the JAX rect_frame.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import sys
 
@@ -70,11 +85,12 @@ def bits(a) -> np.ndarray:
 
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
-    which = argv[1:2] or list(FIXTURES)
-    if which[0] not in FIXTURES:
-        sys.exit(f"unknown fixture {which[0]!r}: one of {sorted(FIXTURES)}")
+    makers = {"poly": make_poly, "rect": make_rect, "hyp": make_hyp,
+              "frame": make_frame}
+    which = argv[1:2] or list(makers)
+    if which[0] not in makers:
+        sys.exit(f"unknown fixture {which[0]!r}: one of {sorted(makers)}")
     out = argv[2] if len(argv) > 2 else None
-    makers = {"poly": make_poly, "rect": make_rect, "hyp": make_hyp}
     for name in which:
         makers[name](out or os.path.join(ROOT, "tests", "data",
                                          FIXTURES[name]))
@@ -83,7 +99,9 @@ def main(argv=None) -> int:
 
 FIXTURES = {"poly": "poly_720p_synth.npz",
             "rect": "rect_regions_720p_synth.npz",
-            "hyp": "rect_hyp_720p_synth.npz"}
+            "hyp": "rect_hyp_720p_synth.npz",
+            "frame": "rect_frame_720p_synth.npz",
+            "frame_small": "rect_frame_small.npz"}
 
 
 def make_poly(out: str) -> None:
@@ -236,23 +254,24 @@ def make_rect(out: str) -> None:
           f"{how}")
 
 
-def make_hyp(out: str) -> None:
+def _hyp_chain(bgr_np, cfg):
+    """The rect path from a BGR frame to the hypotheses on the JAX package
+    (rect_tail's stages up to pipeline.rect._hypotheses), with the
+    converged labels where the JAX CPU path's fixed-pass ones differ.
+    Returns a dict of the stage outputs and `reference`, the sentence that
+    says which labels were used."""
     import jax
-    jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from bench import synth_frame
-    from rectdetect_tpu.config import PipelineConfig
     from rectdetect_tpu.ops import ccl, morphology, polyline, regions
     from rectdetect_tpu.ops.compact import compact_mask
     from rectdetect_tpu.pipeline.frontend import edge_frontend
     from rectdetect_tpu.pipeline.rect import _hypotheses, weak_strong_labels
 
-    h, w = 720, 1280
-    cfg = PipelineConfig()
+    h, w = bgr_np.shape[:2]
     sp = max(4096, h * w // cfg.sparse_factor)
     spb = max(4096, h * w // cfg.boundary_sparse_factor)
-    bgr = jnp.asarray(synth_frame(h, w, seed=0))
+    bgr = jnp.asarray(bgr_np)
     fe = jax.jit(lambda b: edge_frontend(b, cfg))(bgr)
     weak, strong, _, _ = jax.jit(lambda eb, et: weak_strong_labels(
         eb, et, cfg))(fe.edge_bin, fe.edge_thin)
@@ -302,7 +321,6 @@ def make_hyp(out: str) -> None:
         cfg.ls_cap_for(w, h), cfg, return_comp=True))(strong)
     segs, valid, status = _hypotheses(arena, lsid, boundary, w, h, cfg,
                                       comp=comp, bcomp=bcomp)
-    segs, valid = np.asarray(segs), np.asarray(valid)
     edges = ("weak/strong maps from the fixed-pass labels, which give the "
              "same > 0 maps as label_components_converged" if n_edge == 0
              else f"weak/strong maps from label_components_converged: the "
@@ -312,37 +330,181 @@ def make_hyp(out: str) -> None:
            f"boundary labels from label_components_converged (the "
            f"fixed-pass CCL differs at {n_bnd} pixels)")
     n_fg = int((np.asarray(regions.mark_boundary(seg)) != -1).sum())
+    return {"packed0": fe.packed0, "mask": mask, "seg": seg,
+            "boundary": boundary, "lsid": lsid,
+            "segs": np.asarray(segs).astype(np.float32),
+            "valid": np.asarray(valid),
+            "status": np.asarray(status).astype(np.int32),
+            "boundary_count": n_fg,
+            "reference": f"{edges}; {bnd}; {n_fg} boundary pixels against "
+                         f"a compaction capacity of {spb}"}
+
+
+HYP_STAGES = ("weak_strong_labels -> blblur -> quantize_despeckle -> "
+              "junction_merge_mask -> label_merge -> sizes_despeckle2 "
+              "-> mark_boundary -> boundary CCL -> polyline_execute"
+              "(strong > 0, return_comp) -> _hypotheses")
+
+
+def make_hyp(out: str) -> None:
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+
+    from bench import synth_frame
+    from rectdetect_tpu.config import PipelineConfig
+
+    h, w = 720, 1280
+    cfg = PipelineConfig()
+    c = _hyp_chain(synth_frame(h, w, seed=0), cfg)
+    valid = c["valid"]
     meta = {
         "frame": "bench.synth_frame(720, 1280, seed=0)",
         "config": "PipelineConfig()",
-        "stages": "weak_strong_labels -> blblur -> quantize_despeckle -> "
-                  "junction_merge_mask -> label_merge -> sizes_despeckle2 "
-                  "-> mark_boundary -> boundary CCL -> polyline_execute"
-                  "(strong > 0, return_comp) -> _hypotheses",
-        "reference": f"{edges}; {bnd}; {n_fg} boundary pixels against a "
-                     f"compaction capacity of {spb}",
+        "stages": HYP_STAGES,
+        "reference": c["reference"],
         "jax": jax.__version__,
         "backend": jax.default_backend(),
     }
     data = {
         "meta": np.asarray(json.dumps(meta)),
         "shape": np.asarray([h, w], np.int32),
-        "packed0_sha256": np.asarray(digest(fe.packed0)),
-        "mask_sha256": np.asarray(digest(mask)),
-        "seg_sha256": np.asarray(digest(seg)),
-        "boundary_sha256": np.asarray(digest(boundary)),
-        "lsid_sha256": np.asarray(digest(lsid)),
-        "segs": segs.astype(np.float32),
+        "packed0_sha256": np.asarray(digest(c["packed0"])),
+        "mask_sha256": np.asarray(digest(c["mask"])),
+        "seg_sha256": np.asarray(digest(c["seg"])),
+        "boundary_sha256": np.asarray(digest(c["boundary"])),
+        "lsid_sha256": np.asarray(digest(c["lsid"])),
+        "segs": c["segs"],
         "valid": valid,
-        "status": np.asarray(status).astype(np.int32),
-        "mask_count": np.asarray(int(np.asarray(mask).sum())),
-        "boundary_count": np.asarray(n_fg),
+        "status": c["status"],
+        "mask_count": np.asarray(int(np.asarray(c["mask"]).sum())),
+        "boundary_count": np.asarray(c["boundary_count"]),
     }
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez_compressed(out, **data)
     print(f"{out}: {int(valid.sum())} valid members in "
           f"{int(valid.any(1).sum())} groups, {os.path.getsize(out)} bytes; "
           f"{meta['reference']}")
+
+
+# the rect tools' horizontal angle of view, 72 degrees (rect.cpp:84)
+TAN_AOV = math.tan(math.radians(72.0) / 2)
+# tests/test_rect_pipeline.py::test_rect_frame_detects_quads's scene
+SMALL_QUADS = [[(20, 20), (84, 26), (78, 74), (26, 66)],
+               [(110, 40), (170, 50), (160, 120), (116, 106)]]
+
+
+def _geometry_tail(segs, valid, status, iw, ih, cfg):
+    """pipeline.rect.rect_geometry_tail after _hypotheses, jitted as there
+    (tan_aov a float32 argument): quad.reduce_groups, pose.pose_estimate,
+    looks_like_a_screen and the result's sanitising.  Returns numpy
+    arrays: corners, ok (the reduction), c2, c3, value, status, valid."""
+    import jax
+    import jax.numpy as jnp
+
+    from rectdetect_tpu.geometry import pose, quad
+
+    @jax.jit
+    def tail(s, v, st, tan_aov):
+        corners, ok = quad.reduce_groups(s, v, cfg.hull_max_vertices)
+        c2, c3, val = pose.pose_estimate(corners, iw, ih, tan_aov,
+                                         cfg.cg_iters,
+                                         cfg.cg_line_search_iters)
+        screen = pose.looks_like_a_screen(c2, c3, val, cfg.accept_value,
+                                          cfg.aspect_limit,
+                                          cfg.offset_ratio_limit)
+        st = st | jnp.where(screen, 1, 0)
+        okv = ok & jnp.isfinite(val)
+        val = jnp.where(okv, val, jnp.inf)
+        c2 = jnp.where(okv[:, None, None], jnp.nan_to_num(c2), 0.0)
+        c3 = jnp.where(okv[:, None, None], jnp.nan_to_num(c3), 0.0)
+        return corners, ok, c2, c3, val, st, okv
+
+    out = tail(jnp.asarray(segs), jnp.asarray(valid), jnp.asarray(status),
+               TAN_AOV)
+    return dict(zip(("corners", "ok", "c2", "c3", "value", "status",
+                     "valid"), map(np.asarray, out)))
+
+
+def _frame_data(bgr_desc, res, meta_extra):
+    meta = {"frame": bgr_desc, "config": "PipelineConfig()",
+            "tan_aov": "tan(radians(72) / 2)"}
+    meta.update(meta_extra)
+    return meta, {
+        "c2": res["c2"].astype(np.float32),
+        "c3": res["c3"].astype(np.float32),
+        "value": res["value"].astype(np.float32),
+        "status": res["status"].astype(np.int32),
+        "valid": res["valid"].astype(bool),
+        "corners": res["corners"].astype(np.float32),
+        "ok": res["ok"].astype(bool),
+    }
+
+
+def make_frame(out: str) -> None:
+    """Both rect_frame fixtures: `out` (720p) and rect_frame_small.npz in
+    the same directory."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from rectdetect_tpu.config import PipelineConfig
+    from rectdetect_tpu.ops.pallas_hyp import reduce_groups_pallas
+
+    cfg = PipelineConfig()
+    hx = np.load(os.path.join(ROOT, "tests", "data", FIXTURES["hyp"]))
+    h, w = (int(v) for v in hx["shape"])
+    res = _geometry_tail(hx["segs"], hx["valid"], hx["status"], w, h, cfg)
+    pc, pok = reduce_groups_pallas(jnp.asarray(hx["segs"]),
+                                   jnp.asarray(hx["valid"]),
+                                   cfg.hull_max_vertices, gb=cfg.hyp_gb,
+                                   interpret=True)
+    pc, pok = np.asarray(pc), np.asarray(pok)
+    both = pok & res["ok"]
+    pallas = {"ok_equal": bool((pok == res["ok"]).all()),
+              "corners_max_diff_where_ok": float(
+                  np.abs(pc[both] - res["corners"][both]).max()
+                  if both.any() else 0.0),
+              "ok_groups": int(pok.sum())}
+    pallas["corners_within_1e-3"] = \
+        pallas["corners_max_diff_where_ok"] <= 1e-3
+    meta, data = _frame_data(
+        "bench.synth_frame(720, 1280, seed=0)", res,
+        {"reference": "the hypotheses of " + FIXTURES["hyp"] + " (segs, "
+                      "valid, status) through rect_geometry_tail's "
+                      "quad.reduce_groups -> pose.pose_estimate -> "
+                      "looks_like_a_screen -> sanitising, jitted",
+         "pallas_interpret": pallas,
+         "jax": jax.__version__, "backend": jax.default_backend()})
+    data["meta"] = np.asarray(json.dumps(meta))
+    data["shape"] = np.asarray([h, w], np.int32)
+    np.savez_compressed(out, **data)
+    print(f"{out}: {int(data['valid'].sum())} valid, "
+          f"{int((data['status'] & 1).sum())} screens, "
+          f"{os.path.getsize(out)} bytes; pallas {pallas}")
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_rect_pipeline import draw_scene
+    bgr = np.asarray(draw_scene(SMALL_QUADS))
+    sh, sw = bgr.shape[:2]
+    c = _hyp_chain(bgr, cfg)
+    res = _geometry_tail(c["segs"], c["valid"], c["status"], sw, sh, cfg)
+    meta, data = _frame_data(
+        "tests/test_rect_pipeline.py draw_scene(two quads of "
+        "test_rect_frame_detects_quads), 192x144", res,
+        {"stages": HYP_STAGES + " -> quad.reduce_groups -> "
+                   "pose.pose_estimate -> looks_like_a_screen -> sanitising",
+         "reference": c["reference"], "quads": SMALL_QUADS,
+         "jax": jax.__version__, "backend": jax.default_backend()})
+    data.update(meta=np.asarray(json.dumps(meta)),
+                shape=np.asarray([sh, sw], np.int32), bgr=bgr,
+                hyp_segs=c["segs"], hyp_valid=c["valid"],
+                hyp_status=c["status"])
+    small = os.path.join(os.path.dirname(os.path.abspath(out)),
+                         FIXTURES["frame_small"])
+    np.savez_compressed(small, **data)
+    print(f"{small}: {int(data['valid'].sum())} valid, "
+          f"{int((data['status'] & 1).sum())} screens, "
+          f"{os.path.getsize(small)} bytes; {c['reference']}")
 
 
 if __name__ == "__main__":
