@@ -17,7 +17,12 @@ the final line):
      720p intermediates of bench.synth_frame(720, 1280, seed=0), with
      kernel and plain times (CUDA-event medians); mkpl also under arena
      overflow, hyp also on two 384-group corpora, pose also on 384
-     projected rectangles and degenerate quads;
+     projected rectangles and degenerate quads; for blblur and the pose,
+     device time per call (torch.profiler and CUDA events), kernel
+     launches per call, blblur's fused round counts F in turns, nvcc's
+     -Xptxas -v lines of both sources, and, where build/parent/ holds a
+     git archive of the parent commit, the parent's two kernels timed in
+     turns with these;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after: pipeline.poly.poly_frame with DEFAULT_CONFIG
      (held bit for bit against the mkpl_pallas=0 run and against the JAX
@@ -111,6 +116,112 @@ def cuda_ms(torch, fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, calls: int):
+    """Device time per call of fn(), two ways, after one warm-up call:
+    torch.profiler's kernel time (ms per call, kernel launches per call,
+    ms per call by kernel name; None where the profiler traced no kernel),
+    and CUDA events around `calls` back-to-back calls (ms per call; the
+    device time where the kernels outlast the host's launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    events_ms = start.elapsed_time(end) / calls
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not kernels:
+        return {"profiler_ms": None, "launches_per_call": None,
+                "by_kernel_ms": None, "events_ms": events_ms}
+    attr = ("self_device_time_total" if hasattr(kernels[0],
+            "self_device_time_total") else "self_cuda_time_total")
+    dev_ms = sum(getattr(e, attr) for e in kernels) / 1e3
+    return {"profiler_ms": dev_ms / calls,
+            "launches_per_call": sum(e.count for e in kernels) / calls,
+            "by_kernel_ms": {e.key[:60]: getattr(e, attr) / 1e3 / calls
+                             for e in kernels},
+            "events_ms": events_ms}
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """nvcc -Xptxas=-v's lines per kernel: the entry, its registers and
+    shared memory, its stack and spills."""
+    keep = ("Compiling entry", "Used", "spill")
+    return [" ".join(line.split()) for line in log.splitlines()
+            if any(k in line for k in keep)]
+
+
+def parent_kernels(torch, build_mod):
+    """The blblur and pose kernels of the parent commit, for timing in
+    turns with this tree's: built from build/parent/ (a git archive of the
+    parent, unpacked there by hand; absent from a plain checkout, and then
+    None) into one library with the parent's C signatures."""
+    import ctypes
+    src = os.path.join(ROOT, "build", "parent", "rectdetect_tpu_torch",
+                       "csrc")
+    if not os.path.isdir(src):
+        return None
+    out = os.path.join(ROOT, "build", "parent", "libparent_kernels.so")
+    objs = []
+    procs = []
+    for name in ("blblur", "pose"):
+        obj = os.path.join(ROOT, "build", "parent", f"{name}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [build_mod._nvcc(), *build_mod.COMPILE_FLAGS, "-c", "-o", obj,
+             os.path.join(src, f"{name}.cu")], stderr=subprocess.PIPE,
+            text=True))
+    for proc in procs:
+        if proc.wait(timeout=600) != 0:
+            fail(f"the parent's kernels do not build: {proc.stderr.read()}")
+    res = subprocess.run([build_mod._nvcc(), *build_mod.LINK_FLAGS, "-o", out,
+                          *objs], capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"the parent's kernels do not link: {res.stderr}")
+    lib = ctypes.CDLL(out)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rd_blblur.argtypes = [P, P, P, P, I, I, I, P]
+    lib.rd_pose.argtypes = [P, P, P, P, I, F, F, F, I, I, P]
+    lib.rd_blblur.restype = lib.rd_pose.restype = ctypes.c_int
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def blblur(packed, edge, iters):
+        out_t, tmp = torch.empty_like(packed), torch.empty_like(packed)
+        h, w = packed.shape
+        if lib.rd_blblur(packed.data_ptr(), edge.data_ptr(), out_t.data_ptr(),
+                         tmp.data_ptr(), h, w, iters, stream()):
+            fail("the parent's blblur kernel did not launch")
+        return out_t
+
+    def pose_fn(corners, iw, ih, tan_aov, cg_iters, ls_iters):
+        from rectdetect_tpu_torch.ops import fp
+        g = corners.shape[0]
+        c2 = torch.empty((g, 4, 2), dtype=torch.float32, device=corners.device)
+        c3 = torch.empty((g, 4, 3), dtype=torch.float32, device=corners.device)
+        value = torch.empty((g,), dtype=torch.float32, device=corners.device)
+        focal = fp.f32(fp.f32(iw / 2) / fp.f32(tan_aov))
+        if lib.rd_pose(corners.data_ptr(), c2.data_ptr(), c3.data_ptr(),
+                       value.data_ptr(), g, fp.f32(iw / 2), fp.f32(ih / 2),
+                       focal, cg_iters, ls_iters, stream()):
+            fail("the parent's pose kernel did not launch")
+        return c2, c3, value
+
+    return blblur, pose_fn
 
 
 def main() -> int:
@@ -351,6 +462,67 @@ def main() -> int:
                    3), nb(fe.packed0, weak_bin, blurred),
            2 * H * W + 2 * iters * 3 * 3 * H * W)
 
+    # the redesign (csrc/blblur.cu): every fused round count against the
+    # plain version, then their device time and launches per call in turns
+    # (torch.profiler), and the parent commit's kernel where it was brought
+    # along (build/parent/)
+    parent = parent_kernels(torch, _build)
+    redesign = {"card": card, "ptxas": {
+        k: ptxas_lines(_build.ptxas_log.get(k, "not rebuilt in this run"))
+        for k in ("blblur.cu", "pose.cu")}}
+    for f in hopper_blblur.TILES:
+        if not torch.equal(hopper_blblur.blblur_fused(
+                fe.packed0, weak_bin, iters, f), blurred_p):
+            fail(f"blblur with {f} fused rounds differs from the plain "
+                 f"version")
+    sweep = {f: [] for f in hopper_blblur.TILES}
+    for _ in range(3):
+        for f in hopper_blblur.TILES:
+            sweep[f].append(device_ms(torch, lambda: hopper_blblur.
+                                      blblur_fused(fe.packed0, weak_bin,
+                                                   iters, f), 10))
+    redesign["blblur_fuse_sweep"] = {
+        f: {"tile": hopper_blblur.TILES[f],
+            "profiler_ms": [t["profiler_ms"] for t in ts],
+            "events_ms": [t["events_ms"] for t in ts],
+            "launches_per_call": ts[-1]["launches_per_call"],
+            "by_kernel_ms": ts[-1]["by_kernel_ms"],
+            "wrapper_ms": cuda_ms(torch, lambda: hopper_blblur.blblur_fused(
+                fe.packed0, weak_bin, iters, f), 10)}
+        for f, ts in sweep.items()}
+    # the profiler has been seen to miss one kernel of ten calls; more than
+    # that is a fault
+    for f, ts in sweep.items():
+        lpc = ts[-1]["launches_per_call"]
+        want = hopper_blblur.launch_count(iters, f)
+        if lpc is not None and not want - 0.15 <= lpc <= want:
+            fail(f"blblur with {f} fused rounds made {lpc} launches per call, "
+                 f"not {want}")
+    f0 = hopper_blblur.FUSE
+    best = min(sweep, key=lambda f: statistics.median(
+        t["events_ms"] for t in sweep[f]))
+    phase(f"phase 3 blblur device time per call (F = {f0}): "
+          f"{json.dumps(redesign['blblur_fuse_sweep'][f0])} "
+          f"(torch.profiler and CUDA events, 10 calls each, 3 turns of the "
+          f"F sweep); fastest F in this run: {best}")
+    if parent is not None:
+        old_blblur = parent[0]
+        same = torch.equal(old_blblur(fe.packed0, weak_bin, iters), blurred_p)
+        turns = []
+        for fn in (old_blblur, hopper_blblur.blblur, hopper_blblur.blblur,
+                   old_blblur):
+            d = device_ms(torch, lambda: fn(fe.packed0, weak_bin, iters), 10)
+            turns.append((d["profiler_ms"], d["events_ms"],
+                          cuda_ms(torch, lambda: fn(fe.packed0, weak_bin,
+                                                    iters), 10)))
+        redesign["blblur_parent_turns"] = {
+            "order": "parent, this, this, parent",
+            "profiler_ms": [t[0] for t in turns],
+            "events_ms": [t[1] for t in turns],
+            "wrapper_ms": [t[2] for t in turns], "parent_equal": same}
+        phase(f"phase 3 blblur parent/this/this/parent: "
+              f"{json.dumps(redesign['blblur_parent_turns'])}")
+
     n = cfg.quantize_levels
     despeck = hopper_quant.quantize_despeckle(blurred, fe.edge_thin, n, n, n)
     despeck_p = regions.quantize_despeckle(blurred, fe.edge_thin, n, n, n)
@@ -522,17 +694,52 @@ def main() -> int:
         err = max([err] + [top((a - b).abs(), a.isfinite() & b.isfinite())
                            for a, b in zip(got[1:], want[1:])])
     g = corners.shape[0]
+    # per (group, mode): the gradient jets, one line-search jet per step
+    # (a taken candidate's jet serves the next step) and the value at each
+    # search's last candidate
     n_jet4 = cfg.cg_iters + 1
     n_jet1 = cfg.cg_iters * cfg.cg_line_search_iters
     pose_ops = 2 * g * (n_jet4 * (POSE_VALUE_OPS + 4 * POSE_JET_OPS_PER_DIR)
                         + n_jet1 * (POSE_VALUE_OPS + POSE_JET_OPS_PER_DIR)
-                        + (n_jet1 + 1) * POSE_VALUE_OPS)
+                        + cfg.cg_iters * POSE_VALUE_OPS)
     c2_t, c3_t, val_t = hopper_pose.pose_estimate(corners, *pose_args)
     record("pose", "pose.cu", "rectdetect_tpu/geometry/pose.py:205", err,
            cuda_ms(torch, lambda: hopper_pose.pose_estimate(
                corners, *pose_args), 20),
            cuda_ms(torch, lambda: pose.pose_estimate(corners, *pose_args), 3),
            nb(corners, c2_t, c3_t, val_t), pose_ops)
+    # the redesign (csrc/pose.cu): its device time per call, in turns with
+    # the parent commit's kernel where it was brought along
+    timed = [device_ms(torch, lambda: hopper_pose.pose_estimate(
+        corners, *pose_args), 10) for _ in range(3)]
+    redesign["pose"] = {
+        "profiler_ms": [t["profiler_ms"] for t in timed],
+        "events_ms": [t["events_ms"] for t in timed],
+        "launches_per_call": timed[-1]["launches_per_call"]}
+    phase(f"phase 3 pose device time per call: "
+          f"{json.dumps(redesign['pose'])} (torch.profiler and CUDA events, "
+          f"10 calls each, 3 times)")
+    if parent is not None:
+        old_pose = parent[1]
+        same = all(np.array_equal(a.cpu().numpy(), b.cpu().numpy(),
+                                  equal_nan=True)
+                   for a, b in zip(old_pose(corners, *pose_args),
+                                   hopper_pose.pose_estimate(corners,
+                                                             *pose_args)))
+        turns = []
+        for fn in (old_pose, hopper_pose.pose_estimate,
+                   hopper_pose.pose_estimate, old_pose):
+            d = device_ms(torch, lambda: fn(corners, *pose_args), 10)
+            turns.append((d["profiler_ms"], d["events_ms"],
+                          cuda_ms(torch, lambda: fn(corners, *pose_args), 10)))
+        redesign["pose_parent_turns"] = {
+            "order": "parent, this, this, parent",
+            "profiler_ms": [t[0] for t in turns],
+            "events_ms": [t[1] for t in turns],
+            "wrapper_ms": [t[2] for t in turns], "parent_bit_equal": same}
+        phase(f"phase 3 pose parent/this/this/parent: "
+              f"{json.dumps(redesign['pose_parent_turns'])}")
+    phase(f"phase 3 redesign: {json.dumps(redesign)}")
 
     # ---- 4. the main paths -----------------------------------------------
     counters = {"edge_front": hopper_grad, "thinthres": hopper_thin,

@@ -45,7 +45,7 @@ SIGNATURES = {
     "rd_label_components": (_P, _P, _P, _I, _I, _I, _P),
     "rd_mkpl": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rd_seg_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "rd_blblur": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "rd_blblur": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rd_quant_despeckle": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rd_merge_mask": (_P, _P, _I, _I, _P),
     "rd_label_merge": (_P, _P, _P, _P, _I, _I, _P),
@@ -57,6 +57,9 @@ SIGNATURES = {
 
 _lib = None
 build_seconds = None
+# nvcc's report per source of the last verbose build (-Xptxas=-v: each
+# kernel's registers, shared memory and spills)
+ptxas_log: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -115,6 +118,7 @@ def build(verbose: bool = False) -> Path:
         if proc.returncode != 0:
             errors.append(f"{src.name} ({proc.returncode}):\n{err}")
         elif verbose and err:
+            ptxas_log[src.name] = err
             print(f"{src.name}:\n{err}")
     tmp = out.with_suffix(f".{tag}.tmp")
     if not errors:

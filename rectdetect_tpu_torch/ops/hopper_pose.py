@@ -5,10 +5,13 @@ better one kept (poseEstimation, oclrect.c:590-634).
 The JAX package leaves the pose to XLA (rectdetect_tpu/geometry/pose.py),
 which fuses its 2 modes x 12 CG iterations x 10 line-search steps into a
 few loops; run eagerly, the same steps are ~10^5 small launches per frame.
-CUDA source: csrc/pose.cu, one thread per (group, mode), the objective on
-forward-mode jets in registers; bound by operations.  Its float operations
-are the plain version's (geometry/pose.py:pose_estimate), rounded once in
-the same order.
+CUDA source: csrc/pose.cu.  Bound by operations, and in time by one
+problem's chain of dependent operations: each (group, mode) runs on 8
+lanes of a warp, two for each seed direction e_i, which carry the jet
+seeded with e_i and split the objective's two plane terms between them;
+the CG vector steps are gathered by shuffles, and the line search takes
+one jet per step.  Its float operations are the plain version's
+(geometry/pose.py:pose_estimate), rounded once in the same order.
 
 `pose_estimate` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors; there is no other path.

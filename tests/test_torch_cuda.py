@@ -19,7 +19,9 @@ are integer-valued and equal; rect_hypotheses' maps, valid and status
 equal, segs within atol 2e-4.  The hyp and pose kernels run their plain
 versions' float operations, so `ok` and c2 are held equal and the other
 floats within rtol 1e-3 (bit-equal expected); rect_frame's valid and
-status equal, its corners within 2e-4 px.
+status equal, its corners within 2e-4 px.  The blblur kernel is held
+equal to the plain version at every fused round count it compiles, and
+the pose kernel bit for bit (NaN in the same places).
 """
 
 import math
@@ -41,6 +43,7 @@ from rectdetect_tpu_torch.ops import (_build, hopper_bids, hopper_blblur,
 from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
 from rectdetect_tpu_torch.pipeline.poly import poly_frame
 from rectdetect_tpu_torch.pipeline.rect import (boundary_labels, rect_frame,
+                                                rect_geometry,
                                                 rect_hypotheses,
                                                 region_smoothing,
                                                 weak_strong_labels)
@@ -249,6 +252,34 @@ def test_blblur_and_quant_despeckle_kernels_match_plain():
         hopper_blblur.blblur(packed, edge, 10, x0=8)
 
 
+@pytest.mark.parametrize("h,w", [(1, 64), (64, 1), (37, 53), (720, 1280)])
+def test_blblur_kernel_matches_plain_at_every_fuse(h, w):
+    """Edge maps all edge, no edge and random; iters 0-3 and 10 (ragged
+    last launches), every fused round count the kernel compiles; tiles
+    that do not divide the frame."""
+    _need_card()
+    r = np.random.default_rng(h * 31 + w)
+    packed = ((r.integers(0, 1024, (h, w)) << 22)
+              | (r.integers(0, 1024, (h, w)) << 12)
+              | r.integers(0, 4096, (h, w))).astype(np.int32)
+    packed = torch.from_numpy(packed).cuda()
+    edges = {"all": torch.ones((h, w), dtype=torch.int32),
+             "none": torch.zeros((h, w), dtype=torch.int32),
+             "random": torch.from_numpy(
+                 (r.random((h, w)) < 0.2).astype(np.int32))}
+    for name, edge in edges.items():
+        edge = edge.cuda()
+        for iters in (0, 1, 2, 3, 10):
+            want = regions.blblur(packed, edge, iters)
+            n0 = hopper_blblur.launches
+            assert torch.equal(hopper_blblur.blblur(packed, edge, iters),
+                               want), (name, iters)
+            assert hopper_blblur.launches == n0 + 1
+            for fuse in sorted(hopper_blblur.TILES):
+                got = hopper_blblur.blblur_fused(packed, edge, iters, fuse)
+                assert torch.equal(got, want), (name, iters, fuse)
+
+
 def test_region_maps_on_card_match_cpu_and_count_launches():
     _need_card()
     bgr = _scene()
@@ -354,6 +385,40 @@ def test_pose_kernel_matches_plain():
         torch.testing.assert_close(g, w, rtol=POSE_RTOL, atol=1e-6,
                                    equal_nan=True)
     assert int(pose.looks_like_a_screen(*want).sum()) >= 40
+
+
+@pytest.mark.parametrize("g", [1, 5, 33, 384])
+def test_pose_kernel_bit_equal_to_plain(g):
+    """g quads spread over 336 projected rectangles and 48 degenerate ones
+    (all zero, three corners on a line, two equal, a bow tie): 1 to 192
+    warps of two groups each, the last one half idle where g is odd."""
+    _need_card()
+    q = parity.pose_quads(2, 336, 48, 1280, 720, TAN_AOV)
+    idx = np.unique(np.linspace(0, len(q) - 1, g).astype(int))
+    if g > 1:
+        idx[1] = 340                      # a degenerate quad
+    q = torch.from_numpy(q[np.sort(idx)]).cuda()
+    want = pose.pose_estimate(q, 1280, 720, TAN_AOV)
+    got = hopper_pose.pose_estimate(q, 1280, 720, TAN_AOV)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    if g > 1:
+        assert torch.isnan(want[2]).any()
+
+
+def test_region_smoothing_and_rect_geometry_count_one_call_each():
+    _need_card()
+    bgr = _scene().cuda()
+    fe = edge_frontend(bgr)
+    weak, _ = weak_strong_labels(fe.edge_bin, fe.edge_thin)
+    hopper_blblur.launches = hopper_quant.launches = 0
+    region_smoothing(fe.packed0, weak, fe.edge_thin)
+    assert (hopper_blblur.launches, hopper_quant.launches) == (1, 1)
+    hyp = rect_hypotheses(bgr)
+    hopper_hyp.launches = hopper_pose.launches = 0
+    rect_geometry(hyp.segs, hyp.valid, hyp.status, bgr.shape[1],
+                  bgr.shape[0], TAN_AOV)
+    assert (hopper_hyp.launches, hopper_pose.launches) == (1, 1)
 
 
 def test_rect_frame_on_card_launches_hyp_and_pose_once():
