@@ -15,16 +15,21 @@ the final line):
      quant_despeckle, merge_mask, label_merge, despeckle2, distinct_bids,
      hyp, pose) against its plain PyTorch version on the card, at the real
      720p intermediates of bench.synth_frame(720, 1280, seed=0), with
-     kernel and plain times (CUDA-event medians); mkpl also under arena
+     the plain versions' times (CUDA-event medians); mkpl also under arena
      overflow, hyp also on two 384-group corpora, pose also on 384
-     projected rectangles and degenerate quads; for blblur and the pose,
-     device time per call (torch.profiler and CUDA events), kernel
-     launches per call, blblur's fused round counts F in turns, nvcc's
-     -Xptxas -v lines of both sources, and, where build/parent/ holds a
-     git archive of the parent commit, the parent's two kernels timed in
-     turns with these;
+     projected rectangles and degenerate quads; for every kernel its
+     device time per call (CUDA events around 10 back-to-back calls that
+     the host queued while the device slept, 3 turns) beside the time of
+     one whole wrapper call, and its kernels per call by the kernel
+     library's own counter, held exactly; blblur's fused round counts F
+     in turns; mkpl's device time at 0, 1 and 15 rounds; nvcc's -Xptxas
+     -v lines of mkpl.cu and links_ccl.cu, and, where build/parent/ holds
+     a git archive of the parent commit, the parent's mkpl and links
+     kernels timed in turns with these;
   4. the main paths, each with every launch count set to 0 just before it
-     and read just after: pipeline.poly.poly_frame with DEFAULT_CONFIG
+     and read just after, and the kernel library's own count of kernels
+     held equal to the kernels its wrappers launched:
+     pipeline.poly.poly_frame with DEFAULT_CONFIG
      (held bit for bit against the mkpl_pallas=0 run and against the JAX
      fixture tests/data/poly_720p_synth.npz), pipeline.rect
      weak_strong_labels -> region_smoothing (held against
@@ -118,42 +123,37 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, calls: int):
-    """Device time per call of fn(), two ways, after one warm-up call:
-    torch.profiler's kernel time (ms per call, kernel launches per call,
-    ms per call by kernel name; None where the profiler traced no kernel),
-    and CUDA events around `calls` back-to-back calls (ms per call; the
-    device time where the kernels outlast the host's launches)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(torch, build_mod, fn, calls: int = 10, turns: int = 3):
+    """Device time per call of fn(), after one warm-up call: CUDA events
+    around `calls` back-to-back calls, `turns` times.  The host queues each
+    turn's calls while the device sleeps (torch.cuda._sleep), and the start
+    event must still be pending when the last call is queued, so no host
+    gap falls between the calls.  Returns (ms per call of each turn,
+    kernels launched per call by the library's own counter)."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    events_ms = start.elapsed_time(end) / calls
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
-    if not kernels:
-        return {"profiler_ms": None, "launches_per_call": None,
-                "by_kernel_ms": None, "events_ms": events_ms}
-    attr = ("self_device_time_total" if hasattr(kernels[0],
-            "self_device_time_total") else "self_cuda_time_total")
-    dev_ms = sum(getattr(e, attr) for e in kernels) / 1e3
-    return {"profiler_ms": dev_ms / calls,
-            "launches_per_call": sum(e.count for e in kernels) / calls,
-            "by_kernel_ms": {e.key[:60]: getattr(e, attr) / 1e3 / calls
-                             for e in kernels},
-            "events_ms": events_ms}
+    cycles = 20_000_000
+    times, made = [], 0
+    n0 = build_mod.launch_count()
+    for _ in range(turns):
+        for _ in range(6):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            ahead = not start.query()
+            end.synchronize()
+            made += calls
+            if ahead:
+                break
+            cycles *= 2
+        else:
+            fail("the host could not queue the calls ahead of the device")
+        times.append(start.elapsed_time(end) / calls)
+    return times, (build_mod.launch_count() - n0) / made
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -165,11 +165,12 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def parent_kernels(torch, build_mod):
-    """The blblur and pose kernels of the parent commit, for timing in
-    turns with this tree's: built from build/parent/ (a git archive of the
+    """The mkpl and links kernels of the parent commit, for timing in turns
+    with this tree's: built from build/parent/ (a git archive of the
     parent, unpacked there by hand; absent from a plain checkout, and then
     None) into one library with the parent's C signatures."""
     import ctypes
+    from rectdetect_tpu_torch.ops import hopper_mkpl
     src = os.path.join(ROOT, "build", "parent", "rectdetect_tpu_torch",
                        "csrc")
     if not os.path.isdir(src):
@@ -177,7 +178,7 @@ def parent_kernels(torch, build_mod):
     out = os.path.join(ROOT, "build", "parent", "libparent_kernels.so")
     objs = []
     procs = []
-    for name in ("blblur", "pose"):
+    for name in ("mkpl", "links_ccl"):
         obj = os.path.join(ROOT, "build", "parent", f"{name}.o")
         objs.append(obj)
         procs.append(subprocess.Popen(
@@ -192,36 +193,48 @@ def parent_kernels(torch, build_mod):
     if res.returncode != 0:
         fail(f"the parent's kernels do not link: {res.stderr}")
     lib = ctypes.CDLL(out)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rd_blblur.argtypes = [P, P, P, P, I, I, I, P]
-    lib.rd_pose.argtypes = [P, P, P, P, I, F, F, F, I, I, P]
-    lib.rd_blblur.restype = lib.rd_pose.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rd_mkpl.argtypes = [P] * 7 + [I] * 6 + [P]
+    lib.rd_label_merge.argtypes = [P, P, P, P, I, I, P]
+    lib.rd_mkpl.restype = lib.rd_label_merge.restype = ctypes.c_int
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    def blblur(packed, edge, iters):
-        out_t, tmp = torch.empty_like(packed), torch.empty_like(packed)
+    def mkpl_fn(arena, label, number, minerror, n_iters, comp):
+        h, w = label.shape
+        cap, slots = arena.cap, comp.cap
+        fields = torch.stack(
+            [getattr(arena, f).view(torch.int32) for f in hopper_mkpl._FLOATS]
+            + [getattr(arena, f) for f in hopper_mkpl._INTS])
+        count = arena.count.to(torch.int32).reshape(1).clone()
+        # the parent's scratch: 3 S + 3 cap int32
+        scratch = torch.empty((3 * slots + 3 * cap,), dtype=torch.int32,
+                              device=label.device)
+        lsid = torch.zeros((h * w,), dtype=torch.int32, device=label.device)
+        if lib.rd_mkpl(comp.idx.data_ptr(), label.data_ptr(),
+                       number.data_ptr(), fields.data_ptr(), count.data_ptr(),
+                       scratch.data_ptr(), lsid.data_ptr(), slots, cap, h * w,
+                       w, max(0, n_iters - 1), int(minerror * 65536.0),
+                       stream()):
+            fail("the parent's mkpl kernel did not launch")
+        out = {f: fields[i].view(torch.float32)
+               for i, f in enumerate(hopper_mkpl._FLOATS)}
+        out.update({f: fields[len(hopper_mkpl._FLOATS) + i]
+                    for i, f in enumerate(hopper_mkpl._INTS)})
+        return (arena._replace(count=count.reshape(()), **out),
+                lsid.reshape(h, w))
+
+    def links_fn(packed, mask, edge):
+        out_t = torch.empty_like(packed)
         h, w = packed.shape
-        if lib.rd_blblur(packed.data_ptr(), edge.data_ptr(), out_t.data_ptr(),
-                         tmp.data_ptr(), h, w, iters, stream()):
-            fail("the parent's blblur kernel did not launch")
+        if lib.rd_label_merge(packed.data_ptr(), mask.data_ptr(),
+                              edge.data_ptr(), out_t.data_ptr(), h, w,
+                              stream()):
+            fail("the parent's links kernel did not launch")
         return out_t
 
-    def pose_fn(corners, iw, ih, tan_aov, cg_iters, ls_iters):
-        from rectdetect_tpu_torch.ops import fp
-        g = corners.shape[0]
-        c2 = torch.empty((g, 4, 2), dtype=torch.float32, device=corners.device)
-        c3 = torch.empty((g, 4, 3), dtype=torch.float32, device=corners.device)
-        value = torch.empty((g,), dtype=torch.float32, device=corners.device)
-        focal = fp.f32(fp.f32(iw / 2) / fp.f32(tan_aov))
-        if lib.rd_pose(corners.data_ptr(), c2.data_ptr(), c3.data_ptr(),
-                       value.data_ptr(), g, fp.f32(iw / 2), fp.f32(ih / 2),
-                       focal, cg_iters, ls_iters, stream()):
-            fail("the parent's pose kernel did not launch")
-        return c2, c3, value
-
-    return blblur, pose_fn
+    return mkpl_fn, links_fn
 
 
 def main() -> int:
@@ -286,11 +299,21 @@ def main() -> int:
                         for c in range(3)], dim=-1).contiguous()
     records = []
 
-    def record(name, src, replaces, err, ms, plain_ms, nbytes, ops):
-        """nbytes: each input read once and each output written once;
-        ops: a lower bound on the operations this run's data needs."""
+    def record(name, src, replaces, err, fn, plain_ms, nbytes, ops,
+               kernels=1):
+        """fn: one wrapper call at the main path's shapes, launching
+        `kernels` kernels; nbytes: each input read once and each output
+        written once; ops: a lower bound on the operations this run's data
+        needs.  "ms" is the device time per call (device_ms, the median of
+        its turns), "wrapper_ms" the CUDA-event time of one whole call."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / OPS_PER_S * 1e3
+        times, per_call = device_ms(torch, _build, fn)
+        if per_call != kernels:
+            fail(f"{name}: {per_call} kernel launches per call by the "
+                 f"library's counter, not {kernels}")
+        ms = statistics.median(times)
+        wrapper = cuda_ms(torch, fn, 20)
         records.append({"name": name, "route": "cuda",
                         "source": f"rectdetect_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": None,
@@ -298,10 +321,14 @@ def main() -> int:
                         "bound_ms": max(t_bytes, t_ops),
                         "bound_by": "bytes" if t_bytes >= t_ops
                         else "operations",
-                        "library_ms": None})
-        phase(f"phase 3 {name}: max_abs_err {err!r}  kernel {ms:.4f} ms  "
+                        "library_ms": None, "device_ms": times,
+                        "wrapper_ms": wrapper, "kernels_per_call": kernels})
+        phase(f"phase 3 {name}: max_abs_err {err!r}  device {ms:.4f} ms per "
+              f"call (CUDA events, 10 back-to-back calls, 3 turns: "
+              f"{[round(t, 5) for t in times]})  wrapper {wrapper:.4f} ms  "
               f"plain {plain_ms:.4f} ms  bound {max(t_bytes, t_ops):.6f} ms "
-              f"({nbytes} B, {ops} ops)")
+              f"({nbytes} B, {ops} ops)  {kernels} kernels per call "
+              f"(library counter)")
 
     def nb(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -322,7 +349,7 @@ def main() -> int:
     # each), their sum and sqrt, and the unit edge vector: >= 25
     record("edge_front", "edge_front.cu",
            "rectdetect_tpu/ops/pallas_grad.py:48", err,
-           cuda_ms(torch, lambda: hopper_grad.edge_front(labb), 20),
+           lambda: hopper_grad.edge_front(labb),
            cuda_ms(torch, lambda: hopper_grad.edge_front_plain(labb), 5),
            nb(labb, em, vec), 25 * H * W)
 
@@ -337,7 +364,7 @@ def main() -> int:
         fail(f"thinthres: max diff {err}, {nbin} edge_bin pixels differ")
     # ops: >= the two non-maximum compares per pixel
     record("thinthres", "thin.cu", "rectdetect_tpu/ops/pallas_thin.py:43",
-           err, cuda_ms(torch, lambda: hopper_thin.thinthres(em, vec), 20),
+           err, lambda: hopper_thin.thinthres(em, vec),
            cuda_ms(torch, lambda: hopper_thin.thin_plain(em, vec), 5),
            nb(em, vec, thin), 2 * H * W)
 
@@ -352,9 +379,9 @@ def main() -> int:
     # ops: >= one label decision per pixel
     record("label_components", "ccl.cu",
            "rectdetect_tpu/ops/pallas_ccl.py:101", 0.0,
-           cuda_ms(torch, lambda: hopper_ccl.label_components(edge_bin, 0), 20),
+           lambda: hopper_ccl.label_components(edge_bin, 0),
            cuda_ms(torch, lambda: hopper_ccl.label_components_plain(
-               edge_bin, 0), 3), nb(edge_bin, lbl), H * W)
+               edge_bin, 0), 3), nb(edge_bin, lbl), H * W, kernels=3)
 
     st = ccl.calc_strength(thin, lbl)
     edge = (ccl.filter_strength(lbl, st, 500) > 0).to(torch.int32)
@@ -368,10 +395,9 @@ def main() -> int:
     # ops: >= one decision per pixel
     record("strings_chain", "morph.cu",
            "rectdetect_tpu/ops/pallas_morph.py:40", 0.0,
-           cuda_ms(torch, lambda: hopper_morph.strings_chain(
-               edge, "poly_branch"), 20),
+           lambda: hopper_morph.strings_chain(edge, "poly_branch"),
            cuda_ms(torch, lambda: hopper_morph.strings_chain_plain(
-               edge, "poly_branch"), 5), 2 * nb(edge), H * W)
+               edge, "poly_branch"), 5), 2 * nb(edge), H * W, kernels=5)
 
     # mkpl at the poly path's own arc compaction, then under overflow
     cfg = DEFAULT_CONFIG
@@ -410,11 +436,62 @@ def main() -> int:
     # 13 fields in and out, lsid out; ops: >= 20 per live slot and round
     # (the chord distance)
     record("mkpl", "mkpl.cu", "rectdetect_tpu/ops/pallas_mkpl.py:68", 0.0,
-           cuda_ms(torch, lambda: run_mkpl(hopper_mkpl.mkpl_subdivide,
-                                           arena0), 20),
+           lambda: run_mkpl(hopper_mkpl.mkpl_subdivide, arena0),
            cuda_ms(torch, lambda: run_mkpl(mkpl.mkpl_subdivide, arena0), 3),
            nb(comp.idx) + 8 * n_live + 2 * 13 * 4 * cap + nb(got[1]),
            20 * rounds * n_live)
+
+    # the redesigns of this commit (csrc/mkpl.cu, csrc/links_ccl.cu): their
+    # registers and spills, mkpl's device time at 0, 1 and all rounds (the
+    # fixed cost and the cost per round), and each timed in turns with the
+    # parent commit's kernel where it was brought along (build/parent/)
+    parent = parent_kernels(torch, _build)
+    redesign = {"card": card, "ptxas": {
+        k: ptxas_lines(_build.ptxas_log.get(k, "not rebuilt in this run"))
+        for k in ("mkpl.cu", "links_ccl.cu")}}
+    for k, lines in redesign["ptxas"].items():
+        for line in lines:
+            phase(f"phase 3 ptxas {k}: {line}")
+
+    def mkpl_turns(fns, iters):
+        """Device and wrapper ms of one turn of each fn, in this order."""
+        out = []
+        for fn in fns:
+            call = (lambda: fn(arena0, dense, number, 1.0, iters, comp))
+            out.append((device_ms(torch, _build, call, turns=1)[0][0],
+                        cuda_ms(torch, call, 10)))
+        return out
+
+    split = {}
+    kinds = [("this", hopper_mkpl.mkpl_subdivide)]
+    if parent is not None:
+        kinds.append(("parent", parent[0]))
+        for iters in (1, 2, cfg.mkpl_iters):
+            a = parent[0](arena0, dense, number, 1.0, iters, comp)
+            b = hopper_mkpl.mkpl_subdivide(arena0, dense, number, 1.0, iters,
+                                           comp)
+            if not (arena_equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                fail(f"mkpl: the parent's kernel differs at {iters - 1} "
+                     f"rounds")
+    for name, fn in kinds:
+        split[name] = {
+            f"rounds {iters - 1}": device_ms(
+                torch, _build, lambda: fn(arena0, dense, number, 1.0, iters,
+                                          comp))[0]
+            for iters in (1, 2, cfg.mkpl_iters)}
+    redesign["mkpl_rounds_device_ms"] = split
+    phase(f"phase 3 mkpl device ms per call by rounds (CUDA events, 10 "
+          f"back-to-back calls, 3 turns): {json.dumps(split)}")
+    if parent is not None:
+        turns = mkpl_turns((parent[0], hopper_mkpl.mkpl_subdivide,
+                            hopper_mkpl.mkpl_subdivide, parent[0]),
+                           cfg.mkpl_iters)
+        redesign["mkpl_parent_turns"] = {
+            "order": "parent, this, this, parent",
+            "device_ms": [t[0] for t in turns],
+            "wrapper_ms": [t[1] for t in turns]}
+        phase(f"phase 3 mkpl parent/this/this/parent: "
+              f"{json.dumps(redesign['mkpl_parent_turns'])}")
 
     # the strength pair's segmented totals at 720p, on the rect strings
     fe = edge_frontend(bgr, cfg)
@@ -436,10 +513,10 @@ def main() -> int:
     # and one more to spread its total
     record("seg_scan", "scan.cu", "rectdetect_tpu/ops/pallas_scan.py:55",
            0.0,
-           cuda_ms(torch, lambda: hopper_scan.seg_total_sorted(
-               skey, sval, thre), 20),
+           lambda: hopper_scan.seg_total_sorted(skey, sval, thre),
            cuda_ms(torch, lambda: hopper_scan.seg_total_plain(
-               skey, sval, thre), 5), nb(skey, sval, tot), 2 * sp)
+               skey, sval, thre), 5), nb(skey, sval, tot), 2 * sp,
+           kernels=6)
 
     weak, strong = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
     weak_bin = (weak > 0).to(torch.int32)
@@ -456,20 +533,14 @@ def main() -> int:
     # pixel and pass, whatever the taps, and the average one division
     record("blblur", "blblur.cu", "rectdetect_tpu/ops/pallas_blblur.py:223",
            0.0,
-           cuda_ms(torch, lambda: hopper_blblur.blblur(
-               fe.packed0, weak_bin, iters), 20),
+           lambda: hopper_blblur.blblur(fe.packed0, weak_bin, iters),
            cuda_ms(torch, lambda: regions.blblur(fe.packed0, weak_bin, iters),
                    3), nb(fe.packed0, weak_bin, blurred),
-           2 * H * W + 2 * iters * 3 * 3 * H * W)
+           2 * H * W + 2 * iters * 3 * 3 * H * W,
+           kernels=hopper_blblur.launch_count(iters))
 
-    # the redesign (csrc/blblur.cu): every fused round count against the
-    # plain version, then their device time and launches per call in turns
-    # (torch.profiler), and the parent commit's kernel where it was brought
-    # along (build/parent/)
-    parent = parent_kernels(torch, _build)
-    redesign = {"card": card, "ptxas": {
-        k: ptxas_lines(_build.ptxas_log.get(k, "not rebuilt in this run"))
-        for k in ("blblur.cu", "pose.cu")}}
+    # blblur (csrc/blblur.cu): every fused round count against the plain
+    # version, then their device time and kernels per call in turns
     for f in hopper_blblur.TILES:
         if not torch.equal(hopper_blblur.blblur_fused(
                 fe.packed0, weak_bin, iters, f), blurred_p):
@@ -478,50 +549,25 @@ def main() -> int:
     sweep = {f: [] for f in hopper_blblur.TILES}
     for _ in range(3):
         for f in hopper_blblur.TILES:
-            sweep[f].append(device_ms(torch, lambda: hopper_blblur.
-                                      blblur_fused(fe.packed0, weak_bin,
-                                                   iters, f), 10))
+            times, per_call = device_ms(torch, _build, lambda: hopper_blblur.
+                                        blblur_fused(fe.packed0, weak_bin,
+                                                     iters, f), turns=1)
+            if per_call != hopper_blblur.launch_count(iters, f):
+                fail(f"blblur with {f} fused rounds launched {per_call} "
+                     f"kernels per call by the library's counter, not "
+                     f"{hopper_blblur.launch_count(iters, f)}")
+            sweep[f].append(times[0])
     redesign["blblur_fuse_sweep"] = {
-        f: {"tile": hopper_blblur.TILES[f],
-            "profiler_ms": [t["profiler_ms"] for t in ts],
-            "events_ms": [t["events_ms"] for t in ts],
-            "launches_per_call": ts[-1]["launches_per_call"],
-            "by_kernel_ms": ts[-1]["by_kernel_ms"],
+        f: {"tile": hopper_blblur.TILES[f], "device_ms": ts,
+            "kernels_per_call": hopper_blblur.launch_count(iters, f),
             "wrapper_ms": cuda_ms(torch, lambda: hopper_blblur.blblur_fused(
                 fe.packed0, weak_bin, iters, f), 10)}
         for f, ts in sweep.items()}
-    # the profiler has been seen to miss one kernel of ten calls; more than
-    # that is a fault
-    for f, ts in sweep.items():
-        lpc = ts[-1]["launches_per_call"]
-        want = hopper_blblur.launch_count(iters, f)
-        if lpc is not None and not want - 0.15 <= lpc <= want:
-            fail(f"blblur with {f} fused rounds made {lpc} launches per call, "
-                 f"not {want}")
-    f0 = hopper_blblur.FUSE
-    best = min(sweep, key=lambda f: statistics.median(
-        t["events_ms"] for t in sweep[f]))
-    phase(f"phase 3 blblur device time per call (F = {f0}): "
-          f"{json.dumps(redesign['blblur_fuse_sweep'][f0])} "
-          f"(torch.profiler and CUDA events, 10 calls each, 3 turns of the "
-          f"F sweep); fastest F in this run: {best}")
-    if parent is not None:
-        old_blblur = parent[0]
-        same = torch.equal(old_blblur(fe.packed0, weak_bin, iters), blurred_p)
-        turns = []
-        for fn in (old_blblur, hopper_blblur.blblur, hopper_blblur.blblur,
-                   old_blblur):
-            d = device_ms(torch, lambda: fn(fe.packed0, weak_bin, iters), 10)
-            turns.append((d["profiler_ms"], d["events_ms"],
-                          cuda_ms(torch, lambda: fn(fe.packed0, weak_bin,
-                                                    iters), 10)))
-        redesign["blblur_parent_turns"] = {
-            "order": "parent, this, this, parent",
-            "profiler_ms": [t[0] for t in turns],
-            "events_ms": [t[1] for t in turns],
-            "wrapper_ms": [t[2] for t in turns], "parent_equal": same}
-        phase(f"phase 3 blblur parent/this/this/parent: "
-              f"{json.dumps(redesign['blblur_parent_turns'])}")
+    best = min(sweep, key=lambda f: statistics.median(sweep[f]))
+    phase(f"phase 3 blblur F sweep: "
+          f"{json.dumps(redesign['blblur_fuse_sweep'])} (CUDA events, 10 "
+          f"back-to-back calls, 3 turns); F = {hopper_blblur.FUSE} in use, "
+          f"fastest F in this run: {best}")
 
     n = cfg.quantize_levels
     despeck = hopper_quant.quantize_despeckle(blurred, fe.edge_thin, n, n, n)
@@ -533,8 +579,8 @@ def main() -> int:
     # ops: >= quantizing each pixel once (5 per channel)
     record("quant_despeckle", "quant_despeckle.cu",
            "rectdetect_tpu/ops/pallas_morph.py:157", 0.0,
-           cuda_ms(torch, lambda: hopper_quant.quantize_despeckle(
-               blurred, fe.edge_thin, n, n, n), 20),
+           lambda: hopper_quant.quantize_despeckle(
+               blurred, fe.edge_thin, n, n, n),
            cuda_ms(torch, lambda: regions.quantize_despeckle(
                blurred, fe.edge_thin, n, n, n), 5),
            nb(blurred, fe.edge_thin, despeck), 15 * H * W)
@@ -550,8 +596,7 @@ def main() -> int:
     # ops: >= one decision per pixel
     record("merge_mask", "merge_mask.cu",
            "rectdetect_tpu/ops/pallas_morph.py:391", 0.0,
-           cuda_ms(torch, lambda: hopper_merge_mask.junction_merge_mask(
-               strong), 20),
+           lambda: hopper_merge_mask.junction_merge_mask(strong),
            cuda_ms(torch, lambda: regions.junction_merge_mask(strong), 3),
            nb(strong, mask), H * W)
 
@@ -566,10 +611,24 @@ def main() -> int:
     # link decision per pixel
     record("label_merge", "links_ccl.cu",
            "rectdetect_tpu/ops/pallas_ccl.py:471", 0.0,
-           cuda_ms(torch, lambda: hopper_links.label_merge(
-               despeck, mask, strong), 20),
+           lambda: hopper_links.label_merge(despeck, mask, strong),
            cuda_ms(torch, lambda: regions.label_merge(despeck, mask, strong),
-                   3), nb(despeck, mask, strong, seg0), H * W)
+                   3), nb(despeck, mask, strong, seg0), H * W, kernels=3)
+    if parent is not None:
+        if not torch.equal(parent[1](despeck, mask, strong), seg0):
+            fail("label_merge: the parent's kernel differs")
+        turns = []
+        for fn in (parent[1], hopper_links.label_merge,
+                   hopper_links.label_merge, parent[1]):
+            call = (lambda: fn(despeck, mask, strong))
+            turns.append((device_ms(torch, _build, call, turns=1)[0][0],
+                          cuda_ms(torch, call, 10)))
+        redesign["label_merge_parent_turns"] = {
+            "order": "parent, this, this, parent",
+            "device_ms": [t[0] for t in turns],
+            "wrapper_ms": [t[1] for t in turns]}
+        phase(f"phase 3 label_merge parent/this/this/parent: "
+              f"{json.dumps(redesign['label_merge_parent_turns'])}")
 
     thre2 = cfg.despeckle2_thre
     seg = hopper_despeckle2.sizes_despeckle2(seg0, thre2)
@@ -582,10 +641,9 @@ def main() -> int:
     # ops: >= one histogram add and one size test per pixel
     record("despeckle2", "despeckle2.cu",
            "rectdetect_tpu/ops/pallas_morph.py:597", 0.0,
-           cuda_ms(torch, lambda: hopper_despeckle2.sizes_despeckle2(
-               seg0, thre2), 20),
+           lambda: hopper_despeckle2.sizes_despeckle2(seg0, thre2),
            cuda_ms(torch, lambda: regions.sizes_despeckle2(seg0, thre2), 3),
-           nb(seg0, seg), 2 * H * W)
+           nb(seg0, seg), 2 * H * W, kernels=2)
 
     boundary, _ = boundary_labels(seg, cfg)
     bids = hopper_bids.distinct_bids(boundary)
@@ -600,7 +658,7 @@ def main() -> int:
     # decision per pixel
     record("distinct_bids", "distinct_bids.cu",
            "rectdetect_tpu/ops/pallas_morph.py:519", 0.0,
-           cuda_ms(torch, lambda: hopper_bids.distinct_bids(boundary), 20),
+           lambda: hopper_bids.distinct_bids(boundary),
            cuda_ms(torch, lambda: hopper_bids.distinct_bids_plain(boundary),
                    3), nb(boundary, *bids), H * W)
 
@@ -650,8 +708,7 @@ def main() -> int:
 
     corners, ok = hopper_hyp.reduce_groups(hyp.segs, hyp.valid, hv)
     record("hyp", "hyp.cu", "rectdetect_tpu/ops/pallas_hyp.py:69", err,
-           cuda_ms(torch, lambda: hopper_hyp.reduce_groups(
-               hyp.segs, hyp.valid, hv), 20),
+           lambda: hopper_hyp.reduce_groups(hyp.segs, hyp.valid, hv),
            cuda_ms(torch, lambda: quad.reduce_groups(hyp.segs, hyp.valid,
                                                      hv), 5),
            nb(hyp.segs, hyp.valid, corners, ok),
@@ -704,41 +761,9 @@ def main() -> int:
                         + cfg.cg_iters * POSE_VALUE_OPS)
     c2_t, c3_t, val_t = hopper_pose.pose_estimate(corners, *pose_args)
     record("pose", "pose.cu", "rectdetect_tpu/geometry/pose.py:205", err,
-           cuda_ms(torch, lambda: hopper_pose.pose_estimate(
-               corners, *pose_args), 20),
+           lambda: hopper_pose.pose_estimate(corners, *pose_args),
            cuda_ms(torch, lambda: pose.pose_estimate(corners, *pose_args), 3),
            nb(corners, c2_t, c3_t, val_t), pose_ops)
-    # the redesign (csrc/pose.cu): its device time per call, in turns with
-    # the parent commit's kernel where it was brought along
-    timed = [device_ms(torch, lambda: hopper_pose.pose_estimate(
-        corners, *pose_args), 10) for _ in range(3)]
-    redesign["pose"] = {
-        "profiler_ms": [t["profiler_ms"] for t in timed],
-        "events_ms": [t["events_ms"] for t in timed],
-        "launches_per_call": timed[-1]["launches_per_call"]}
-    phase(f"phase 3 pose device time per call: "
-          f"{json.dumps(redesign['pose'])} (torch.profiler and CUDA events, "
-          f"10 calls each, 3 times)")
-    if parent is not None:
-        old_pose = parent[1]
-        same = all(np.array_equal(a.cpu().numpy(), b.cpu().numpy(),
-                                  equal_nan=True)
-                   for a, b in zip(old_pose(corners, *pose_args),
-                                   hopper_pose.pose_estimate(corners,
-                                                             *pose_args)))
-        turns = []
-        for fn in (old_pose, hopper_pose.pose_estimate,
-                   hopper_pose.pose_estimate, old_pose):
-            d = device_ms(torch, lambda: fn(corners, *pose_args), 10)
-            turns.append((d["profiler_ms"], d["events_ms"],
-                          cuda_ms(torch, lambda: fn(corners, *pose_args), 10)))
-        redesign["pose_parent_turns"] = {
-            "order": "parent, this, this, parent",
-            "profiler_ms": [t[0] for t in turns],
-            "events_ms": [t[1] for t in turns],
-            "wrapper_ms": [t[2] for t in turns], "parent_bit_equal": same}
-        phase(f"phase 3 pose parent/this/this/parent: "
-              f"{json.dumps(redesign['pose_parent_turns'])}")
     phase(f"phase 3 redesign: {json.dumps(redesign)}")
 
     # ---- 4. the main paths -----------------------------------------------
@@ -757,13 +782,22 @@ def main() -> int:
         torch.cuda.synchronize()
         for mod in counters.values():
             mod.launches = 0
+        _build.expected_kernels.clear()
+        n0 = _build.launch_count()
         out = fn()
         torch.cuda.synchronize()
+        kernels = _build.launch_count() - n0
+        want = sum(_build.expected_kernels.values())
         counts = {name: mod.launches for name, mod in counters.items()}
-        phase(f"phase 4 {path} launches: {json.dumps(counts)}")
+        phase(f"phase 4 {path} launches: {json.dumps(counts)}; kernels "
+              f"{kernels} by the library's counter, {want} expected "
+              f"({json.dumps(_build.expected_kernels)})")
         idle = [k for k in names if counts[k] < 1]
         if idle:
             fail(f"{path} did not launch {idle}")
+        if kernels != want:
+            fail(f"{path} launched {kernels} kernels by the library's "
+                 f"counter, not the {want} its wrappers launched")
         launches.update({k: counts[k] for k in names})
         return out
 

@@ -359,6 +359,7 @@ cudaError_t launch_fused(const int* in, const uint16_t* arms, int* out, int h,
   blblur_fused<F, TH, TW>
       <<<grid, dim3(kThreadsX, kThreadsY), smem, s>>>(in, arms, out, h, w,
                                                       rounds);
+  rd::count_launch();
   return cudaGetLastError();
 }
 
@@ -379,6 +380,7 @@ cudaError_t arm_pass(const int* edge, uint16_t* arms, int h, int w,
                      cudaStream_t s) {
   blblur_arms<<<dim3((w + kArmW - 1) / kArmW, (h + kArmH - 1) / kArmH),
                 dim3(kArmW, kArmRows), 0, s>>>(edge, arms, h, w);
+  rd::count_launch();
   return cudaGetLastError();
 }
 

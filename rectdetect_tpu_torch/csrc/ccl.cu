@@ -75,7 +75,10 @@ extern "C" int rd_label_components(const void* pix, void* out, void* parent,
   const int* P = (const int*)pix;
   int* L = (int*)parent;
   init_kernel<<<g, t, 0, s>>>(P, L, h, w, bgc);
+  rd::count_launch();
   merge_kernel<<<g, t, 0, s>>>(P, L, h, w, bgc);
+  rd::count_launch();
   flatten_kernel<<<g, t, 0, s>>>(P, L, (int*)out, h, w, bgc);
+  rd::count_launch();
   return (int)cudaGetLastError();
 }

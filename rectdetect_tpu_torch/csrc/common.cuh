@@ -5,6 +5,10 @@
 
 namespace rd {
 
+// the library's launch counter (launches.cu): each entry point calls this
+// once for every kernel it launches
+void count_launch();
+
 // reflect-101 index (the reference's mirror(), oclimgutil.cl:41-45);
 // valid for i in [-(n-1), 2n-2]
 __device__ __forceinline__ int mirror(int i, int n) {

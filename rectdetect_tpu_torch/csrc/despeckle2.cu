@@ -72,7 +72,9 @@ extern "C" int rd_despeckle2(const void* label, void* sizes, void* out, int h,
   if (err != cudaSuccess) return (int)err;
   sizes_kernel<<<(n + 255) / 256, 256, 0, s>>>((const int*)label,
                                                (int*)sizes, n);
+  rd::count_launch();
   absorb_kernel<<<rd::pixel_grid(h, w), rd::pixel_block(), 0, s>>>(
       (const int*)label, (const int*)sizes, (int*)out, h, w, thre);
+  rd::count_launch();
   return (int)cudaGetLastError();
 }

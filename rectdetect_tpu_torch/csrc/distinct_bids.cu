@@ -76,5 +76,6 @@ extern "C" int rd_distinct_bids(const void* bnd, void* out, int h, int w,
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
   distinct_bids_kernel<<<grid, rd::pixel_block(), 0, (cudaStream_t)stream>>>(
       (const int*)bnd, (int*)out, h, w);
+  rd::count_launch();
   return (int)cudaGetLastError();
 }

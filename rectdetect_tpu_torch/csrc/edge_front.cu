@@ -93,5 +93,6 @@ extern "C" int rd_edge_front(const void* labb, void* em, void* vec, int h,
   edge_front_kernel<<<rd::pixel_grid(h, w), rd::pixel_block(), 0,
                       (cudaStream_t)stream>>>(
       (const float*)labb, (float*)em, (float*)vec, h, w);
+                      rd::count_launch();
   return (int)cudaGetLastError();
 }

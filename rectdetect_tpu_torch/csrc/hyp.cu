@@ -375,5 +375,6 @@ extern "C" int rd_hyp(const void* segs, const void* valid, void* corners,
   hyp_kernel<<<g, threads, 0, (cudaStream_t)stream>>>(
       (const float*)segs, (const unsigned char*)valid, (float*)corners,
       (unsigned char*)ok, k, max_vertices, short_ratio2);
+  rd::count_launch();
   return (int)cudaGetLastError();
 }

@@ -95,5 +95,6 @@ extern "C" int rd_merge_mask(const void* lbl, void* out, int h, int w,
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
   merge_mask_kernel<<<grid, rd::pixel_block(), 0, (cudaStream_t)stream>>>(
       (const int*)lbl, (int*)out, h, w);
+  rd::count_launch();
   return (int)cudaGetLastError();
 }

@@ -142,5 +142,7 @@ extern "C" int rd_strings_chain(const void* edge, void* out, void* a,
   } else {
     stringify_kernel<<<g, t, 0, s>>>(A, O, h, w, 1);
   }
+  // junction, connect, two stringify passes, and remove_branch for poly
+  for (int k = variant == 1 ? 5 : 4; k > 0; --k) rd::count_launch();
   return (int)cudaGetLastError();
 }

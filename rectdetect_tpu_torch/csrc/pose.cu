@@ -487,5 +487,6 @@ extern "C" int rd_pose(const void* corners, void* c2, void* c3, void* value,
   pose_kernel<<<blocks, 32, 0, (cudaStream_t)stream>>>(
       (const float*)corners, g, half_w, half_h, focal, cg_iters, ls_iters,
       (float*)c2, (float*)c3, (float*)value);
+  rd::count_launch();
   return (int)cudaGetLastError();
 }

@@ -90,5 +90,6 @@ extern "C" int rd_quant_despeckle(const void* packed, const void* emag,
                            (cudaStream_t)stream>>>(
       (const int*)packed, (const float*)emag, (int*)out, h, w, (float)n0,
       (float)n1, (float)n2);
+                           rd::count_launch();
   return (int)cudaGetLastError();
 }

@@ -201,9 +201,12 @@ extern "C" int rd_seg_scan(const void* key, const void* val, void* out,
   tile_kernel<<<ntiles, kThreads, 0, s>>>((const int*)key, (const int*)val,
                                           (int*)out, tile_start, tile_v,
                                           tile_first, n, op, cap, rev);
+  rd::count_launch();
   carry_kernel<<<1, kThreads, 0, s>>>(tile_start, tile_v, carry, ntiles, op,
                                       cap);
+  rd::count_launch();
   fix_kernel<<<ntiles, kThreads, 0, s>>>((int*)out, carry, tile_first, n, op,
                                          cap, rev);
+  rd::count_launch();
   return (int)cudaGetLastError();
 }

@@ -92,5 +92,6 @@ extern "C" int rd_thin(const void* em, const void* vec, void* out, int h,
   thin_kernel<<<rd::pixel_grid(h, w), rd::pixel_block(), 0,
                 (cudaStream_t)stream>>>((const float*)em, (const float*)vec,
                                         (float*)out, h, w, cubic, slack);
+                rd::count_launch();
   return (int)cudaGetLastError();
 }

@@ -54,12 +54,21 @@ SIGNATURES = {
     "rd_hyp": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "rd_pose": (_P, _P, _P, _P, _I, _F, _F, _F, _I, _I, _P),
 }
+# entry points that launch nothing: name -> (argument types, result type)
+QUERIES = {
+    "rd_launch_count": ((), ctypes.c_longlong),
+    "rd_mkpl_scratch_words": ((_I, _I), ctypes.c_int),
+}
 
 _lib = None
 build_seconds = None
 # nvcc's report per source of the last verbose build (-Xptxas=-v: each
 # kernel's registers, shared memory and spills)
 ptxas_log: dict[str, str] = {}
+# kernel launches per entry point as the wrappers state them (the
+# `kernels` argument of launch); chip_smoke.py holds their sum equal to
+# the library's own count, launch_count()
+expected_kernels: dict[str, int] = {}
 
 
 def _nvcc() -> str:
@@ -145,6 +154,10 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = list(args)
             fn.restype = ctypes.c_int
+        for name, (args, res) in QUERIES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(args)
+            fn.restype = res
         _lib = handle
     return _lib
 
@@ -174,12 +187,20 @@ def check(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args, kernels: int = 1) -> None:
     """Call C entry point `name` on `device`'s current stream; raise on a
-    nonzero cudaError_t."""
+    nonzero cudaError_t.  `kernels`: the launches the entry makes for these
+    arguments, added to expected_kernels."""
     fn = getattr(lib(), name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    expected_kernels[name] = expected_kernels.get(name, 0) + kernels
+
+
+def launch_count() -> int:
+    """Kernels launched by the library so far, by its own counter (every
+    entry point counts each kernel it launches)."""
+    return lib().rd_launch_count()

@@ -54,7 +54,8 @@ def blblur_fused(packed: torch.Tensor, edge: torch.Tensor, iters: int,
     arms = torch.empty((h, w), dtype=torch.int16, device=packed.device)
     _build.launch("rd_blblur", packed.device, packed.data_ptr(),
                   edge.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                  arms.data_ptr(), h, w, int(iters), int(fuse))
+                  arms.data_ptr(), h, w, int(iters), int(fuse),
+                  kernels=launch_count(iters, fuse) if h and w else 0)
     launches += 1
     return out
 

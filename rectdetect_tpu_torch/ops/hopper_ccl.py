@@ -35,6 +35,7 @@ def label_components(pix: torch.Tensor, bgc: int = 0) -> torch.Tensor:
     out = torch.empty_like(pix)
     parent = torch.empty_like(pix)
     _build.launch("rd_label_components", pix.device, pix.data_ptr(),
-                  out.data_ptr(), parent.data_ptr(), h, w, int(bgc))
+                  out.data_ptr(), parent.data_ptr(), h, w, int(bgc),
+                  kernels=3)
     launches += 1
     return out

@@ -33,6 +33,7 @@ def sizes_despeckle2(label: torch.Tensor, thre: int = 16) -> torch.Tensor:
     out = torch.empty_like(label)
     sizes = torch.empty((h * w,), dtype=torch.int32, device=label.device)
     _build.launch("rd_despeckle2", label.device, label.data_ptr(),
-                  sizes.data_ptr(), out.data_ptr(), h, w, int(thre))
+                  sizes.data_ptr(), out.data_ptr(), h, w, int(thre),
+                  kernels=2)
     launches += 1
     return out

@@ -4,12 +4,14 @@ labelMergeMain, oclrect.cl:289-334), the minimum flat index of each
 
 Replaces the TPU kernel rectdetect_tpu/ops/pallas_ccl.py:
 _links_block_kernel with its seam union and resolve (label_links_blocked,
-label_merge_exact).  CUDA source: csrc/links_ccl.cu, K4's union-find
-(atomicMin linking, path halving) over the links, which the merge pass
-evaluates itself from the colours, the merge mask and the strong edges
-(regions.merge_pairs); bound by the latency of dependent loads and
-atomics.  Roots are component minima whatever order the atomics run in,
-so the labels are exact and deterministic.
+label_merge_exact).  CUDA source: csrc/links_ccl.cu, a block-based
+union-find in three launches: each 16x32 tile evaluates its inner links
+(regions.merge_pairs) from shared memory and unites them with
+shared-memory atomics, writing each pixel's tile root; the links across
+the tile seams unite the roots through device memory (atomicMin linking,
+path halving); a last pass flattens.  Bound by the latency of dependent
+loads and atomics.  Roots are component minima whatever order the atomics
+run in, so the labels are exact and deterministic.
 
 `label_merge` takes the plain version (ops/regions.py: merge_pairs +
 label_links) for CPU tensors and launches the kernel for CUDA tensors;
@@ -39,6 +41,7 @@ def label_merge(packed: torch.Tensor, mask: torch.Tensor,
         _build.check(t, name, torch.int32, (h, w))
     out = torch.empty_like(packed)
     _build.launch("rd_label_merge", packed.device, packed.data_ptr(),
-                  mask.data_ptr(), edge_label.data_ptr(), out.data_ptr(), h, w)
+                  mask.data_ptr(), edge_label.data_ptr(), out.data_ptr(), h, w,
+                  kernels=3 if h and w else 0)
     launches += 1
     return out

@@ -1,23 +1,32 @@
 """Kernel #14 mkpl: the max-deviation subdivision of the polyline stage.
 
 Replaces the TPU kernel rectdetect_tpu/ops/pallas_mkpl.py:_mkpl_kernel
-(mkpl_subdivide_pallas).  CUDA source: csrc/mkpl.cu, one cooperative
-persistent launch for all rounds, grid-wide barriers between the phases
-of a round.  It is bound by latency (barriers, dependent atomics and a
-one-block allocation pass per round), not by bytes.
+(mkpl_subdivide_pallas).  CUDA source: csrc/mkpl.cu, one launch of one
+thread-block cluster for all rounds.  As on the TPU, the live slots are put
+in (arc, number) order once, so every segment is a contiguous run and
+pass3 is implicit; each round is a segmented max of the chord distance
+over the runs' parts in each warp's 32 positions by shuffles, one atomic
+max a part into its segment's key, then the split tests and an id-order
+scan of the split flags across the blocks (decoupled look-back), with two
+cluster barriers.  It is bound by latency (the barriers and chains of
+dependent loads), not by bytes.
 
 The Pallas kernel renamed provisional slot-order ids afterwards, which is
 exact only when the arena cannot overflow (arena cap >= slot count); the
 port's arc slot list is larger than the arena, so the kernel allocates as
 the plain version does (ops/mkpl.py:mkpl_subdivide): split segments
 ranked by id, dropped once count + rank >= cap.  Its arena and lsid are
-bit-equal to the plain version's.
+bit-equal to the plain version's for an arena as
+ops/polyline.py:mkpl_init builds it (every live slot's label at most
+count, its number at most its segment's end index).
 
 `mkpl_subdivide` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors; there is no other path.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -33,6 +42,11 @@ _INTS = ("start_index", "end_index", "left_ptr", "right_ptr", "start_count",
          "end_count", "polyid", "npix", "level")
 
 launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_words(slots: int, cap: int) -> int:
+    return _build.lib().rd_mkpl_scratch_words(slots, cap)
 
 
 def mkpl_subdivide(arena: SegmentArena, label: torch.Tensor,
@@ -62,7 +76,7 @@ def mkpl_subdivide(arena: SegmentArena, label: torch.Tensor,
                           for f in _FLOATS] +
                          [getattr(arena, f) for f in _INTS])
     count = arena.count.to(torch.int32).reshape(1).clone()
-    scratch = torch.empty((3 * slots + 3 * cap,), dtype=torch.int32,
+    scratch = torch.empty((_scratch_words(slots, cap),), dtype=torch.int32,
                           device=label.device)
     lsid = torch.zeros((n,), dtype=torch.int32, device=label.device)
     _build.launch("rd_mkpl", label.device, comp.idx.data_ptr(),

@@ -39,6 +39,7 @@ def strings_chain(edge_bin: torch.Tensor, variant: str):
     b = torch.empty_like(edge_bin)
     _build.launch("rd_strings_chain", edge_bin.device, edge_bin.data_ptr(),
                   out.data_ptr(), a.data_ptr(), b.data_ptr(), h, w,
-                  _VARIANTS[variant])
+                  _VARIANTS[variant],
+                  kernels=5 if variant == "poly_branch" else 4)
     launches += 1
     return out

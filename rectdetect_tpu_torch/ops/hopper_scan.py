@@ -82,7 +82,7 @@ def _launch(key, val, op: str, cap: int, rev: bool) -> torch.Tensor:
                           device=key.device)
     _build.launch("rd_seg_scan", key.device, key.data_ptr(), val.data_ptr(),
                   out.data_ptr(), scratch.data_ptr(), s, _OPS[op], cap,
-                  int(rev))
+                  int(rev), kernels=3 if s else 0)
     launches += 1
     return out
 

@@ -21,7 +21,10 @@ versions' float operations, so `ok` and c2 are held equal and the other
 floats within rtol 1e-3 (bit-equal expected); rect_frame's valid and
 status equal, its corners within 2e-4 px.  The blblur kernel is held
 equal to the plain version at every fused round count it compiles, and
-the pose kernel bit for bit (NaN in the same places).
+the pose kernel bit for bit (NaN in the same places).  The mkpl and links
+kernels are held bit-equal on arenas whose arc numbers repeat or skip and
+on frames of one region; launches are read from the kernel library's own
+counter (`_build.launch_count`).
 """
 
 import math
@@ -178,11 +181,12 @@ def _polylines(h=256, w=256, seed=4, count=120):
     return torch.from_numpy(m)
 
 
-@pytest.mark.parametrize("cap", [4096, 200, 180])
+@pytest.mark.parametrize("cap", [4096, 200, 180, 176])
 def test_mkpl_kernel_matches_plain(cap):
     """The arc slot list outnumbers the arena at every cap here; at 200
     and 180 the arena overflows during the subdivision (173 arcs, 284
-    segments unbounded) and splits drop in id order."""
+    segments unbounded) and splits drop in id order; at 176 the first
+    round already overflows."""
     _need_card()
     comp, (ga, gl), (pa, pl) = _mkpl_case(_polylines().cuda(), cap)
     assert comp.cap > cap > 173
@@ -191,6 +195,49 @@ def test_mkpl_kernel_matches_plain(cap):
         assert torch.equal(getattr(ga, f), getattr(pa, f)), f
     if cap < 4096:
         assert int(ga.count) == cap - 1
+
+
+def _scrambled_numbers(dense, number, comp):
+    """Every third arc's numbers no longer 1..size without repeats: a
+    repeat, a gap, or both (the kernel ranks such an arc by sorting)."""
+    num = number.clone().reshape(-1)
+    flat = dense.reshape(-1)
+    live = comp.idx[comp.valid()].long()
+    for k, arc in enumerate(torch.unique(flat[live]).tolist()):
+        px = live[flat[live] == arc]
+        if k % 3 or px.numel() < 4:
+            continue
+        order = px[torch.argsort(num[px])]
+        if k % 9 == 0:
+            num[order[2]] = num[order[1]]
+        elif k % 9 == 3:
+            num[order[2:]] += 2
+        else:
+            num[order[1]] = num[order[2]]
+            num[order[-1]] += 5
+    return num.reshape(number.shape)
+
+
+@pytest.mark.parametrize("h,w,count", [(256, 256, 120), (512, 512, 500)])
+def test_mkpl_kernel_rounds_numbers_and_launch_count(h, w, count):
+    """0, 1, 2 and 15 rounds; arcs whose numbers repeat or skip; more live
+    slots than the launch has threads (512 x 512); one launch per call by
+    the library's own counter."""
+    _need_card()
+    arena, dense, number, comp = polyline.mkpl_inputs(
+        _polylines(h, w, 4, count).cuda(), 4, 16384, PipelineConfig())
+    number2 = _scrambled_numbers(dense, number, comp)
+    arena2 = polyline.mkpl_init(dense, number2, 16384, comp)
+    for a0, num in ((arena, number), (arena2, number2)):
+        for iters in (1, 2, 3, 16):
+            n0 = _build.launch_count()
+            got = hopper_mkpl.mkpl_subdivide(a0, dense, num, 1.0, iters, comp)
+            assert _build.launch_count() == n0 + 1
+            want = mkpl.mkpl_subdivide(a0, dense, num, 1.0, iters, comp)
+            assert torch.equal(got[1], want[1]), iters
+            for f in want[0]._fields:
+                assert torch.equal(getattr(got[0], f),
+                                   getattr(want[0], f)), (iters, f)
 
 
 def _check_scan(key, val, caps):
@@ -330,6 +377,42 @@ def test_region_merge_and_bids_kernels_match_plain():
             assert torch.equal(a, b)
     with pytest.raises(TypeError):
         hopper_links.label_merge(packed, mask.float(), strong)
+
+
+def _serpentine(h, w):
+    """Colour 1 on a path along every other row, turning at alternate
+    ends, so one region crosses every tile seam; colour 0 elsewhere."""
+    c = np.zeros((h, w), np.int32)
+    c[::2] = 1
+    c[1::4, -1] = 1
+    c[3::4, 0] = 1
+    return torch.from_numpy(c)
+
+
+@pytest.mark.parametrize("h,w", [(1, 64), (64, 1), (37, 53), (70, 33),
+                                 (720, 1280)])
+def test_links_kernel_matches_plain(h, w):
+    """Random colours, mask and edges; the serpentine; one colour; three
+    launches per call by the library's own counter."""
+    _need_card()
+    r = np.random.default_rng(h * 7 + w)
+    z = torch.zeros((h, w), dtype=torch.int32)
+    frames = [
+        (torch.from_numpy(r.integers(0, 3, (h, w)).astype(np.int32)),
+         torch.from_numpy((r.random((h, w)) < 0.2).astype(np.int32)),
+         torch.from_numpy((r.random((h, w)) < 0.3).astype(np.int32))),
+        (_serpentine(h, w), z, z),
+        (torch.full((h, w), 5, dtype=torch.int32), z, z)]
+    for packed, mask, edge in frames:
+        packed, mask, edge = packed.cuda(), mask.cuda(), edge.cuda()
+        n0 = _build.launch_count()
+        got = hopper_links.label_merge(packed, mask, edge)
+        assert _build.launch_count() == n0 + 3
+        assert torch.equal(got, regions.label_merge(packed, mask, edge))
+    assert int(got.max()) == 0
+    serp = hopper_links.label_merge(_serpentine(h, w).cuda(), z.cuda(),
+                                    z.cuda())
+    assert int((serp == 0).sum()) == int(_serpentine(h, w).sum())
 
 
 def test_rect_hypotheses_on_card_matches_cpu_and_counts_launches():

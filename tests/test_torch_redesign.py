@@ -1,14 +1,20 @@
 """PyTorch port, the kernels' own schedules in plain PyTorch against the
 plain versions on the CPU: blblur's arm words and fused shared-memory
-rounds (csrc/blblur.cu), its multiply-shift division, and the pose
-kernel's lanes (csrc/pose.cu: one seed direction per jet, the line search
-that reuses its candidate's jet).
+rounds (csrc/blblur.cu), its multiply-shift division, the pose kernel's
+lanes (csrc/pose.cu: one seed direction per jet, the line search that
+reuses its candidate's jet), mkpl's sorted-domain rounds (csrc/mkpl.cu:
+runs in (arc, number) order, per-tile run keys, the id-order scan in
+chunks, pass3 as a run cut) and the links CCL's tiled union-find
+(csrc/links_ccl.cu: tile pass from a shared-memory copy, seam unions,
+flatten).
 
-The plain versions (ops/regions.py:blblur, geometry/pose.py) are held to
-the JAX package by tests/test_torch_regions.py and tests/test_torch_rect.py;
-these tests compile no JAX.  Everything here must be bit-equal: blblur is
-integer arithmetic, and the pose schedule rounds the same float
-operations in the same order.
+The plain versions (ops/regions.py:blblur and label_merge,
+geometry/pose.py, ops/mkpl.py:mkpl_subdivide) are held to the JAX package
+by tests/test_torch_regions.py, tests/test_torch_rect.py,
+tests/test_torch_hypotheses.py and tests/test_torch_polyline.py; these
+tests compile no JAX.  Everything here must be bit-equal: blblur and the
+CCL are integer arithmetic, and the pose and mkpl schedules round the same
+float operations in the same order.
 """
 
 import math
@@ -18,8 +24,9 @@ import pytest
 import torch
 
 from rectdetect_tpu_torch import parity
+from rectdetect_tpu_torch.config import PipelineConfig
 from rectdetect_tpu_torch.geometry import pose
-from rectdetect_tpu_torch.ops import fp, regions
+from rectdetect_tpu_torch.ops import fp, mkpl, polyline, regions
 from rectdetect_tpu_torch.ops.regions import _coord_maps
 from rectdetect_tpu_torch.ops.shifts import pad2d, shifted
 
@@ -341,3 +348,391 @@ def test_pose_lanes_schedule_bit_equal_to_plain(cg_iters, ls_iters):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert np.isnan(want[2].numpy()).any()
+
+
+def mkpl_sorted(arena, label, number, minerror, n_iters, comp, piece=16,
+                chunk=8):
+    """csrc/mkpl.cu's schedule: the live slots placed in (arc, number)
+    order (an arc whose numbers are not 1..size without repeats ranked by
+    (number, slot)), then per round the previous round's pass3, the
+    distance keys reduced over each run's part in every `piece` positions
+    and the parts' maxima into the run's key, the split test, the id-order
+    ranks chunk by chunk (`chunk` ids), the record writes and the run cut
+    after the winner.  Returns (arena, lsid) as mkpl.mkpl_subdivide."""
+    h, w = label.shape
+    n = h * w
+    cap = arena.cap
+    f = {k: getattr(arena, k).clone() for k in arena._fields if k != "count"}
+    count = int(arena.count)
+    dense = label.reshape(-1).tolist()
+    numimg = number.reshape(-1).tolist()
+    polyid = f["polyid"].tolist()
+    live = {}                                  # slot -> (pixel, arc, number)
+    for s, p in enumerate(comp.idx.tolist()):
+        if p < n:
+            p = max(p, 0)
+            lab = dense[p]
+            if 0 < lab <= count and polyid[lab] != 0:
+                live[s] = (p, lab, numimg[p])
+    size = np.zeros(cap, np.int64)
+    for _, lab, _ in live.values():
+        size[lab] += 1
+    runend = np.cumsum(size)
+    runstart = runend - size
+    perm = np.full(len(live), -1, np.int64)
+    bad = np.zeros(cap, bool)
+    for s, (_, lab, num) in live.items():
+        k = runstart[lab] + num - 1
+        if 1 <= num <= size[lab] and perm[k] < 0:
+            perm[k] = s
+        else:
+            bad[lab] = True
+    for lab in np.flatnonzero(bad):
+        members = sorted((num, s) for s, (_, a, num) in live.items()
+                         if a == lab)
+        perm[runstart[lab]:runend[lab]] = [s for _, s in members]
+    pix = np.array([live[s][0] for s in perm], np.int64)
+    num_s = np.array([live[s][2] for s in perm], np.int64)
+    lab_s = np.array([live[s][1] for s in perm], np.int64)
+    posof = {s: i for i, s in enumerate(perm)}
+    n_live = len(perm)
+    px = torch.from_numpy(pix % w).to(torch.float32)
+    py = torch.from_numpy(pix // w).to(torch.float32)
+    minerr_fix = int(minerror * mkpl.FIX)
+    for r in range(n_iters - 1):
+        if r > 0:
+            eidx, right = f["end_index"].numpy(), f["right_ptr"].numpy()
+            lab_s = np.where(eidx[lab_s] < num_s, right[lab_s], lab_s)
+        lt = torch.from_numpy(lab_s)
+        d = mkpl._closest_point_dist(f["sx"][lt], f["sy"][lt], f["ex"][lt],
+                                     f["ey"][lt], px, py)
+        dist = torch.trunc(d * mkpl.FIX).to(torch.int32).numpy()
+        key = dist.astype(np.int64) * 2 ** 32 + (2 ** 32 - 1 - perm)
+        maxkey = {}
+        for t0 in range(0, n_live, piece):
+            t1 = min(t0 + piece, n_live)
+            cuts = [t0] + [i for i in range(t0 + 1, t1)
+                           if lab_s[i] != lab_s[i - 1]] + [t1]
+            for a, b in zip(cuts[:-1], cuts[1:]):
+                maxkey[lab_s[a]] = max(maxkey.get(lab_s[a], 0),
+                                       key[a:b].max())
+        runs = {g: maxkey[g] for g in range(count + 1)
+                if runend[g] > runstart[g]}
+        gs = list(runs)
+        md = np.array([runs[g] >> 32 for g in gs], np.int64)
+        wpos = np.array([posof[2 ** 32 - 1 - (runs[g] & 0xffffffff)]
+                         for g in gs], np.int64)
+        flags = np.zeros(count + 1, bool)
+        if gs:
+            gi = torch.tensor(gs)
+            sx, sy, ex, ey = (f[k][gi] for k in ("sx", "sy", "ex", "ey"))
+            mdt = torch.from_numpy(md.astype(np.int32))
+            mdf = mdt.to(torch.float32)
+            wx = torch.from_numpy(pix[wpos] % w).to(torch.float32)
+            wy = torch.from_numpy(pix[wpos] // w).to(torch.float32)
+            cdx, cdy = ex - sx, ey - sy
+            chord_sq = fp.fma(cdx, cdx, cdy * cdy)
+            curv_keep = ~((mdt < minerr_fix * 3) &
+                          (mdf * mdf / torch.clamp(chord_sq, min=1e-30)
+                           < 100000.0))
+            dss = fp.fma(wx - sx, wx - sx, (wy - sy) * (wy - sy))
+            dse = fp.fma(wx - ex, wx - ex, (wy - ey) * (wy - ey))
+            ok = ((f["polyid"][gi] != 0)
+                  & (f["end_index"][gi] - f["start_index"][gi] >= 3)
+                  & (f["start_count"][gi] <= 1) & (f["end_count"][gi] <= 1)
+                  & (mdt >= minerr_fix) & curv_keep
+                  & (dss >= 1.0) & (dse >= 1.0))
+            flags[gs] = ok.numpy()
+        ranks, prefix = {}, 0
+        for c0 in range(0, count + 1, chunk):
+            fl = flags[c0:c0 + chunk].astype(np.int64)
+            excl = np.cumsum(fl) - fl
+            for j in np.flatnonzero(fl):
+                ranks[c0 + j] = prefix + excl[j] + 1
+            prefix += int(fl.sum())
+        for g, rank in ranks.items():
+            gn = count + rank
+            if gn >= cap:
+                continue
+            k = gs.index(g)
+            p, wn = pix[wpos[k]], num_s[wpos[k]]
+            right = int(f["right_ptr"][g])
+            for dst, val in (("sx", p % w), ("sy", p // w), ("ex", f["ex"][g]),
+                             ("ey", f["ey"][g]), ("start_index", wn),
+                             ("end_index", f["end_index"][g]),
+                             ("left_ptr", g), ("right_ptr", right),
+                             ("polyid", f["polyid"][g]), ("level", md[k]),
+                             ("npix", 0), ("start_count", 0),
+                             ("end_count", 0)):
+                f[dst][gn] = val
+            if right != 0:
+                f["left_ptr"][right] = gn
+            f["ex"][g], f["ey"][g] = float(p % w), float(p // w)
+            f["end_index"][g], f["right_ptr"][g] = int(wn), gn
+            q = wpos[k] + 1
+            while q < runend[g] and num_s[q] <= wn:
+                q += 1
+            runstart[gn], runend[gn] = q, runend[g]
+            runend[g] = q
+        count += min(prefix, cap - 1 - count)
+    if n_iters > 1:
+        eidx, right = f["end_index"].numpy(), f["right_ptr"].numpy()
+        lab_s = np.where(eidx[lab_s] < num_s, right[lab_s], lab_s)
+    lsid = np.zeros(n, np.int32)
+    for s, p in enumerate(comp.idx.tolist()):
+        if p < n and s not in posof:
+            lsid[max(p, 0)] = dense[max(p, 0)]
+    lsid[pix] = lab_s
+    out = arena._replace(count=torch.tensor(count, dtype=torch.int32), **f)
+    return out, torch.from_numpy(lsid.reshape(h, w))
+
+
+def _polylines(h=256, w=256, seed=4, count=120):
+    """Binary edge map of `count` random zig-zag polylines (as
+    tests/test_torch_cuda.py's)."""
+    r = np.random.default_rng(seed)
+    m = np.zeros((h, w), np.int32)
+    for _ in range(count):
+        y, x = r.integers(2, h - 2), r.integers(2, w - 2)
+        dy, dx = r.integers(-1, 2, 2)
+        for _ in range(r.integers(15, 60)):
+            if r.random() < 0.15:
+                dy, dx = r.integers(-1, 2, 2)
+            y, x = np.clip(y + dy, 1, h - 2), np.clip(x + dx, 1, w - 2)
+            m[y, x] = 1
+    return torch.from_numpy(m)
+
+
+def scrambled_numbers(dense, number, comp):
+    """Arc numbers that are no longer 1..size without repeats on every
+    third arc: a repeated number, a gap, or both."""
+    num = number.clone().reshape(-1)
+    flat = dense.reshape(-1)
+    live = comp.idx[comp.valid()].long()
+    for k, arc in enumerate(torch.unique(flat[live]).tolist()):
+        px = live[flat[live] == arc]
+        if k % 3 or px.numel() < 4:
+            continue
+        order = px[torch.argsort(num[px])]
+        if k % 9 == 0:
+            num[order[2]] = num[order[1]]           # a repeat
+        elif k % 9 == 3:
+            num[order[2:]] += 2                     # a gap
+        else:
+            num[order[1]] = num[order[2]]           # a repeat ...
+            num[order[-1]] += 5                     # ... and a gap
+    return num.reshape(number.shape)
+
+
+@pytest.mark.parametrize("cap", [4096, 200, 180])
+def test_mkpl_sorted_schedule_matches_plain(cap):
+    """Arena and lsid bit-equal to mkpl_subdivide on 120 polylines (173
+    arcs; at caps 200 and 180 the arena overflows and splits drop in id
+    order), with 16-position pieces and 8-id chunks, so runs span pieces
+    and the scan crosses chunks; and with scrambled numbers, which the
+    schedule ranks in place of placing them."""
+    arena, dense, number, comp = polyline.mkpl_inputs(
+        _polylines(), 4, cap, PipelineConfig())
+    cases = [(arena, number)]
+    number2 = scrambled_numbers(dense, number, comp)
+    cases.append((polyline.mkpl_init(dense, number2, cap, comp), number2))
+    for a0, num in cases:
+        want = mkpl.mkpl_subdivide(a0, dense, num, 1.0, 16, comp)
+        got = mkpl_sorted(a0, dense, num, 1.0, 16, comp)
+        assert torch.equal(got[1], want[1])
+        for fld in want[0]._fields:
+            assert torch.equal(getattr(got[0], fld),
+                               getattr(want[0], fld)), fld
+    if cap < 4096:
+        assert int(want[0].count) == cap - 1
+
+
+def test_mkpl_sorted_schedule_rounds_and_layouts():
+    """0, 1 and 3 rounds, one-position pieces and one-id chunks."""
+    arena, dense, number, comp = polyline.mkpl_inputs(
+        _polylines(96, 96, 7, 30), 4, 4096, PipelineConfig())
+    for iters, piece, chunk in ((1, 16, 8), (2, 1, 1), (4, 5, 3)):
+        want = mkpl.mkpl_subdivide(arena, dense, number, 1.0, iters, comp)
+        got = mkpl_sorted(arena, dense, number, 1.0, iters, comp, piece,
+                          chunk)
+        assert torch.equal(got[1], want[1])
+        for fld in want[0]._fields:
+            assert torch.equal(getattr(got[0], fld),
+                               getattr(want[0], fld)), fld
+
+
+def _interior(y, x, h, w):
+    return 1 <= y < h - 1 and 1 <= x < w - 1
+
+
+def _right_link(y, x, h, w, ca, cb, ma, mb, eb, cb_up):
+    """csrc/links_ccl.cu right_link."""
+    eq = ca == cb
+    link = not eb and ((_interior(y, x, h, w) and (eq or ma)) or
+                       (_interior(y, x + 1, h, w) and (eq or mb)))
+    return link or (eq and not (y > 0 and cb_up == cb))
+
+
+def _lower_link(y, x, h, w, ca, cb, ma, mb, eb):
+    """csrc/links_ccl.cu lower_link."""
+    eq = ca == cb
+    link = not eb and ((_interior(y, x, h, w) and (eq or ma)) or
+                       (_interior(y + 1, x, h, w) and (eq or mb)))
+    return link or eq
+
+
+def _root(par, x):
+    while par[x] != x:
+        x = par[x]
+    return x
+
+
+def _unite(par, a, b):
+    a, b = _root(par, a), _root(par, b)
+    if a != b:
+        par[max(a, b)] = min(a, b)
+
+
+POISON = -7
+
+
+def label_merge_tiled(packed, mask, edge, th, tw):
+    """csrc/links_ccl.cu's schedule: each th x tw tile evaluates its inner
+    links from its shared-memory copy (the tile and the row above it, the
+    rest poisoned), joins each row's runs of right links, unites the runs
+    of adjacent rows where a lower link is not implied by the one to its
+    left, and writes each pixel's tile root; the links across the seams
+    unite the roots unless the link before along the seam implies them;
+    a last pass flattens."""
+    pk, mk, ed = packed.numpy(), mask.numpy() != 0, edge.numpy() > 0
+    h, w = pk.shape
+    parent = np.arange(h * w)
+    for y0 in range(0, h, th):
+        for x0 in range(0, w, tw):
+            rows, cols = min(th, h - y0), min(tw, w - x0)
+            col = np.full((th + 1, tw), POISON)
+            col[1:rows + 1, :cols] = pk[y0:y0 + rows, x0:x0 + cols]
+            if y0 > 0:
+                col[0, :cols] = pk[y0 - 1, x0:x0 + cols]
+            m = np.zeros((th, tw), bool)
+            e = np.ones((th, tw), bool)
+            m[:rows, :cols] = mk[y0:y0 + rows, x0:x0 + cols]
+            e[:rows, :cols] = ed[y0:y0 + rows, x0:x0 + cols]
+            right = np.zeros((th, tw), bool)
+            lower = np.zeros((th, tw), bool)
+            for ty in range(rows):
+                for tx in range(cols):
+                    y, x = y0 + ty, x0 + tx
+                    right[ty, tx] = tx + 1 < tw and x + 1 < w and _right_link(
+                        y, x, h, w, col[ty + 1, tx], col[ty + 1, tx + 1],
+                        m[ty, tx], m[ty, tx + 1], e[ty, tx + 1],
+                        col[ty, tx + 1])
+                    lower[ty, tx] = ty + 1 < th and y + 1 < h and _lower_link(
+                        y, x, h, w, col[ty + 1, tx], col[ty + 2, tx],
+                        m[ty, tx], m[ty + 1, tx], e[ty + 1, tx])
+            par = []
+            for ty in range(th):
+                start = 0
+                for tx in range(tw):
+                    if tx and not right[ty, tx - 1]:
+                        start = tx
+                    par.append(ty * tw + start)
+            for ty in range(rows):
+                for tx in range(cols):
+                    implied = (tx > 0 and lower[ty, tx - 1]
+                               and right[ty, tx - 1]
+                               and right[min(ty + 1, th - 1), tx - 1])
+                    if lower[ty, tx] and not implied:
+                        _unite(par, ty * tw + tx, (ty + 1) * tw + tx)
+            for ty in range(rows):
+                for tx in range(cols):
+                    r = _root(par, ty * tw + tx)
+                    parent[(y0 + ty) * w + x0 + tx] = \
+                        (y0 + r // tw) * w + x0 + r % tw
+
+    def rlink(y, x):
+        return _right_link(y, x, h, w, pk[y, x], pk[y, x + 1], mk[y, x],
+                           mk[y, x + 1], ed[y, x + 1],
+                           pk[y - 1, x + 1] if y > 0 else 0)
+
+    def llink(y, x):
+        return _lower_link(y, x, h, w, pk[y, x], pk[y + 1, x], mk[y, x],
+                           mk[y + 1, x], ed[y + 1, x])
+
+    for x in range(tw - 1, w - 1, tw):
+        for y in range(h):
+            if rlink(y, x) and not (y % th and rlink(y - 1, x)
+                                    and llink(y - 1, x)
+                                    and llink(y - 1, x + 1)):
+                _unite(parent, y * w + x, y * w + x + 1)
+    for y in range(th - 1, h - 1, th):
+        for x in range(w):
+            if llink(y, x) and not (x % tw and llink(y, x - 1)
+                                    and rlink(y, x - 1)
+                                    and rlink(y + 1, x - 1)):
+                _unite(parent, y * w + x, (y + 1) * w + x)
+    out = np.array([_root(parent, p) for p in range(h * w)], np.int32)
+    return torch.from_numpy(out.reshape(h, w))
+
+
+def merge_frames(shape, seed=12):
+    """The kind of frame tests/test_torch_cuda.py's region-merge test
+    draws: sparse strong edges with two lines across, blocks of three
+    colours, one colour over a quarter of the frame, speckles."""
+    h, w = shape
+    r = np.random.default_rng(seed + h * w)
+    strong = (r.random((h, w)) < 0.08) * r.integers(1, 900, (h, w))
+    strong[h // 3, 3:w - 3] = 5
+    strong[3:h - 3, w // 3] = 6
+    strong = np.where(r.random((h, w)) < 0.05, -1, strong)
+    strong = torch.from_numpy(strong.astype(np.int32))
+    colours = np.kron(r.integers(0, 3, (h // 4 + 1, w // 4 + 1)),
+                      np.ones((4, 4), np.int64))[:h, :w]
+    colours[: h // 2, : w // 2] = 7
+    colours = np.where(r.random((h, w)) < 0.06, 9, colours)
+    packed = torch.from_numpy(colours.astype(np.int32))
+    return packed, regions.junction_merge_mask(strong), strong
+
+
+def random_links_frame(shape):
+    """Three colours, a merge mask on a fifth and strong edges on a third
+    of the pixels, at random: every link rule and every implied-link test
+    of the schedule meets both outcomes."""
+    h, w = shape
+    r = np.random.default_rng(h * 7 + w)
+    return (torch.from_numpy(r.integers(0, 3, (h, w)).astype(np.int32)),
+            torch.from_numpy((r.random((h, w)) < 0.2).astype(np.int32)),
+            torch.from_numpy((r.random((h, w)) < 0.3).astype(np.int32)))
+
+
+def serpentine(h, w):
+    """Colour 1 on a path that runs along every other row, turning at
+    alternate ends (so it crosses every seam), colour 0 elsewhere; no mask,
+    no strong edges."""
+    c = np.zeros((h, w), np.int32)
+    for y in range(0, h, 2):
+        c[y] = 1
+        if y + 1 < h:
+            c[y + 1, w - 1 if (y // 2) % 2 == 0 else 0] = 1
+    z = torch.zeros((h, w), dtype=torch.int32)
+    return torch.from_numpy(c), z, z
+
+
+@pytest.mark.parametrize("tiles", [(8, 8), (5, 7)])
+@pytest.mark.parametrize("shape", [(37, 53), (70, 33), (96, 128)])
+def test_links_tiled_union_find_matches_plain(shape, tiles):
+    """The region-merge frames, random colours, mask and edges, a
+    serpentine across every seam and a frame of one colour, with tiles
+    that divide no side."""
+    h, w = shape
+    one = torch.full((h, w), 5, dtype=torch.int32)
+    zero = torch.zeros((h, w), dtype=torch.int32)
+    frames = [merge_frames(shape), random_links_frame(shape),
+              serpentine(h, w), (one, zero, zero)]
+    for packed, mask, edge in frames:
+        want = regions.label_merge(packed, mask, edge)
+        got = label_merge_tiled(packed, mask, edge, *tiles)
+        assert torch.equal(got, want)
+    assert int(torch.unique(want).numel()) == 1
+    serp = regions.label_merge(*frames[2])
+    assert int((serp == 0).sum()) == int((frames[2][0] == 1).sum())
