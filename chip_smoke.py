@@ -16,16 +16,20 @@ the final line):
      hyp, pose) against its plain PyTorch version on the card, at the real
      720p intermediates of bench.synth_frame(720, 1280, seed=0), with
      the plain versions' times (CUDA-event medians); mkpl also under arena
-     overflow, hyp also on two 384-group corpora, pose also on 384
+     overflow, hyp (ok equal, corners equal with NaN in the same places)
+     also on two 384-group corpora, pose also on 384
      projected rectangles and degenerate quads; for every kernel its
      device time per call (CUDA events around 10 back-to-back calls that
      the host queued while the device slept, 3 turns) beside the time of
      one whole wrapper call, and its kernels per call by the kernel
      library's own counter, held exactly; blblur's fused round counts F
-     in turns; mkpl's device time at 0, 1 and 15 rounds; nvcc's -Xptxas
-     -v lines of mkpl.cu and links_ccl.cu, and, where build/parent/ holds
-     a git archive of the parent commit, the parent's mkpl and links
-     kernels timed in turns with these;
+     in turns; mkpl's device time at 0, 1 and 15 rounds; K4's device time
+     on each of its three inputs on the main paths (the poly path's
+     edge_bin, the rect strings, the boundary marks) and hyp's on the
+     720p hypotheses and the seed-0 corpus; nvcc's -Xptxas -v lines of
+     mkpl.cu, links_ccl.cu, ccl.cu and hyp.cu; and, where build/parent/
+     holds a git archive of the parent commit, the parent's K4 and hyp
+     kernels held equal to these and timed in turns with them;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after, and the kernel library's own count of kernels
      held equal to the kernels its wrappers launched:
@@ -70,10 +74,6 @@ FLOAT_ATOL = 2e-4
 # arena floats against the JAX fixture: bit-equal is expected, the stated
 # limit is the port's arena tolerance
 ARENA_ATOL = 1e-4
-# hyp corners where ok: the Pallas kernel's contract with XLA
-# (tests/test_pallas_hyp.py); the CUDA kernel runs the plain version's
-# float operations, so bit-equal is expected
-CORNER_ATOL = 1e-3
 # pose value and 3D corners, relative: the kernel runs the plain version's
 # float operations, so bit-equal is expected; 12 CG iterations can grow an
 # ulp of difference, which this bound would still admit
@@ -156,6 +156,14 @@ def device_ms(torch, build_mod, fn, calls: int = 10, turns: int = 3):
     return times, (build_mod.launch_count() - n0) / made
 
 
+def same_quads(torch, a, b) -> bool:
+    """Two (corners, ok) results of the quad reduction: ok equal, and every
+    corner equal with NaN in the same places."""
+    return (torch.equal(a[1], b[1])
+            and torch.equal(a[0].isnan(), b[0].isnan())
+            and torch.equal(a[0].nan_to_num(), b[0].nan_to_num()))
+
+
 def ptxas_lines(log: str) -> list[str]:
     """nvcc -Xptxas=-v's lines per kernel: the entry, its registers and
     shared memory, its stack and spills."""
@@ -164,22 +172,16 @@ def ptxas_lines(log: str) -> list[str]:
             if any(k in line for k in keep)]
 
 
-def parent_kernels(torch, build_mod):
-    """The mkpl and links kernels of the parent commit, for timing in turns
-    with this tree's: built from build/parent/ (a git archive of the
-    parent, unpacked there by hand; absent from a plain checkout, and then
-    None) into one library with the parent's C signatures."""
+def build_kernels(build_mod, src, out_dir, names):
+    """Compile csrc files `names` (with launches.cu, the launch counter)
+    from the directory `src` in parallel, link them in `out_dir` into one
+    library of their own, and load it."""
     import ctypes
-    from rectdetect_tpu_torch.ops import hopper_mkpl
-    src = os.path.join(ROOT, "build", "parent", "rectdetect_tpu_torch",
-                       "csrc")
-    if not os.path.isdir(src):
-        return None
-    out = os.path.join(ROOT, "build", "parent", "libparent_kernels.so")
+    out = os.path.join(out_dir, "libkernels.so")
     objs = []
     procs = []
-    for name in ("mkpl", "links_ccl"):
-        obj = os.path.join(ROOT, "build", "parent", f"{name}.o")
+    for name in (*names, "launches"):
+        obj = os.path.join(out_dir, f"{name}.o")
         objs.append(obj)
         procs.append(subprocess.Popen(
             [build_mod._nvcc(), *build_mod.COMPILE_FLAGS, "-c", "-o", obj,
@@ -187,54 +189,69 @@ def parent_kernels(torch, build_mod):
             text=True))
     for proc in procs:
         if proc.wait(timeout=600) != 0:
-            fail(f"the parent's kernels do not build: {proc.stderr.read()}")
+            fail(f"the kernels of {src} do not build: {proc.stderr.read()}")
     res = subprocess.run([build_mod._nvcc(), *build_mod.LINK_FLAGS, "-o", out,
                           *objs], capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
-        fail(f"the parent's kernels do not link: {res.stderr}")
-    lib = ctypes.CDLL(out)
+        fail(f"the kernels of {src} do not link: {res.stderr}")
+    return ctypes.CDLL(out)
+
+
+def stream_of(torch):
+    return torch.cuda.current_stream().cuda_stream
+
+
+def hyp_entry(torch, lib, what):
+    """hyp_fn(segs, valid, max_vertices, short_ratio2) -> (corners, ok)
+    through lib's rd_hyp, with this tree's C signature (also the parent's);
+    `what` names the kernel in a failure."""
+    import ctypes
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rd_hyp.argtypes = [P, P, P, P, I, I, I, F, P]
+    lib.rd_hyp.restype = ctypes.c_int
+
+    def hyp_fn(segs, valid, max_vertices, short_ratio2):
+        g, k = valid.shape
+        corners = torch.empty((g, 4, 2), dtype=torch.float32,
+                              device=segs.device)
+        ok = torch.empty((g,), dtype=torch.bool, device=segs.device)
+        if lib.rd_hyp(segs.data_ptr(), valid.data_ptr(), corners.data_ptr(),
+                      ok.data_ptr(), g, k, max_vertices, short_ratio2,
+                      stream_of(torch)):
+            fail(f"{what} did not launch")
+        return corners, ok
+
+    return hyp_fn
+
+
+def parent_kernels(torch, build_mod):
+    """The K4 and hyp kernels of the parent commit, for timing in turns with
+    this tree's: built from build/parent/ (a git archive of the parent,
+    unpacked there by hand; absent from a plain checkout, and then None)
+    into one library with the parent's C signatures and its own launch
+    counter."""
+    import ctypes
+    src = os.path.join(ROOT, "build", "parent", "rectdetect_tpu_torch",
+                       "csrc")
+    if not os.path.isdir(src):
+        return None
+    lib = build_kernels(build_mod, src, os.path.join(ROOT, "build", "parent"),
+                        ("ccl", "hyp"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rd_mkpl.argtypes = [P] * 7 + [I] * 6 + [P]
-    lib.rd_label_merge.argtypes = [P, P, P, P, I, I, P]
-    lib.rd_mkpl.restype = lib.rd_label_merge.restype = ctypes.c_int
+    lib.rd_label_components.argtypes = [P, P, P, I, I, I, P]
+    lib.rd_label_components.restype = ctypes.c_int
 
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
-    def mkpl_fn(arena, label, number, minerror, n_iters, comp):
-        h, w = label.shape
-        cap, slots = arena.cap, comp.cap
-        fields = torch.stack(
-            [getattr(arena, f).view(torch.int32) for f in hopper_mkpl._FLOATS]
-            + [getattr(arena, f) for f in hopper_mkpl._INTS])
-        count = arena.count.to(torch.int32).reshape(1).clone()
-        # the parent's scratch: 3 S + 3 cap int32
-        scratch = torch.empty((3 * slots + 3 * cap,), dtype=torch.int32,
-                              device=label.device)
-        lsid = torch.zeros((h * w,), dtype=torch.int32, device=label.device)
-        if lib.rd_mkpl(comp.idx.data_ptr(), label.data_ptr(),
-                       number.data_ptr(), fields.data_ptr(), count.data_ptr(),
-                       scratch.data_ptr(), lsid.data_ptr(), slots, cap, h * w,
-                       w, max(0, n_iters - 1), int(minerror * 65536.0),
-                       stream()):
-            fail("the parent's mkpl kernel did not launch")
-        out = {f: fields[i].view(torch.float32)
-               for i, f in enumerate(hopper_mkpl._FLOATS)}
-        out.update({f: fields[len(hopper_mkpl._FLOATS) + i]
-                    for i, f in enumerate(hopper_mkpl._INTS)})
-        return (arena._replace(count=count.reshape(()), **out),
-                lsid.reshape(h, w))
-
-    def links_fn(packed, mask, edge):
-        out_t = torch.empty_like(packed)
-        h, w = packed.shape
-        if lib.rd_label_merge(packed.data_ptr(), mask.data_ptr(),
-                              edge.data_ptr(), out_t.data_ptr(), h, w,
-                              stream()):
-            fail("the parent's links kernel did not launch")
+    def ccl_fn(pix, bgc):
+        h, w = pix.shape
+        out_t = torch.empty_like(pix)
+        scratch = torch.empty_like(pix)
+        if lib.rd_label_components(pix.data_ptr(), out_t.data_ptr(),
+                                   scratch.data_ptr(), h, w, bgc,
+                                   stream_of(torch)):
+            fail("the parent's K4 kernel did not launch")
         return out_t
 
-    return mkpl_fn, links_fn
+    return ccl_fn, hyp_entry(torch, lib, "the parent's hyp kernel")
 
 
 def main() -> int:
@@ -248,7 +265,8 @@ def main() -> int:
         from rectdetect_tpu_torch.apps.common import TAN_AOV
         from rectdetect_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
         from rectdetect_tpu_torch.core import color
-        from rectdetect_tpu_torch.ops import (_build, blur, ccl, hopper_bids,
+        from rectdetect_tpu_torch.ops import (_build, blur, ccl, fp,
+                                              hopper_bids,
                                               hopper_blblur, hopper_ccl,
                                               hopper_despeckle2, hopper_grad,
                                               hopper_hyp, hopper_links,
@@ -441,57 +459,38 @@ def main() -> int:
            nb(comp.idx) + 8 * n_live + 2 * 13 * 4 * cap + nb(got[1]),
            20 * rounds * n_live)
 
-    # the redesigns of this commit (csrc/mkpl.cu, csrc/links_ccl.cu): their
-    # registers and spills, mkpl's device time at 0, 1 and all rounds (the
-    # fixed cost and the cost per round), and each timed in turns with the
-    # parent commit's kernel where it was brought along (build/parent/)
+    # the redesigned kernels (csrc/mkpl.cu, csrc/links_ccl.cu, csrc/ccl.cu,
+    # csrc/hyp.cu): their registers and spills; mkpl's device time at 0, 1
+    # and all rounds (the fixed cost and the cost per round); K4 and hyp
+    # timed in turns with the parent commit's kernels where they were
+    # brought along (build/parent/)
     parent = parent_kernels(torch, _build)
     redesign = {"card": card, "ptxas": {
         k: ptxas_lines(_build.ptxas_log.get(k, "not rebuilt in this run"))
-        for k in ("mkpl.cu", "links_ccl.cu")}}
+        for k in ("mkpl.cu", "links_ccl.cu", "ccl.cu", "hyp.cu")}}
     for k, lines in redesign["ptxas"].items():
         for line in lines:
             phase(f"phase 3 ptxas {k}: {line}")
 
-    def mkpl_turns(fns, iters):
-        """Device and wrapper ms of one turn of each fn, in this order."""
-        out = []
-        for fn in fns:
-            call = (lambda: fn(arena0, dense, number, 1.0, iters, comp))
-            out.append((device_ms(torch, _build, call, turns=1)[0][0],
-                        cuda_ms(torch, call, 10)))
+    def in_turns(this_call, parent_call):
+        """Device and wrapper ms of one turn each of parent, this, this,
+        parent."""
+        out = {"order": "parent, this, this, parent", "device_ms": [],
+               "wrapper_ms": []}
+        for call in (parent_call, this_call, this_call, parent_call):
+            out["device_ms"].append(
+                device_ms(torch, _build, call, turns=1)[0][0])
+            out["wrapper_ms"].append(cuda_ms(torch, call, 10))
         return out
 
-    split = {}
-    kinds = [("this", hopper_mkpl.mkpl_subdivide)]
-    if parent is not None:
-        kinds.append(("parent", parent[0]))
-        for iters in (1, 2, cfg.mkpl_iters):
-            a = parent[0](arena0, dense, number, 1.0, iters, comp)
-            b = hopper_mkpl.mkpl_subdivide(arena0, dense, number, 1.0, iters,
-                                           comp)
-            if not (arena_equal(a[0], b[0]) and torch.equal(a[1], b[1])):
-                fail(f"mkpl: the parent's kernel differs at {iters - 1} "
-                     f"rounds")
-    for name, fn in kinds:
-        split[name] = {
-            f"rounds {iters - 1}": device_ms(
-                torch, _build, lambda: fn(arena0, dense, number, 1.0, iters,
-                                          comp))[0]
-            for iters in (1, 2, cfg.mkpl_iters)}
+    split = {
+        f"rounds {iters - 1}": device_ms(
+            torch, _build, lambda: hopper_mkpl.mkpl_subdivide(
+                arena0, dense, number, 1.0, iters, comp))[0]
+        for iters in (1, 2, cfg.mkpl_iters)}
     redesign["mkpl_rounds_device_ms"] = split
     phase(f"phase 3 mkpl device ms per call by rounds (CUDA events, 10 "
           f"back-to-back calls, 3 turns): {json.dumps(split)}")
-    if parent is not None:
-        turns = mkpl_turns((parent[0], hopper_mkpl.mkpl_subdivide,
-                            hopper_mkpl.mkpl_subdivide, parent[0]),
-                           cfg.mkpl_iters)
-        redesign["mkpl_parent_turns"] = {
-            "order": "parent, this, this, parent",
-            "device_ms": [t[0] for t in turns],
-            "wrapper_ms": [t[1] for t in turns]}
-        phase(f"phase 3 mkpl parent/this/this/parent: "
-              f"{json.dumps(redesign['mkpl_parent_turns'])}")
 
     # the strength pair's segmented totals at 720p, on the rect strings
     fe = edge_frontend(bgr, cfg)
@@ -614,21 +613,6 @@ def main() -> int:
            lambda: hopper_links.label_merge(despeck, mask, strong),
            cuda_ms(torch, lambda: regions.label_merge(despeck, mask, strong),
                    3), nb(despeck, mask, strong, seg0), H * W, kernels=3)
-    if parent is not None:
-        if not torch.equal(parent[1](despeck, mask, strong), seg0):
-            fail("label_merge: the parent's kernel differs")
-        turns = []
-        for fn in (parent[1], hopper_links.label_merge,
-                   hopper_links.label_merge, parent[1]):
-            call = (lambda: fn(despeck, mask, strong))
-            turns.append((device_ms(torch, _build, call, turns=1)[0][0],
-                          cuda_ms(torch, call, 10)))
-        redesign["label_merge_parent_turns"] = {
-            "order": "parent, this, this, parent",
-            "device_ms": [t[0] for t in turns],
-            "wrapper_ms": [t[1] for t in turns]}
-        phase(f"phase 3 label_merge parent/this/this/parent: "
-              f"{json.dumps(redesign['label_merge_parent_turns'])}")
 
     thre2 = cfg.despeckle2_thre
     seg = hopper_despeckle2.sizes_despeckle2(seg0, thre2)
@@ -662,6 +646,39 @@ def main() -> int:
            cuda_ms(torch, lambda: hopper_bids.distinct_bids_plain(boundary),
                    3), nb(boundary, *bids), H * W)
 
+    # K4 on each of its inputs on the main paths: the poly path's edge_bin
+    # (the row above), the rect strings (weak_strong_labels) and the
+    # boundary marks (boundary_labels, background -1)
+    redesign["label_components_inputs"] = {}
+    k4_inputs = {"edge_bin": (edge_bin, 0), "rect strings": (s_rect, 0),
+                 "boundary marks": (regions.mark_boundary(seg), -1)}
+    for name, (pix, bgc) in k4_inputs.items():
+        def call(pix=pix, bgc=bgc):
+            return hopper_ccl.label_components(pix, bgc)
+        got = call()
+        ndiff = int((got != hopper_ccl.label_components_plain(pix, bgc))
+                    .sum())
+        entry = {"foreground": int((pix != bgc).sum()),
+                 "components": int((got == torch.arange(
+                     H * W, device=dev).reshape(H, W)).sum()),
+                 "labels_differ": ndiff}
+        if ndiff:
+            fail(f"label_components on {name}: {ndiff} labels differ from "
+                 f"the plain version")
+        times, per_call = device_ms(torch, _build, call)
+        if per_call != 3:
+            fail(f"label_components on {name}: {per_call} kernels per call "
+                 f"by the library's counter, not 3")
+        entry["device_ms"] = times
+        if parent is not None:
+            if not torch.equal(parent[0](pix, bgc), got):
+                fail(f"label_components on {name}: the parent's kernel "
+                     f"differs")
+            entry["parent_turns"] = in_turns(
+                call, lambda pix=pix, bgc=bgc: parent[0](pix, bgc))
+        redesign["label_components_inputs"][name] = entry
+        phase(f"phase 3 label_components on {name}: {json.dumps(entry)}")
+
     def top(t, where):
         """The largest of t where `where` holds, 0.0 if nowhere."""
         t = t[where]
@@ -688,8 +705,10 @@ def main() -> int:
               f"({int(ok.sum())} of {ok.numel()} groups ok); corners where "
               f"ok max_abs_err {e!r}; {nbits} of {corners.numel()} corner "
               f"values bit-equal")
-        if not torch.equal(ok, ok_p) or not e <= CORNER_ATOL:
-            fail(f"hyp on {name}: ok differs or corners differ by {e}")
+        if not same_quads(torch, (corners, ok), (corners_p, ok_p)):
+            fail(f"hyp on {name}: ok differs or the corners are not equal "
+                 f"with NaN in the same places ({nbits} of "
+                 f"{corners.numel()} equal)")
         err = max(err, e)
 
     def hull_ops(segs_c, valid_c):
@@ -713,6 +732,27 @@ def main() -> int:
                                                      hv), 5),
            nb(hyp.segs, hyp.valid, corners, ok),
            hull_ops(hyp.segs, hyp.valid))
+
+    # hyp on the 720p hypotheses and the seed-0 corpus, timed in turns
+    # with the parent's kernel
+    redesign["hyp_inputs"] = {}
+    sr2 = fp.f32(quad.SHORT_RATIO * quad.SHORT_RATIO)
+    for name, segs_c, valid_c in corpora[:2]:
+        def call(segs_c=segs_c, valid_c=valid_c):
+            return hopper_hyp.reduce_groups(segs_c, valid_c, hv)
+        times, per_call = device_ms(torch, _build, call)
+        if per_call != 1:
+            fail(f"hyp on {name}: {per_call} kernels per call by the "
+                 f"library's counter, not 1")
+        entry = {"groups": int(valid_c.any(1).sum()), "device_ms": times}
+        if parent is not None:
+            def parent_call(segs_c=segs_c, valid_c=valid_c):
+                return parent[1](segs_c, valid_c, hv, sr2)
+            if not same_quads(torch, parent_call(), call()):
+                fail(f"hyp on {name}: the parent's kernel differs")
+            entry["parent_turns"] = in_turns(call, parent_call)
+        redesign["hyp_inputs"][name] = entry
+        phase(f"phase 3 hyp on {name}: {json.dumps(entry)}")
 
     # the pose on the 720p quads and on 384 projected rectangles and
     # degenerate quads

@@ -40,12 +40,12 @@
 // equal and b is the lower pixel or (right link) b's upper neighbour
 // differs from b.
 
-#include "common.cuh"
+#include "tile_ccl.cuh"
 
 namespace {
 
-constexpr int kTW = 32;  // tile columns: one warp a row
-constexpr int kTH = 16;  // tile rows
+using rd::kTH;
+using rd::kTW;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ bool interior(int y, int x, int h, int w) {
@@ -182,17 +182,6 @@ __global__ void seam_kernel(const int* __restrict__ packed,
   }
 }
 
-// label[p] = root of p: up the chain from p's tile root, reading only
-__global__ void flatten_kernel(int* parent, int n) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  int r = rd::load_parent(parent + p);
-  for (int q = rd::load_parent(parent + r); q != r;
-       q = rd::load_parent(parent + r))
-    r = q;
-  parent[p] = r;
-}
-
 }  // namespace
 
 // out: (h, w) int32, the parent array and then the labels
@@ -212,7 +201,7 @@ extern "C" int rd_label_merge(const void* packed, const void* mask,
   const int seams = (w - 1) / kTW * h + (h - 1) / kTH * w;
   seam_kernel<<<max(1, (seams + 255) / 256), 256, 0, s>>>(P, M, E, L, h, w);
   rd::count_launch();
-  flatten_kernel<<<(n + 255) / 256, 256, 0, s>>>(L, n);
+  rd::flatten_kernel<<<(n + 255) / 256, 256, 0, s>>>(L, n);
   rd::count_launch();
   return (int)cudaGetLastError();
 }

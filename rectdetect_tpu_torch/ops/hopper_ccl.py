@@ -4,12 +4,15 @@ component's minimum flat index, background -1.
 Replaces the TPU kernel rectdetect_tpu/ops/pallas_ccl.py:_ccl_block_kernel
 with its XLA seam union (_seam_union) and resolve (_resolve), i.e. what
 label_components_exact and label_components_pieces compute.  CUDA source:
-csrc/ccl.cu, a union-find in three launches (init, merge with atomicMin
-root linking and path halving, flatten).  It is bound by the latency of
-dependent loads and atomics; the parent array stays in L2.  Roots are
-component minima whatever order the atomics run in, so the labels are
-exact and deterministic, with no round cap: the TPU's capped "pieces"
-form was a cost trade that the GPU does not need.
+csrc/ccl.cu, a block-based union-find in three launches: each 16x32 tile
+joins its row runs by a warp ballot and unites the runs of adjacent rows
+(NW, N, NE) with shared-memory atomics, writing each pixel's tile root;
+the links across the tile seams, both corner diagonals included, unite
+the roots through device memory (atomicMin linking, path halving); a last
+pass flattens.  It is bound by the latency of dependent loads and
+atomics.  Roots are component minima whatever order the atomics run in,
+so the labels are exact and deterministic, with no round cap: the TPU's
+capped "pieces" form was a cost trade that the GPU does not need.
 
 `label_components` takes the plain version for a CPU tensor and launches
 the kernel for a CUDA tensor; there is no other path.
@@ -33,9 +36,7 @@ def label_components(pix: torch.Tensor, bgc: int = 0) -> torch.Tensor:
     h, w = pix.shape
     _build.check(pix, "pix", torch.int32, (h, w))
     out = torch.empty_like(pix)
-    parent = torch.empty_like(pix)
     _build.launch("rd_label_components", pix.device, pix.data_ptr(),
-                  out.data_ptr(), parent.data_ptr(), h, w, int(bgc),
-                  kernels=3)
+                  out.data_ptr(), h, w, int(bgc), kernels=3 if h and w else 0)
     launches += 1
     return out

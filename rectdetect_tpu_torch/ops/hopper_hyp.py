@@ -4,10 +4,14 @@ findCorners -> triangle, perimeter and convexity checks,
 oclrect.c:1134-1151).
 
 Replaces the TPU kernel rectdetect_tpu/ops/pallas_hyp.py:_hyp_kernel
-(reduce_groups_pallas).  CUDA source: csrc/hyp.cu, one block per group
-with one thread per endpoint, the group in shared memory, a block-wide
-first-max per hull step and per hull edge; bound by operations (the hull's
-pair tests).  Its float operations are the plain version's
+(reduce_groups_pallas).  CUDA source: csrc/hyp.cu, one block per group:
+the kept segments compacted, each hull step's pair tests spread over the
+block (4 threads per candidate endpoint, a pair's sqrt only where its
+cross product passes the perpendicular bound) with the step's first
+maximum by one shared 64-bit atomicMax, every pickExternalLS test at
+once and the greedy picks by bit masks; bound by operations (the hull's pair
+tests), and on a frame's few filled groups by the latency of one group's
+chain of steps.  Its float operations are the plain version's
 (geometry/quad.py:reduce_groups), rounded once in the same order.
 
 `reduce_groups` takes the plain version for CPU tensors and launches the
@@ -42,6 +46,7 @@ def reduce_groups(segs: torch.Tensor, valid: torch.Tensor,
     ok = torch.empty((g,), dtype=torch.bool, device=segs.device)
     _build.launch("rd_hyp", segs.device, segs.data_ptr(), valid.data_ptr(),
                   corners.data_ptr(), ok.data_ptr(), g, k, max_vertices,
-                  fp.f32(quad.SHORT_RATIO * quad.SHORT_RATIO))
+                  fp.f32(quad.SHORT_RATIO * quad.SHORT_RATIO),
+                  kernels=1 if g else 0)
     launches += 1
     return corners, ok

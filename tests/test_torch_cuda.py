@@ -123,6 +123,98 @@ def test_morph_and_ccl_kernels_match_plain():
                                hopper_ccl.label_components_plain(p, bgc))
 
 
+def _walks(h, w, seed=3):
+    """1-px chains: 8-connected random walks over sparse noise."""
+    r = np.random.default_rng(seed + h * w)
+    e = (r.random((h, w)) < 0.03).astype(np.int32)
+    for _ in range(max(2, h * w // 300)):
+        y, x = r.integers(0, h), r.integers(0, w)
+        for _ in range(r.integers(5, 3 * (h + w))):
+            e[y, x] = 1
+            y = min(max(y + r.integers(-1, 2), 0), h - 1)
+            x = min(max(x + r.integers(-1, 2), 0), w - 1)
+    return torch.from_numpy(e)
+
+
+def _staircase(h, w, anti, th=16, tw=32):
+    """Value 1 on diagonal steps from tile to tile of the kernel's 16x32
+    tiles that touch only at the tile corners (NW-SE, or NE-SW if anti)."""
+    c = np.zeros((h, w), np.int32)
+    ty, tx = 0, (w - 1) // tw if anti else 0
+    while ty * th < h and 0 <= tx * tw < w:
+        y0, x0 = ty * th, tx * tw
+        y1, x1 = min(y0 + th, h) - 1, min(x0 + tw, w) - 1
+        ya, xa, yb, xb = (y0, x1, y1, x0) if anti else (y0, x0, y1, x1)
+        y, x = ya, xa
+        while True:
+            c[y, x] = 1
+            if (y, x) == (yb, xb):
+                break
+            y += y < yb
+            x += (x < xb) - (x > xb)
+        ty += 1
+        tx += -1 if anti else 1
+    return torch.from_numpy(c)
+
+
+def _region_marks(h, w, seed=12):
+    """mark_boundary of the region labels of blocks of three colours and
+    speckles: rings of many distinct labels side by side, background -1."""
+    r = np.random.default_rng(seed + h * w)
+    colours = np.kron(r.integers(0, 3, (h // 4 + 1, w // 4 + 1)),
+                      np.ones((4, 4), np.int64))[:h, :w]
+    colours = np.where(r.random((h, w)) < 0.06, 9, colours)
+    packed = torch.from_numpy(colours.astype(np.int32))
+    z = torch.zeros((h, w), dtype=torch.int32)
+    return regions.mark_boundary(regions.label_merge(packed, z, z))
+
+
+@pytest.mark.parametrize("h,w", [(1, 97), (97, 1), (37, 53), (70, 33),
+                                 (129, 257)])
+def test_ccl_kernel_matches_plain_at_odd_sizes(h, w):
+    """Edge chains, boundary marks (background -1), staircases through
+    the tile corners on both diagonals, values 0-3 side by side, one
+    value and background only; three launches per call."""
+    _need_card()
+    r = np.random.default_rng(h + w)
+    frames = [(_walks(h, w), 0), (_region_marks(h, w), -1),
+              (_staircase(h, w, False), 0), (_staircase(h, w, True), 0),
+              (torch.from_numpy(r.integers(-1, 4, (h, w)).astype(np.int32)),
+               -1),
+              (torch.full((h, w), 3, dtype=torch.int32), 0),
+              (torch.zeros((h, w), dtype=torch.int32), 0)]
+    for pix, bgc in frames:
+        n0 = _build.launch_count()
+        got = hopper_ccl.label_components(pix.cuda(), bgc)
+        assert _build.launch_count() == n0 + 3
+        assert torch.equal(got.cpu(), hopper_ccl.label_components_plain(
+            pix, bgc))
+    if h > 16 and w > 32:
+        for pix, _ in frames[2:4]:
+            lbl = hopper_ccl.label_components(pix.cuda(), 0)
+            assert int(torch.unique(lbl[pix.cuda() == 1]).numel()) == 1
+
+
+def test_ccl_kernel_matches_plain_on_720p_inputs():
+    """The three inputs of K4 on the main paths at 720p: the poly path's
+    edge_bin, the rect strings and the boundary marks."""
+    _need_card()
+    from bench import synth_frame
+    bgr = torch.from_numpy(synth_frame(720, 1280, seed=0)).cuda()
+    fe = edge_frontend(bgr)
+    weak, strong = weak_strong_labels(fe.edge_bin, fe.edge_thin)
+    despeck = region_smoothing(fe.packed0, weak, fe.edge_thin)[1]
+    seg = hopper_links.label_merge(
+        despeck, hopper_merge_mask.junction_merge_mask(strong), strong)
+    inputs = [(fe.edge_bin, 0),
+              (hopper_morph.strings_chain(fe.edge_bin, "rect"), 0),
+              (regions.mark_boundary(seg), -1)]
+    for pix, bgc in inputs:
+        got = hopper_ccl.label_components(pix, bgc)
+        assert torch.equal(got, hopper_ccl.label_components_plain(pix, bgc))
+        assert int((got >= 0).sum()) > 1000
+
+
 def test_wrappers_check_their_inputs():
     _need_card()
     edge = _maps()[0].cuda()
@@ -455,6 +547,22 @@ def test_hyp_kernel_empty_groups():
     valid = torch.zeros((5, 48), dtype=torch.bool, device="cuda")
     corners, ok = hopper_hyp.reduce_groups(segs, valid, 24)
     assert corners.shape == (5, 4, 2) and not ok.any()
+
+
+def test_hyp_kernel_at_its_limits():
+    """K = 64 segments and 64 hull vertices, the kernel's limits: ok equal,
+    corners bit-equal with NaN in the same places."""
+    _need_card()
+    segs, valid = parity.segment_groups(5, 384, 64, 1.0)
+    segs = torch.from_numpy(segs).cuda()
+    valid = torch.from_numpy(valid).cuda()
+    got_c, got_ok = hopper_hyp.reduce_groups(segs, valid, 64)
+    want_c, want_ok = quad.reduce_groups(segs, valid, 64)
+    assert torch.equal(got_ok, want_ok)
+    assert int(want_ok.sum()) >= 10
+    torch.testing.assert_close(got_c, want_c, rtol=0, atol=0, equal_nan=True)
+    with pytest.raises(ValueError):
+        hopper_hyp.reduce_groups(segs, valid, 65)
 
 
 def test_pose_kernel_matches_plain():

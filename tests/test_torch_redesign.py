@@ -4,12 +4,16 @@ rounds (csrc/blblur.cu), its multiply-shift division, the pose kernel's
 lanes (csrc/pose.cu: one seed direction per jet, the line search that
 reuses its candidate's jet), mkpl's sorted-domain rounds (csrc/mkpl.cu:
 runs in (arc, number) order, per-tile run keys, the id-order scan in
-chunks, pass3 as a run cut) and the links CCL's tiled union-find
-(csrc/links_ccl.cu: tile pass from a shared-memory copy, seam unions,
-flatten).
+chunks, pass3 as a run cut), the links CCL's and K4's tiled union-finds
+(csrc/links_ccl.cu, csrc/ccl.cu: tile pass from a shared-memory copy,
+seam unions with their skip rules, flatten) and the hyp kernel's hull
+walk and picks (csrc/hyp.cu: compacted endpoints, pair tests split over
+lanes with the sqrt only past the perpendicular bound, first maxima by
+order keys, the picks by bit masks).
 
 The plain versions (ops/regions.py:blblur and label_merge,
-geometry/pose.py, ops/mkpl.py:mkpl_subdivide) are held to the JAX package
+geometry/pose.py, ops/mkpl.py:mkpl_subdivide, ops/ccl.py,
+geometry/quad.py) are held to the JAX package
 by tests/test_torch_regions.py, tests/test_torch_rect.py,
 tests/test_torch_hypotheses.py and tests/test_torch_polyline.py; these
 tests compile no JAX.  Everything here must be bit-equal: blblur and the
@@ -25,8 +29,9 @@ import torch
 
 from rectdetect_tpu_torch import parity
 from rectdetect_tpu_torch.config import PipelineConfig
-from rectdetect_tpu_torch.geometry import pose
+from rectdetect_tpu_torch.geometry import pose, quad
 from rectdetect_tpu_torch.ops import fp, mkpl, polyline, regions
+from rectdetect_tpu_torch.ops.ccl import label_components_plain
 from rectdetect_tpu_torch.ops.regions import _coord_maps
 from rectdetect_tpu_torch.ops.shifts import pad2d, shifted
 
@@ -736,3 +741,308 @@ def test_links_tiled_union_find_matches_plain(shape, tiles):
     assert int(torch.unique(want).numel()) == 1
     serp = regions.label_merge(*frames[2])
     assert int((serp == 0).sum()) == int((frames[2][0] == 1).sum())
+
+
+def label_components_tiled(pix, bgc, th, tw):
+    """csrc/ccl.cu's schedule: each th x tw tile without foreground writes
+    -1; otherwise each row's runs of equal neighbours come from its
+    "equal to the left" flags, each pixel unites with its equal NW, N and
+    NE neighbours in the tile (only NE, past an equal N, where its left
+    neighbour is in its run; N past an equal NW and NE past an equal N
+    skipped), and each pixel gets its tile root.  Along the seams, a pixel
+    on a tile's first column unites with its equal W, NW and SW in its
+    tile row, and one on a tile's first row with its equal NW, N and NE,
+    each skipped where the neighbour before it along the seam is equal
+    too, and all but the last where the pixel before it along the seam
+    has its value (on a column seam both in its tile row); a last pass
+    flattens."""
+    p = pix.numpy()
+    h, w = p.shape
+    parent = np.full(h * w, -1)
+    for y0 in range(0, h, th):
+        for x0 in range(0, w, tw):
+            rows, cols = min(th, h - y0), min(tw, w - x0)
+            tile = np.full((th, tw), bgc)
+            tile[:rows, :cols] = p[y0:y0 + rows, x0:x0 + cols]
+            fg = tile != bgc
+            if not fg.any():
+                continue
+            eql = np.zeros((th, tw), bool)
+            eql[:, 1:] = fg[:, 1:] & (tile[:, 1:] == tile[:, :-1])
+            par = []
+            for ty in range(th):
+                start = 0
+                for tx in range(tw):
+                    if not eql[ty, tx]:
+                        start = tx
+                    par.append(ty * tw + start)
+            for ty in range(1, th):
+                for tx in range(tw):
+                    if not fg[ty, tx]:
+                        continue
+                    v, up = tile[ty, tx], tile[ty - 1]
+                    nw = tx > 0 and up[tx - 1] == v
+                    n = up[tx] == v
+                    ne = tx + 1 < tw and up[tx + 1] == v
+                    lt, u = ty * tw + tx, (ty - 1) * tw + tx
+                    if eql[ty, tx]:
+                        if ne and not n:
+                            _unite(par, lt, u + 1)
+                    else:
+                        if nw:
+                            _unite(par, lt, u - 1)
+                        if n and not nw:
+                            _unite(par, lt, u)
+                        if ne and not n:
+                            _unite(par, lt, u + 1)
+            for ty in range(rows):
+                for tx in range(cols):
+                    if fg[ty, tx]:
+                        r = _root(par, ty * tw + tx)
+                        parent[(y0 + ty) * w + x0 + tx] = \
+                            (y0 + r // tw) * w + x0 + r % tw
+    for x in range(tw, w, tw):
+        for y in range(h):
+            v = p[y, x]
+            if v == bgc:
+                continue
+            ys = y - y % th
+            hi = min(y + 1, min(ys + th, h) - 1)
+            r, prev = (y - 1 if y > ys else y), False
+            if y > ys and p[y - 1, x] == v:
+                r, prev = y + 1, p[y, x - 1] == v
+            for r in range(r, hi + 1):
+                eq = p[r, x - 1] == v
+                if eq and not prev:
+                    _unite(parent, y * w + x, r * w + x - 1)
+                prev = eq
+    for y in range(th, h, th):
+        for x in range(w):
+            v = p[y, x]
+            if v == bgc:
+                continue
+            c, prev = max(x - 1, 0), False
+            if x > 0 and p[y, x - 1] == v:
+                c, prev = x + 1, p[y - 1, x] == v
+            for c in range(c, min(x + 1, w - 1) + 1):
+                eq = p[y - 1, c] == v
+                if eq and not prev:
+                    _unite(parent, y * w + x, (y - 1) * w + c)
+                prev = eq
+    out = np.array([_root(parent, q) if parent[q] >= 0 else -1
+                    for q in range(h * w)], np.int32)
+    return torch.from_numpy(out.reshape(h, w))
+
+
+def edge_map(shape, seed=3):
+    """1-px chains: 8-connected random walks (diagonal steps included)
+    over sparse noise, as edge_bin and the rect strings are."""
+    h, w = shape
+    r = np.random.default_rng(seed + h * w)
+    e = (r.random((h, w)) < 0.03).astype(np.int32)
+    for _ in range(max(2, h * w // 300)):
+        y, x = r.integers(0, h), r.integers(0, w)
+        for _ in range(r.integers(5, 3 * (h + w))):
+            e[y, x] = 1
+            y = min(max(y + r.integers(-1, 2), 0), h - 1)
+            x = min(max(x + r.integers(-1, 2), 0), w - 1)
+    return torch.from_numpy(e)
+
+
+def boundary_marks(shape):
+    """mark_boundary of the region labels of a region-merge frame:
+    boundary rings of many distinct labels side by side, background -1."""
+    seg = regions.label_merge(*merge_frames(shape))
+    return regions.mark_boundary(seg)
+
+
+def corner_staircase(h, w, th, tw, anti):
+    """Value 1 on diagonal steps from tile to tile that touch only at tile
+    corners: through the NW-SE diagonal at each corner, or (anti) the
+    NE-SW one; background 0."""
+    c = np.zeros((h, w), np.int32)
+    ty, tx = 0, (w - 1) // tw if anti else 0
+    while ty * th < h and 0 <= tx * tw < w:
+        y0, x0 = ty * th, tx * tw
+        y1, x1 = min(y0 + th, h) - 1, min(x0 + tw, w) - 1
+        ya, xa, yb, xb = (y0, x1, y1, x0) if anti else (y0, x0, y1, x1)
+        y, x = ya, xa
+        while True:
+            c[y, x] = 1
+            if (y, x) == (yb, xb):
+                break
+            y += y < yb
+            x += (x < xb) - (x > xb)
+        ty += 1
+        tx += -1 if anti else 1
+    return torch.from_numpy(c)
+
+
+@pytest.mark.parametrize("tiles", [(8, 8), (5, 7)])
+@pytest.mark.parametrize("shape", [(37, 53), (70, 33), (1, 61), (61, 1)])
+def test_ccl_tiled_union_find_matches_plain(shape, tiles):
+    """Edge maps, boundary marks (background -1), staircases that cross
+    every tile corner on either diagonal, a frame of one value and frames
+    of background only, with tiles that divide no side."""
+    h, w = shape
+    frames = [(edge_map(shape), 0), (boundary_marks(shape), -1),
+              (corner_staircase(h, w, *tiles, False), 0),
+              (corner_staircase(h, w, *tiles, True), 0),
+              (torch.full((h, w), 5, dtype=torch.int32), 0),
+              (torch.zeros((h, w), dtype=torch.int32), 0),
+              (torch.full((h, w), -1, dtype=torch.int32), -1)]
+    for pix, bgc in frames:
+        want = label_components_plain(pix, bgc)
+        assert torch.equal(label_components_tiled(pix, bgc, *tiles), want)
+    assert int(want.max()) == -1
+    for pix, _ in frames[2:4]:
+        lbl = label_components_plain(pix, 0)
+        assert int(torch.unique(lbl[pix == 1]).numel()) == 1
+    if min(shape) > 1:
+        marks = frames[1][0]
+        assert int(torch.unique(marks).numel()) > 3
+        assert int(torch.unique(label_components_plain(marks, -1)).numel()) \
+            > 3
+
+
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """csrc/hyp.cu order_key: float32 (no NaN) -> int64 key in its order,
+    -0 as +0."""
+    u = torch.where(x == 0, 0.0, x).view(torch.int32).to(torch.int64) \
+        & 0xffffffff
+    return torch.where(u >= 1 << 31, 0xffffffff - u, u | 1 << 31)
+
+
+def first_max(key: torch.Tensor) -> tuple[int, int]:
+    """(largest key, lowest index holding it): the kernel's atomicMax of
+    first_max_key."""
+    m = int(key.max())
+    return m, int(torch.nonzero(key == m)[0, 0])
+
+
+def hull_lanes(px, py, kept, max_vertices, lanes=4):
+    """csrc/hyp.cu's hull walk for one group: the kept endpoints compacted
+    in index order, the start the first maximum of x over all endpoints
+    by order key, and each step's pair tests split over `lanes` threads
+    per candidate, each pair's sqrt taken only where cross > perp, the
+    lanes' flags combined, the next vertex the first maximum of the
+    distance's bits (lowest index on a tie).  Returns the hull's endpoint
+    indices."""
+    kept_pts = kept.repeat_interleave(2)
+    orig = torch.nonzero(kept_pts)[:, 0]
+    cpx, cpy = px[orig], py[orig]
+    p = cpx.shape[0]
+    start = first_max(order_key(torch.where(kept_pts, px, -1e30)))[1]
+    start_c = int(torch.nonzero(orig == start)[0, 0]) if kept_pts[start] \
+        else -1
+    hull = [start]
+    cx, cy = px[start], py[start]
+    eps = fp.f32(1e-20)
+    for _ in range(1, max_vertices):
+        rx, ry = cpx - cx, cpy - cy
+        d = rx * rx + ry * ry
+        d = torch.where(d > fp.f32(1e-12), d, -1.0)
+        perp = fp.f32(0.1) * fp.sqrt(torch.clamp_min(d, eps))
+        left = torch.zeros(p, dtype=torch.bool)
+        for sub in range(min(lanes, p)):
+            j = torch.arange(sub, p, lanes)
+            cross = rx[:, None] * ry[None, j] - ry[:, None] * rx[None, j]
+            near = (d[None, j] > 0) & (cross > perp[:, None])
+            pi, pj = torch.nonzero(near, as_tuple=True)
+            norm = fp.sqrt(torch.clamp_min(d[pi] * d[j][pj], eps))
+            an = fp.f32(1e-5) * norm
+            thr = torch.where(an.isnan() | (an > perp[pi]), an, perp[pi])
+            hit = torch.zeros_like(near)
+            hit[pi, pj] = cross[pi, pj] > thr
+            left |= hit.any(-1)
+        good = (d > 0) & ~left
+        key = torch.where(good, d.view(torch.int32).to(torch.int64), 0)
+        m, i = first_max(torch.cat([key, key.new_zeros(1)]))
+        if m == 0 or i == start_c:
+            break
+        cx, cy = cpx[i], cpy[i]
+        hull.append(int(orig[i]))
+    return hull
+
+
+def picks_by_masks(e0x, e0y, e1x, e1y, sq, kept, hx, hy, max_vertices):
+    """csrc/hyp.cu's pickExternalLS: every (hull edge, kept segment) test
+    at once, each setting its segment's bit, by rank in (-sq, index)
+    order, in its edge's mask; then each edge in turn takes the lowest
+    rank not taken yet."""
+    nh = hx.shape[0]
+    segs = torch.nonzero(kept)[:, 0]
+    order = segs[torch.argsort(-sq[segs], stable=True)]
+    eps = fp.f32(1e-20)
+    n = torch.arange(1, nh + 1) % nh
+    q0x, q0y, q1x, q1y = hx[:, None], hy[:, None], hx[n, None], hy[n, None]
+    ax, ay, bx, by = (t[order][None, :] for t in (e0x, e0y, e1x, e1y))
+    s2 = sq[order][None, :]
+    dx, dy = bx - ax, by - ay
+    den = torch.clamp_min(fp.sqrt(s2), eps)
+    dex, dey = (ax - bx) / den, (ay - by) / den
+    mx, my = (q0x + q1x) * 0.5, (q0y + q1y) * 0.5
+    tt = ((mx - ax) * dx + (my - ay) * dy) / torch.clamp_min(s2, eps)
+    tt = torch.where(s2 > 0, tt, 0.0)
+    tt = torch.fmin(torch.fmax(tt, torch.tensor(0.0)), torch.tensor(1.0))
+    dmx, dmy = mx - (ax + tt * dx), my - (ay + tt * dy)
+    dm = dmx * dmx + dmy * dmy
+    qdx, qdy = q0x - q1x, q0y - q1y
+    qsq = qdx * qdx + qdy * qdy
+    qn = torch.clamp_min(fp.sqrt(qsq), eps)
+    para = (torch.abs((qdx / qn) * dex + (qdy / qn) * dey) > fp.f32(0.95)) \
+        & (dm / torch.clamp_min(qsq, eps) < fp.f32(0.01))
+    tests = (dm < 1.0) | para
+    masks = [sum(1 << c for c in torch.nonzero(row)[:, 0].tolist())
+             for row in tests]
+    picks, used = [], 0
+    for e in range(max_vertices):
+        m = masks[e] & ~used if e < nh else 0
+        if m:
+            c = (m & -m).bit_length() - 1
+            used |= 1 << c
+            picks.append(int(order[c]))
+        else:
+            picks.append(-1)
+    return picks
+
+
+def test_hyp_lanes_schedule_matches_plain():
+    """The hull walk and the picks of csrc/hyp.cu on 48 groups of the
+    randomized corpus (quads, axis-aligned quads, a duplicate-heavy and a
+    zero-length group), with the pair tests split over the kernel's 4
+    lanes per candidate and over 1."""
+    segs, valid = (torch.from_numpy(a)
+                   for a in parity.segment_groups(0, 48, 48, 1.0))
+    # a group left of x = 0 whose largest x is -0 first and +0 later: the
+    # start is the first, as -0 == +0
+    segs[5] = 0.0
+    valid[5] = False
+    segs[5, :3] = torch.tensor([[[-0.0, 10.0], [-50.0, 12.0]],
+                                [[-50.0, 40.0], [-3.0, 60.0]],
+                                [[0.0, 30.0], [-20.0, 25.0]]])
+    valid[5, :3] = True
+    mv = 24
+    e0x, e0y, e1x, e1y = (segs[..., 0, 0], segs[..., 0, 1],
+                          segs[..., 1, 0], segs[..., 1, 1])
+    dx, dy = e1x - e0x, e1y - e0y
+    sq = dx * dx + dy * dy
+    kept = quad.remove_short(sq, valid & (sq > 0))
+    g, k = kept.shape
+    px = torch.stack([e0x, e1x], -1).reshape(g, 2 * k)
+    py = torch.stack([e0y, e1y], -1).reshape(g, 2 * k)
+    hidx, hvalid = quad.jarvis_hull(px, py, kept.repeat_interleave(2, -1),
+                                    mv)
+    picks = quad.pick_external(e0x, e0y, e1x, e1y, sq, kept, mv)
+    sizes = set()
+    for gi in range(g):
+        want = hidx[gi][hvalid[gi]].tolist()
+        for lanes in (1, 4):
+            assert hull_lanes(px[gi], py[gi], kept[gi], mv, lanes) == want
+        sizes.add(len(want))
+        got = picks_by_masks(e0x[gi], e0y[gi], e1x[gi], e1y[gi], sq[gi],
+                             kept[gi], px[gi][want], py[gi][want], mv)
+        assert got == picks[gi].tolist()
+    assert max(sizes) >= 8 and min(sizes) == 1
+    assert int((picks >= 0).sum()) >= 48
+    assert int((picks >= 0).sum(-1).max()) >= 4
