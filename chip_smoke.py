@@ -23,13 +23,17 @@ the final line):
      the host queued while the device slept, 3 turns) beside the time of
      one whole wrapper call, and its kernels per call by the kernel
      library's own counter, held exactly; blblur's fused round counts F
-     in turns; mkpl's device time at 0, 1 and 15 rounds; K4's device time
-     on each of its three inputs on the main paths (the poly path's
-     edge_bin, the rect strings, the boundary marks) and hyp's on the
-     720p hypotheses and the seed-0 corpus; nvcc's -Xptxas -v lines of
-     mkpl.cu, links_ccl.cu, ccl.cu and hyp.cu; and, where build/parent/
-     holds a git archive of the parent commit, the parent's K4 and hyp
-     kernels held equal to these and timed in turns with them;
+     in turns; mkpl's device time at 0, 1 and 15 rounds; K3's device time
+     on each variant's own input (poly_branch on the poly path's
+     strength-filtered edges, rect on the rect path's edge_bin), K4's on
+     each of its three inputs on the main paths (the poly path's
+     edge_bin, the rect strings, the boundary marks), quant_despeckle's
+     on the rect path's blurred colours and thinned edges, and hyp's on
+     the 720p hypotheses and the seed-0 corpus; nvcc's -Xptxas -v lines
+     of morph.cu, quant_despeckle.cu, mkpl.cu, links_ccl.cu, ccl.cu and
+     hyp.cu; and, where build/parent/ holds a git archive of the parent
+     commit, the parent's K3 and quant_despeckle kernels held equal to
+     these and timed in turns with them;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after, and the kernel library's own count of kernels
      held equal to the kernels its wrappers launched:
@@ -201,57 +205,47 @@ def stream_of(torch):
     return torch.cuda.current_stream().cuda_stream
 
 
-def hyp_entry(torch, lib, what):
-    """hyp_fn(segs, valid, max_vertices, short_ratio2) -> (corners, ok)
-    through lib's rd_hyp, with this tree's C signature (also the parent's);
-    `what` names the kernel in a failure."""
-    import ctypes
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rd_hyp.argtypes = [P, P, P, P, I, I, I, F, P]
-    lib.rd_hyp.restype = ctypes.c_int
-
-    def hyp_fn(segs, valid, max_vertices, short_ratio2):
-        g, k = valid.shape
-        corners = torch.empty((g, 4, 2), dtype=torch.float32,
-                              device=segs.device)
-        ok = torch.empty((g,), dtype=torch.bool, device=segs.device)
-        if lib.rd_hyp(segs.data_ptr(), valid.data_ptr(), corners.data_ptr(),
-                      ok.data_ptr(), g, k, max_vertices, short_ratio2,
-                      stream_of(torch)):
-            fail(f"{what} did not launch")
-        return corners, ok
-
-    return hyp_fn
-
-
 def parent_kernels(torch, build_mod):
-    """The K4 and hyp kernels of the parent commit, for timing in turns with
-    this tree's: built from build/parent/ (a git archive of the parent,
-    unpacked there by hand; absent from a plain checkout, and then None)
-    into one library with the parent's C signatures and its own launch
-    counter."""
+    """The K3 and quant_despeckle kernels of the parent commit, for timing
+    in turns with this tree's: built from build/parent/ (a git archive of
+    the parent, unpacked there by hand; absent from a plain checkout, and
+    then None) into one library with the parent's C signatures and its own
+    launch counter.  Returns (strings_fn(edge, variant),
+    quant_fn(packed, emag, n0, n1, n2))."""
     import ctypes
     src = os.path.join(ROOT, "build", "parent", "rectdetect_tpu_torch",
                        "csrc")
     if not os.path.isdir(src):
         return None
     lib = build_kernels(build_mod, src, os.path.join(ROOT, "build", "parent"),
-                        ("ccl", "hyp"))
+                        ("morph", "quant_despeckle"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rd_label_components.argtypes = [P, P, P, I, I, I, P]
-    lib.rd_label_components.restype = ctypes.c_int
+    lib.rd_strings_chain.argtypes = [P, P, P, P, I, I, I, P]
+    lib.rd_strings_chain.restype = ctypes.c_int
+    lib.rd_quant_despeckle.argtypes = [P, P, P, I, I, I, I, I, P]
+    lib.rd_quant_despeckle.restype = ctypes.c_int
 
-    def ccl_fn(pix, bgc):
-        h, w = pix.shape
-        out_t = torch.empty_like(pix)
-        scratch = torch.empty_like(pix)
-        if lib.rd_label_components(pix.data_ptr(), out_t.data_ptr(),
-                                   scratch.data_ptr(), h, w, bgc,
-                                   stream_of(torch)):
-            fail("the parent's K4 kernel did not launch")
+    def strings_fn(edge, variant):
+        h, w = edge.shape
+        out_t = torch.empty_like(edge)
+        a, b = torch.empty_like(edge), torch.empty_like(edge)
+        if lib.rd_strings_chain(edge.data_ptr(), out_t.data_ptr(),
+                                a.data_ptr(), b.data_ptr(), h, w,
+                                {"rect": 0, "poly_branch": 1}[variant],
+                                stream_of(torch)):
+            fail("the parent's K3 kernel did not launch")
         return out_t
 
-    return ccl_fn, hyp_entry(torch, lib, "the parent's hyp kernel")
+    def quant_fn(packed, emag, n0, n1, n2):
+        h, w = packed.shape
+        out_t = torch.empty_like(packed)
+        if lib.rd_quant_despeckle(packed.data_ptr(), emag.data_ptr(),
+                                  out_t.data_ptr(), h, w, n0, n1, n2,
+                                  stream_of(torch)):
+            fail("the parent's quant_despeckle kernel did not launch")
+        return out_t
+
+    return strings_fn, quant_fn
 
 
 def main() -> int:
@@ -265,7 +259,7 @@ def main() -> int:
         from rectdetect_tpu_torch.apps.common import TAN_AOV
         from rectdetect_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
         from rectdetect_tpu_torch.core import color
-        from rectdetect_tpu_torch.ops import (_build, blur, ccl, fp,
+        from rectdetect_tpu_torch.ops import (_build, blur, ccl,
                                               hopper_bids,
                                               hopper_blblur, hopper_ccl,
                                               hopper_despeckle2, hopper_grad,
@@ -403,11 +397,18 @@ def main() -> int:
 
     st = ccl.calc_strength(thin, lbl)
     edge = (ccl.filter_strength(lbl, st, 500) > 0).to(torch.int32)
-    for variant in ("rect", "poly_branch"):
-        s = hopper_morph.strings_chain(edge, variant)
-        s_p = hopper_morph.strings_chain_plain(edge, variant)
+    cfg = DEFAULT_CONFIG
+    fe = edge_frontend(bgr, cfg)
+    # K3 on each variant's own input: poly_branch on the poly path's
+    # strength-filtered edges, rect on the rect path's edge_bin
+    k3_inputs = {"poly_branch": edge, "rect": fe.edge_bin}
+    for variant, pix in k3_inputs.items():
+        s = hopper_morph.strings_chain(pix, variant)
+        s_p = hopper_morph.strings_chain_plain(pix, variant)
         ndiff = int((s != s_p).sum())
-        phase(f"phase 3 strings_chain[{variant}]: {ndiff} pixels differ")
+        phase(f"phase 3 strings_chain[{variant}]: {ndiff} pixels differ "
+              f"({int(s_p.sum())} string pixels of "
+              f"{int((pix != 0).sum())} edge pixels)")
         if ndiff:
             fail(f"strings_chain[{variant}]: {ndiff} pixels differ")
     # ops: >= one decision per pixel
@@ -415,10 +416,10 @@ def main() -> int:
            "rectdetect_tpu/ops/pallas_morph.py:40", 0.0,
            lambda: hopper_morph.strings_chain(edge, "poly_branch"),
            cuda_ms(torch, lambda: hopper_morph.strings_chain_plain(
-               edge, "poly_branch"), 5), 2 * nb(edge), H * W, kernels=5)
+               edge, "poly_branch"), 5), 2 * nb(edge), H * W,
+           kernels=hopper_morph.KERNELS)
 
     # mkpl at the poly path's own arc compaction, then under overflow
-    cfg = DEFAULT_CONFIG
     cap = cfg.ls_cap_for(W, H)
     arena0, dense, number, comp = polyline.mkpl_inputs(edge, 20, cap, cfg)
 
@@ -459,15 +460,17 @@ def main() -> int:
            nb(comp.idx) + 8 * n_live + 2 * 13 * 4 * cap + nb(got[1]),
            20 * rounds * n_live)
 
-    # the redesigned kernels (csrc/mkpl.cu, csrc/links_ccl.cu, csrc/ccl.cu,
-    # csrc/hyp.cu): their registers and spills; mkpl's device time at 0, 1
-    # and all rounds (the fixed cost and the cost per round); K4 and hyp
-    # timed in turns with the parent commit's kernels where they were
-    # brought along (build/parent/)
+    # the redesigned kernels (csrc/morph.cu, csrc/quant_despeckle.cu,
+    # csrc/mkpl.cu, csrc/links_ccl.cu, csrc/ccl.cu, csrc/hyp.cu): their
+    # registers and spills; mkpl's device time at 0, 1 and all rounds (the
+    # fixed cost and the cost per round); K3 and quant_despeckle timed in
+    # turns with the parent commit's kernels where they were brought along
+    # (build/parent/)
     parent = parent_kernels(torch, _build)
     redesign = {"card": card, "ptxas": {
         k: ptxas_lines(_build.ptxas_log.get(k, "not rebuilt in this run"))
-        for k in ("mkpl.cu", "links_ccl.cu", "ccl.cu", "hyp.cu")}}
+        for k in ("morph.cu", "quant_despeckle.cu", "mkpl.cu",
+                  "links_ccl.cu", "ccl.cu", "hyp.cu")}}
     for k, lines in redesign["ptxas"].items():
         for line in lines:
             phase(f"phase 3 ptxas {k}: {line}")
@@ -492,8 +495,27 @@ def main() -> int:
     phase(f"phase 3 mkpl device ms per call by rounds (CUDA events, 10 "
           f"back-to-back calls, 3 turns): {json.dumps(split)}")
 
+    # K3 on each variant's own input, in turns with the parent's kernel
+    redesign["strings_chain_inputs"] = {}
+    for variant, pix in k3_inputs.items():
+        def call(pix=pix, variant=variant):
+            return hopper_morph.strings_chain(pix, variant)
+        times, per_call = device_ms(torch, _build, call)
+        if per_call != hopper_morph.KERNELS:
+            fail(f"strings_chain[{variant}]: {per_call} kernels per call by "
+                 f"the library's counter, not {hopper_morph.KERNELS}")
+        entry = {"edge_pixels": int((pix != 0).sum()), "device_ms": times,
+                 "bound_ms": 2 * nb(pix) / HBM_BYTES_PER_S * 1e3}
+        if parent is not None:
+            def parent_call(pix=pix, variant=variant):
+                return parent[0](pix, variant)
+            if not torch.equal(parent_call(), call()):
+                fail(f"strings_chain[{variant}]: the parent's kernel differs")
+            entry["parent_turns"] = in_turns(call, parent_call)
+        redesign["strings_chain_inputs"][variant] = entry
+        phase(f"phase 3 strings_chain[{variant}]: {json.dumps(entry)}")
+
     # the strength pair's segmented totals at 720p, on the rect strings
-    fe = edge_frontend(bgr, cfg)
     s_rect = hopper_morph.strings_chain(fe.edge_bin, "rect")
     lbl_r = hopper_ccl.label_components(s_rect, 0)
     sp = max(4096, H * W // cfg.sparse_factor)
@@ -582,7 +604,21 @@ def main() -> int:
                blurred, fe.edge_thin, n, n, n),
            cuda_ms(torch, lambda: regions.quantize_despeckle(
                blurred, fe.edge_thin, n, n, n), 5),
-           nb(blurred, fe.edge_thin, despeck), 15 * H * W)
+           nb(blurred, fe.edge_thin, despeck), 15 * H * W,
+           kernels=hopper_quant.KERNELS)
+
+    # quant_despeckle in turns with the parent's kernel
+    def quant_call():
+        return hopper_quant.quantize_despeckle(blurred, fe.edge_thin, n, n, n)
+    entry = {"on_edge": int((fe.edge_thin >= 1e-6).sum())}
+    if parent is not None:
+        def parent_call():
+            return parent[1](blurred, fe.edge_thin, n, n, n)
+        if not torch.equal(parent_call(), despeck):
+            fail("quant_despeckle: the parent's kernel differs")
+        entry["parent_turns"] = in_turns(quant_call, parent_call)
+    redesign["quant_despeckle"] = entry
+    phase(f"phase 3 quant_despeckle: {json.dumps(entry)}")
 
     # the region merge's kernels on the maps the rect path gives them
     mask = hopper_merge_mask.junction_merge_mask(strong)
@@ -670,12 +706,6 @@ def main() -> int:
             fail(f"label_components on {name}: {per_call} kernels per call "
                  f"by the library's counter, not 3")
         entry["device_ms"] = times
-        if parent is not None:
-            if not torch.equal(parent[0](pix, bgc), got):
-                fail(f"label_components on {name}: the parent's kernel "
-                     f"differs")
-            entry["parent_turns"] = in_turns(
-                call, lambda pix=pix, bgc=bgc: parent[0](pix, bgc))
         redesign["label_components_inputs"][name] = entry
         phase(f"phase 3 label_components on {name}: {json.dumps(entry)}")
 
@@ -733,10 +763,8 @@ def main() -> int:
            nb(hyp.segs, hyp.valid, corners, ok),
            hull_ops(hyp.segs, hyp.valid))
 
-    # hyp on the 720p hypotheses and the seed-0 corpus, timed in turns
-    # with the parent's kernel
+    # hyp on the 720p hypotheses and the seed-0 corpus
     redesign["hyp_inputs"] = {}
-    sr2 = fp.f32(quad.SHORT_RATIO * quad.SHORT_RATIO)
     for name, segs_c, valid_c in corpora[:2]:
         def call(segs_c=segs_c, valid_c=valid_c):
             return hopper_hyp.reduce_groups(segs_c, valid_c, hv)
@@ -745,12 +773,6 @@ def main() -> int:
             fail(f"hyp on {name}: {per_call} kernels per call by the "
                  f"library's counter, not 1")
         entry = {"groups": int(valid_c.any(1).sum()), "device_ms": times}
-        if parent is not None:
-            def parent_call(segs_c=segs_c, valid_c=valid_c):
-                return parent[1](segs_c, valid_c, hv, sr2)
-            if not same_quads(torch, parent_call(), call()):
-                fail(f"hyp on {name}: the parent's kernel differs")
-            entry["parent_turns"] = in_turns(call, parent_call)
         redesign["hyp_inputs"][name] = entry
         phase(f"phase 3 hyp on {name}: {json.dumps(entry)}")
 

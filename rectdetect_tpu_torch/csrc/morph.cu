@@ -11,138 +11,242 @@
 // included (each stage zeroes its own border ring, reads outside the
 // frame are 0).
 //
-// Bound: device memory and launch latency.  Each stage reads a 3x3 or
-// 5x5 int32 neighbourhood (L1/L2 hits) and writes 4 B per pixel, so the
-// chain moves ~8 B per pixel per stage through device memory, five stages
-// in all.  One launch per stage: stringify's parity 1 must read parity 0's
-// finished output, and a separate launch is the grid-wide barrier.
-// Keeping the chain in a shared-memory tile with a halo, as the TPU
-// kernel did in VMEM, is later work.
+// Bound: device memory, the (H,W) int32 map read once and written once
+// (7.4 MB at 720p).  The whole chain is one launch.  Each block owns a
+// kTileRows x kTileWords*32 output tile and keeps the chain in shared
+// memory as bit words (bit i of a word = pixel x0 + i, x0 a multiple of
+// 32), over a window that reaches halo(variant) rows above and below the
+// tile and one word on each side.  Every stage works on the words of a
+// window that shrinks by the stage's reach, so the tile's words are exact
+// after the last one:
+//   junction     reach 1: two bit-planes, NZ (jn != 0: set with at least
+//                one set neighbour) and ONE (jn == 2: exactly one), from a
+//                saturating bit-sliced count of the 8 shifted neighbour
+//                planes, masked by interior(1);
+//   connect      reach 2 (poly) or 1 (rect): the gap patterns as word
+//                logic on NZ and ONE, masked by interior(2);
+//   stringify    reach 1 each, parity 0 then parity 1: clear
+//                (up|dn) & (lf|rt) on the checkerboard parity, whose mask
+//                is 0x55555555 or 0xAAAAAAAA by the row's parity, masked
+//                by interior(1);
+//   removeBranch reach 1 (poly): keep set bits with at most 2 set
+//                neighbours, by the same saturating count, interior(1).
+// So the halo is 6 rows for poly_branch and 4 for rect; bridge2's
+// simple_connect2 (not ported) would add 3.  A neighbour bit comes from
+// the adjacent word by a shift and carry; words beyond the window read 0,
+// which disturbs at most 6 bits of the halo words and never the tile's.
+// Interior masks use frame coordinates, so the frame border, not the
+// tile's, decides them.  Loads are one coalesced 128-byte warp read per
+// window word, turned into the word by __ballot_sync (every lane reaches
+// it: there is no early return); stores one 128-byte warp write per tile
+// word, each lane its own pixel.
 
 #include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ int at(const int* __restrict__ img, int h, int w,
-                                  int y, int x) {
-  return (y < 0 || y >= h || x < 0 || x >= w) ? 0 : img[y * w + x];
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTileRows = 32;
+constexpr int kTileWords = 4;
+constexpr int kWinWords = kTileWords + 2;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// variant 0 = rect, 1 = poly_branch: the stages' reaches summed
+__host__ __device__ constexpr int halo(int variant) {
+  return variant == 0 ? 4 : 6;
 }
 
-__device__ __forceinline__ bool interior(int h, int w, int y, int x,
-                                         int m) {
-  return y >= m && y < h - m && x >= m && x < w - m;
+// bits [lo, hi) of a word, 0 <= lo, hi <= 32
+__device__ __forceinline__ unsigned bit_range(int lo, int hi) {
+  if (hi <= lo) return 0u;
+  const unsigned top = hi >= 32 ? kFull : (1u << hi) - 1u;
+  return top & ~((1u << lo) - 1u);
 }
 
-#define PIXEL_INDEX                                       \
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;    \
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;    \
-  if (x >= w || y >= h) return;                           \
-  const int p = y * w + x;
+// interior(m) of the frame as the word of row y whose bit 0 is pixel x0
+__device__ __forceinline__ unsigned interior(int m, int y, int x0, int h,
+                                             int w) {
+  if (y < m || y >= h - m) return 0u;
+  return bit_range(min(max(m - x0, 0), 32), min(max(w - m - x0, 0), 32));
+}
 
-// 8-neighbour offsets, NEIGH8 order (oclpolyline.cl:63-64)
-__constant__ int kDy[8] = {0, -1, -1, -1, 0, 1, 1, 1};
-__constant__ int kDx[8] = {1, 1, 0, -1, -1, -1, 0, 1};
-
-// simpleJunction (oclpolyline.cl:66-87 / oclrect.cl:74-95)
-__global__ void junction_kernel(const int* __restrict__ in, int* out, int h,
-                                int w, int positive_only) {
-  PIXEL_INDEX
-  int v = in[p];
-  const bool nz = positive_only ? v > 0 : v != 0;
-  int cnt = 1;
-  for (int k = 0; k < 8; ++k) {
-    const int u = at(in, h, w, y + kDy[k], x + kDx[k]);
-    cnt += (positive_only ? u > 0 : u != 0) ? 1 : 0;
+// three adjacent words of one window row; at(dx) is the word whose bit i
+// holds pixel x0 + i + dx, |dx| <= 2
+struct Row3 {
+  unsigned l, m, r;
+  __device__ __forceinline__ unsigned at(int dx) const {
+    if (dx == 0) return m;
+    if (dx > 0) return (m >> dx) | (r << (32 - dx));
+    return (m << -dx) | (l >> (32 + dx));
   }
-  out[p] = (interior(h, w, y, x, 1) && nz && cnt > 1) ? cnt : 0;
+};
+
+__device__ __forceinline__ Row3 row3(const unsigned* plane, int r, int c) {
+  const unsigned* row = plane + r * kWinWords;
+  return {c > 0 ? row[c - 1] : 0u, row[c],
+          c + 1 < kWinWords ? row[c + 1] : 0u};
 }
 
-// simpleConnect, poly patterns (oclpolyline.cl:89-110)
-__global__ void connect_poly_kernel(const int* __restrict__ jn, int* out,
-                                    int h, int w) {
-  PIXEL_INDEX
-#define N(dy, dx) at(jn, h, w, y + (dy), x + (dx))
-  bool b = (N(0, -2) != 0) && (N(0, -1) == 2) && (N(0, 1) == 2) && (N(0, 2) != 0);
-  b |= (N(-2, 0) != 0) && (N(-1, 0) == 2) && (N(1, 0) == 2) && (N(2, 0) != 0);
-  b |= (N(-2, -2) != 0) && (N(-1, -1) == 2) && (N(1, 1) == 2) && (N(2, 2) != 0);
-  b |= (N(-2, 2) != 0) && (N(-1, 1) == 2) && (N(1, -1) == 2) && (N(2, -2) != 0);
-  b |= (N(0, 2) != 0) && (N(0, 1) == 2) && (N(1, -1) == 2) && (N(1, -2) != 0);
-  b |= (N(0, -2) != 0) && (N(0, -1) == 2) && (N(1, 1) == 2) && (N(1, 2) != 0);
-  b |= (N(-2, 1) != 0) && (N(-1, 1) == 2) && (N(1, 0) == 2) && (N(2, 0) != 0);
-  b |= (N(-2, -1) != 0) && (N(-1, -1) == 2) && (N(1, 0) == 2) && (N(2, 0) != 0);
-#undef N
-  out[p] = (interior(h, w, y, x, 2) && (jn[p] != 0 || b)) ? 1 : 0;
+// saturating bit-sliced count: a1, a2, a3 = at least 1, 2, 3 bits seen
+struct Count3 {
+  unsigned a1 = 0u, a2 = 0u, a3 = 0u;
+  __device__ __forceinline__ void add(unsigned p) {
+    a3 |= a2 & p;
+    a2 |= a1 & p;
+    a1 |= p;
+  }
+  // the 8 neighbours of the middle row's words
+  __device__ __forceinline__ void add8(const Row3& up, const Row3& md,
+                                       const Row3& dn) {
+    add(up.at(-1));
+    add(up.m);
+    add(up.at(1));
+    add(md.at(-1));
+    add(md.at(1));
+    add(dn.at(-1));
+    add(dn.m);
+    add(dn.at(1));
+  }
+};
+
+// one stage: f(r, c) for every word of window rows [k, rows - k)
+template <typename F>
+__device__ __forceinline__ void stage(int rows, int k, F f) {
+  const int n = (rows - 2 * k) * kWinWords;
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    f(k + i / kWinWords, i % kWinWords);
+  __syncthreads();
 }
 
-// simpleConnect, rect patterns (oclrect.cl:97-121)
-__global__ void connect_rect_kernel(const int* __restrict__ jn, int* out,
-                                    int h, int w) {
-  PIXEL_INDEX
-#define N(dy, dx) at(jn, h, w, y + (dy), x + (dx))
-  bool b = (N(0, -1) == 2) && (N(0, 1) != 0);
-  b |= (N(0, -1) != 0) && (N(0, 1) == 2);
-  b |= (N(-1, 0) == 2) && (N(1, 0) != 0);
-  b |= (N(-1, 0) != 0) && (N(1, 0) == 2);
-  b |= (N(-1, -1) == 2) && (N(1, 1) == 2);
-  b |= (N(-1, 1) == 2) && (N(1, -1) == 2);
-  b |= (N(0, 1) == 2) && (N(1, -1) == 2);
-  b |= (N(0, -1) == 2) && (N(1, 1) == 2);
-  b |= (N(-1, 1) == 2) && (N(1, 0) == 2);
-  b |= (N(-1, -1) == 2) && (N(1, 0) == 2);
-#undef N
-  out[p] = (interior(h, w, y, x, 2) && (jn[p] != 0 || b)) ? 1 : 0;
-}
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    chain_kernel(const int* __restrict__ edge, int* __restrict__ out, int h,
+                 int w) {
+  constexpr int R = halo(V);
+  constexpr int WR = kTileRows + 2 * R;
+  constexpr int kWin = WR * kWinWords;
+  constexpr int kLoads = (kWin + kWarps - 1) / kWarps;
+  __shared__ unsigned s_a[kWin], s_b[kWin], s_c[kWin];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ty0 = blockIdx.y * kTileRows;
+  const int tw0 = blockIdx.x * kTileWords;
+  // window row r is frame row ty0 - R + r; window word c starts at pixel
+  // (tw0 - 1 + c) * 32
+  auto frame_y = [&](int r) { return ty0 - R + r; };
+  auto frame_x0 = [&](int c) { return (tw0 - 1 + c) * 32; };
 
-// stringify (oclpolyline.cl:112-124): on the frame-global checkerboard
-// parity, clear a pixel with both a vertical and a horizontal neighbour
-__global__ void stringify_kernel(const int* __restrict__ in, int* out, int h,
-                                 int w, int parity) {
-  PIXEL_INDEX
-  const bool up = at(in, h, w, y - 1, x) != 0;
-  const bool dn = at(in, h, w, y + 1, x) != 0;
-  const bool lf = at(in, h, w, y, x - 1) != 0;
-  const bool rt = at(in, h, w, y, x + 1) != 0;
-  const bool corner = (up && lf) || (up && rt) || (dn && lf) || (dn && rt);
-  const bool clear =
-      (((y + x) & 1) == parity) && corner && interior(h, w, y, x, 1);
-  out[p] = clear ? 0 : in[p];
-}
+  // load: all of a warp's pixels first, then one ballot per word
+  int v[kLoads];
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int i = warp + j * kWarps;
+    const int y = frame_y(i / kWinWords);
+    const int x = frame_x0(i % kWinWords) + lane;
+    v[j] = i < kWin && y >= 0 && y < h && x >= 0 && x < w ? edge[y * w + x]
+                                                          : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const unsigned bits = __ballot_sync(kFull, V == 0 ? v[j] > 0 : v[j] != 0);
+    const int i = warp + j * kWarps;
+    if (lane == 0 && i < kWin) s_a[i] = bits;
+  }
+  __syncthreads();
 
-// removeBranch (oclpolyline.cl:126-147): keep pixels with <= 2 neighbours
-__global__ void remove_branch_kernel(const int* __restrict__ in, int* out,
-                                     int h, int w) {
-  PIXEL_INDEX
-  int cnt = 0;
-  for (int k = 0; k < 8; ++k)
-    cnt += at(in, h, w, y + kDy[k], x + kDx[k]) != 0 ? 1 : 0;
-  out[p] = (interior(h, w, y, x, 1) && in[p] != 0 && cnt <= 2) ? 1 : 0;
+  // junction: s_a -> NZ in s_b, ONE in s_c
+  stage(WR, 1, [&](int r, int c) {
+    const Row3 md = row3(s_a, r, c);
+    Count3 n;
+    n.add8(row3(s_a, r - 1, c), md, row3(s_a, r + 1, c));
+    const unsigned base =
+        md.m & n.a1 & interior(1, frame_y(r), frame_x0(c), h, w);
+    s_b[r * kWinWords + c] = base;
+    s_c[r * kWinWords + c] = base & ~n.a2;
+  });
+
+  // connect: NZ, ONE -> s_a
+  constexpr int kConnect = V == 0 ? 2 : 3;
+  stage(WR, kConnect, [&](int r, int c) {
+    unsigned b;
+    const Row3 nm = row3(s_b, r, c);
+    const Row3 ou = row3(s_c, r - 1, c), om = row3(s_c, r, c),
+               od = row3(s_c, r + 1, c);
+    if (V == 0) {
+      const Row3 nu = row3(s_b, r - 1, c), nd = row3(s_b, r + 1, c);
+      b = (om.at(-1) & nm.at(1)) | (nm.at(-1) & om.at(1)) |
+          (ou.m & nd.m) | (nu.m & od.m) | (ou.at(-1) & od.at(1)) |
+          (ou.at(1) & od.at(-1)) | (om.at(1) & od.at(-1)) |
+          (om.at(-1) & od.at(1)) | (ou.at(1) & od.m) | (ou.at(-1) & od.m);
+    } else {
+      const Row3 n2u = row3(s_b, r - 2, c), nd = row3(s_b, r + 1, c),
+                 n2d = row3(s_b, r + 2, c);
+      b = (nm.at(-2) & om.at(-1) & om.at(1) & nm.at(2)) |
+          (n2u.m & ou.m & od.m & n2d.m) |
+          (n2u.at(-2) & ou.at(-1) & od.at(1) & n2d.at(2)) |
+          (n2u.at(2) & ou.at(1) & od.at(-1) & n2d.at(-2)) |
+          (nm.at(2) & om.at(1) & od.at(-1) & nd.at(-2)) |
+          (nm.at(-2) & om.at(-1) & od.at(1) & nd.at(2)) |
+          (n2u.at(1) & ou.at(1) & od.m & n2d.m) |
+          (n2u.at(-1) & ou.at(-1) & od.m & n2d.m);
+    }
+    s_a[r * kWinWords + c] =
+        (nm.m | b) & interior(2, frame_y(r), frame_x0(c), h, w);
+  });
+
+  // stringify parity p: src -> dst
+  auto stringify = [&](const unsigned* src, unsigned* dst, int k, int p) {
+    stage(WR, k, [&](int r, int c) {
+      const Row3 md = row3(src, r, c);
+      const unsigned up = src[(r - 1) * kWinWords + c];
+      const unsigned dn = src[(r + 1) * kWinWords + c];
+      const int y = frame_y(r);
+      const unsigned parity = ((y + p) & 1) ? 0xAAAAAAAAu : 0x55555555u;
+      const unsigned clear = parity & (up | dn) & (md.at(-1) | md.at(1)) &
+                             interior(1, y, frame_x0(c), h, w);
+      dst[r * kWinWords + c] = md.m & ~clear;
+    });
+  };
+  stringify(s_a, s_b, kConnect + 1, 0);
+  stringify(s_b, s_c, kConnect + 2, 1);
+  const unsigned* result = s_c;
+
+  // removeBranch (poly_branch): s_c -> s_a
+  if (V == 1) {
+    stage(WR, kConnect + 3, [&](int r, int c) {
+      const Row3 md = row3(s_c, r, c);
+      Count3 n;
+      n.add8(row3(s_c, r - 1, c), md, row3(s_c, r + 1, c));
+      s_a[r * kWinWords + c] =
+          md.m & ~n.a3 & interior(1, frame_y(r), frame_x0(c), h, w);
+    });
+    result = s_a;
+  }
+  static_assert(kConnect + 2 + V == R, "the halo is the stages' reaches");
+
+  // store: one warp per tile word, each lane its own pixel
+  for (int i = warp; i < kTileRows * kTileWords; i += kWarps) {
+    const int r = i / kTileWords, c = i % kTileWords;
+    const int y = ty0 + r, x = (tw0 + c) * 32 + lane;
+    const unsigned word = result[(R + r) * kWinWords + 1 + c];
+    if (y < h && x < w) out[y * w + x] = (int)((word >> lane) & 1u);
+  }
 }
 
 }  // namespace
 
-// variant: 0 = rect, 1 = poly_branch.  a and b are (h, w) int32 scratch
-// maps; out may not alias them.
-extern "C" int rd_strings_chain(const void* edge, void* out, void* a,
-                                void* b, int h, int w, int variant,
-                                void* stream) {
-  const dim3 g = rd::pixel_grid(h, w), t = rd::pixel_block();
+// variant: 0 = rect, 1 = poly_branch; one launch for either
+extern "C" int rd_strings_chain(const void* edge, void* out, int h, int w,
+                                int variant, void* stream) {
+  const dim3 grid((w + 32 * kTileWords - 1) / (32 * kTileWords),
+                  (h + kTileRows - 1) / kTileRows);
   cudaStream_t s = (cudaStream_t)stream;
-  int* A = (int*)a;
-  int* B = (int*)b;
-  int* O = (int*)out;
-  junction_kernel<<<g, t, 0, s>>>((const int*)edge, A, h, w, variant == 0);
   if (variant == 0)
-    connect_rect_kernel<<<g, t, 0, s>>>(A, B, h, w);
+    chain_kernel<0><<<grid, kThreads, 0, s>>>((const int*)edge, (int*)out, h,
+                                              w);
   else
-    connect_poly_kernel<<<g, t, 0, s>>>(A, B, h, w);
-  stringify_kernel<<<g, t, 0, s>>>(B, A, h, w, 0);
-  if (variant == 1) {
-    stringify_kernel<<<g, t, 0, s>>>(A, B, h, w, 1);
-    remove_branch_kernel<<<g, t, 0, s>>>(B, O, h, w);
-  } else {
-    stringify_kernel<<<g, t, 0, s>>>(A, O, h, w, 1);
-  }
-  // junction, connect, two stringify passes, and remove_branch for poly
-  for (int k = variant == 1 ? 5 : 4; k > 0; --k) rd::count_launch();
+    chain_kernel<1><<<grid, kThreads, 0, s>>>((const int*)edge, (int*)out, h,
+                                              w);
+  rd::count_launch();
   return (int)cudaGetLastError();
 }

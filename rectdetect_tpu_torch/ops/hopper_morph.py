@@ -2,11 +2,11 @@
 
 Replaces the TPU kernel rectdetect_tpu/ops/pallas_morph.py:_morph_kernel
 (morph_chain_pallas), variants "rect" and "poly_branch" (the accuracy
-extension bridge2 is not ported yet).  CUDA source: csrc/morph.cu,
-one launch per stencil stage with one thread per pixel; each stage moves
-~8 B per pixel through device memory, so the chain is bound by memory
-traffic and launch latency.  Fusing the stages into one shared-memory
-tile with a halo is later work.
+extension bridge2 is not ported yet).  CUDA source: csrc/morph.cu, the
+whole chain in one launch: each block keeps its tile's window as 32-pixel
+bit words in shared memory and runs every stage there on a window that
+shrinks by the stage's reach (a halo of 4 rows for "rect", 6 for
+"poly_branch"), so the map is read once and written once.
 
 `strings_chain` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; there is no other path.
@@ -21,6 +21,8 @@ from rectdetect_tpu_torch.ops.morphology import (
     strings_chain as strings_chain_plain)
 
 _VARIANTS = {"rect": 0, "poly_branch": 1}
+# kernels launched per call, either variant
+KERNELS = 1
 
 launches = 0
 
@@ -35,11 +37,7 @@ def strings_chain(edge_bin: torch.Tensor, variant: str):
     h, w = edge_bin.shape
     _build.check(edge_bin, "edge_bin", torch.int32, (h, w))
     out = torch.empty_like(edge_bin)
-    a = torch.empty_like(edge_bin)
-    b = torch.empty_like(edge_bin)
     _build.launch("rd_strings_chain", edge_bin.device, edge_bin.data_ptr(),
-                  out.data_ptr(), a.data_ptr(), b.data_ptr(), h, w,
-                  _VARIANTS[variant],
-                  kernels=5 if variant == "poly_branch" else 4)
+                  out.data_ptr(), h, w, _VARIANTS[variant], kernels=KERNELS)
     launches += 1
     return out

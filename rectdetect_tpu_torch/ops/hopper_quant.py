@@ -4,11 +4,12 @@ neighbour.
 
 Replaces the TPU kernel rectdetect_tpu/ops/pallas_morph.py:
 _quant_despeckle_kernel (quant_despeckle_pallas).  CUDA source:
-csrc/quant_despeckle.cu, one thread per pixel that quantizes itself and
-its neighbours on the fly, so the quantized plane stays out of device
-memory; bound by device memory (12 B per pixel).  Its floats are the
-jitted JAX composition's (ops/regions.py), so it equals the plain version
-(ops/regions.py:quantize_despeckle) exactly.
+csrc/quant_despeckle.cu, one launch: each block quantizes its tile's
+window (the tile and a one-pixel halo) once into shared memory, then
+despeckles from there, so the quantized plane stays out of device memory;
+bound by device memory (8 B read and 4 B written per pixel).  Its floats
+are the jitted JAX composition's (ops/regions.py), so it equals the plain
+version (ops/regions.py:quantize_despeckle) exactly.
 
 `quantize_despeckle` takes the plain version for CPU tensors and launches
 the kernel for CUDA tensors; there is no other path.
@@ -21,6 +22,9 @@ import torch
 from rectdetect_tpu_torch.ops import _build
 from rectdetect_tpu_torch.ops.regions import (
     quantize_despeckle as quantize_despeckle_plain)
+
+# kernels launched per call
+KERNELS = 1
 
 launches = 0
 
@@ -38,6 +42,6 @@ def quantize_despeckle(packed: torch.Tensor, edge_mag: torch.Tensor,
     out = torch.empty_like(packed)
     _build.launch("rd_quant_despeckle", packed.device, packed.data_ptr(),
                   edge_mag.data_ptr(), out.data_ptr(), h, w, int(n0),
-                  int(n1), int(n2))
+                  int(n1), int(n2), kernels=KERNELS)
     launches += 1
     return out

@@ -23,7 +23,8 @@ status equal, its corners within 2e-4 px.  The blblur kernel is held
 equal to the plain version at every fused round count it compiles, and
 the pose kernel bit for bit (NaN in the same places).  The mkpl and links
 kernels are held bit-equal on arenas whose arc numbers repeat or skip and
-on frames of one region; launches are read from the kernel library's own
+on frames of one region; K3 (both variants) and quant_despeckle bit-equal
+from 1x1 to 720x1280; launches are read from the kernel library's own
 counter (`_build.launch_count`).
 """
 
@@ -121,6 +122,59 @@ def test_morph_and_ccl_kernels_match_plain():
         for bgc in (0, 2):
             assert torch.equal(hopper_ccl.label_components(p, bgc),
                                hopper_ccl.label_components_plain(p, bgc))
+
+
+K3_CARD_SHAPES = [(1, 1), (1, 61), (61, 1), (37, 53), (33, 1281),
+                  (720, 1280)]
+
+
+@pytest.mark.parametrize("h,w", K3_CARD_SHAPES)
+def test_morph_kernel_matches_plain_at_odd_sizes(h, w):
+    """K3, both variants, bit-equal to the plain chain at densities 0.1,
+    0.3 and 0.6 of values in {-1, 0, 1, 2} (rect counts only values > 0);
+    one kernel per call by the library's own counter."""
+    _need_card()
+    r = np.random.default_rng(h * 7919 + w)
+    for density in (0.1, 0.3, 0.6):
+        vals = r.choice(np.array([-1, 1, 2], np.int32), size=(h, w))
+        e = np.where(r.random((h, w)) < density, vals, 0).astype(np.int32)
+        edge = torch.from_numpy(e)
+        for variant in ("rect", "poly_branch"):
+            n0 = _build.launch_count()
+            got = hopper_morph.strings_chain(edge.cuda(), variant)
+            torch.cuda.synchronize()
+            assert _build.launch_count() == n0 + hopper_morph.KERNELS == n0 + 1
+            want = hopper_morph.strings_chain_plain(edge, variant)
+            assert torch.equal(got.cpu(), want), (density, variant)
+
+
+@pytest.mark.parametrize("h,w", K3_CARD_SHAPES)
+def test_quant_despeckle_kernel_matches_plain_at_odd_sizes(h, w):
+    """quant_despeckle bit-equal to the plain version at edge shares 0,
+    0.3 and 1 and level triples (24, 24, 24), (5, 7, 11), (1, 1, 1), the
+    kernel's code table at its limit (255 levels), past it (300) and
+    with a negative count (-3), where it divides per pixel; one kernel per
+    call by the library's own counter."""
+    _need_card()
+    r = np.random.default_rng(h * 104729 + w)
+    packed = torch.from_numpy(((r.integers(0, 1024, (h, w)) << 22)
+                               | (r.integers(0, 1024, (h, w)) << 12)
+                               | r.integers(0, 4096, (h, w)))
+                              .astype(np.int32))
+    for share in (0.0, 0.3, 1.0):
+        on = r.random((h, w)) < share
+        below = np.where(r.random((h, w)) < 0.5, 0.0, 9e-7)
+        emag = torch.from_numpy(np.where(on, r.random((h, w)) + 1e-6, below)
+                                .astype(np.float32))
+        for levels in ((24, 24, 24), (5, 7, 11), (1, 1, 1), (255, 255, 255),
+                       (300, 24, 24), (-3, 24, 24)):
+            n0 = _build.launch_count()
+            got = hopper_quant.quantize_despeckle(packed.cuda(), emag.cuda(),
+                                                  *levels)
+            torch.cuda.synchronize()
+            assert _build.launch_count() == n0 + hopper_quant.KERNELS == n0 + 1
+            want = regions.quantize_despeckle(packed, emag, *levels)
+            assert torch.equal(got.cpu(), want), (share, levels)
 
 
 def _walks(h, w, seed=3):
@@ -226,13 +280,30 @@ def test_wrappers_check_their_inputs():
         hopper_grad.edge_front(torch.zeros((8, 8, 2), device="cuda"))
 
 
+def _count_kernels(fn):
+    """fn() with the launch counts set to 0 first; asserts that the
+    library's counter saw exactly the kernels the wrappers stated, and that
+    K3 and quant_despeckle stated their wrappers' KERNELS a call."""
+    _build.expected_kernels.clear()
+    hopper_morph.launches = hopper_quant.launches = 0
+    n0 = _build.launch_count()
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.launch_count() - n0 == sum(_build.expected_kernels.values())
+    for name, mod in (("rd_strings_chain", hopper_morph),
+                      ("rd_quant_despeckle", hopper_quant)):
+        assert (_build.expected_kernels.get(name, 0)
+                == mod.launches * mod.KERNELS), name
+    return out
+
+
 def test_poly_frame_on_card_matches_cpu_and_counts_launches():
     _need_card()
     bgr = _scene()
     mods = (hopper_grad, hopper_thin, hopper_morph, hopper_ccl, hopper_mkpl)
     for m in mods:
         m.launches = 0
-    ga, gl = poly_frame(bgr.cuda(), PipelineConfig())
+    ga, gl = _count_kernels(lambda: poly_frame(bgr.cuda(), PipelineConfig()))
     assert all(m.launches >= 1 for m in mods)
     # the plain subdivision on the card gives the same bits
     pa, pl = poly_frame(bgr.cuda(), PipelineConfig(mkpl_pallas=0))
@@ -514,8 +585,10 @@ def test_rect_hypotheses_on_card_matches_cpu_and_counts_launches():
             hopper_ccl, hopper_mkpl)
     for m in mods:
         m.launches = 0
-    got = rect_hypotheses(bgr.cuda())
-    assert all(m.launches >= 1 for m in mods)
+    got = _count_kernels(lambda: rect_hypotheses(bgr.cuda()))
+    assert all(m.launches >= 1 for m in mods + (hopper_morph, hopper_quant))
+    # the rect strings and the strong edges' polylines: one K3 call each
+    assert hopper_morph.launches == 2
     want = rect_hypotheses(bgr)
     for f in ("mask", "seg", "boundary", "lsid", "valid", "status"):
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f

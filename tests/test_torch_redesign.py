@@ -9,16 +9,23 @@ chunks, pass3 as a run cut), the links CCL's and K4's tiled union-finds
 seam unions with their skip rules, flatten) and the hyp kernel's hull
 walk and picks (csrc/hyp.cu: compacted endpoints, pair tests split over
 lanes with the sqrt only past the perpendicular bound, first maxima by
-order keys, the picks by bit masks).
+order keys, the picks by bit masks), K3's chain on 32-pixel bit words
+(csrc/morph.cu: shift-and-carry neighbours, bit-sliced counts, windows
+that shrink stage by stage, parity masks) and quant_despeckle's window
+(csrc/quant_despeckle.cu: one quantization per window pixel through a
+level-code table, integer squared distances, the sqrt only below the
+best square).
 
-The plain versions (ops/regions.py:blblur and label_merge,
-geometry/pose.py, ops/mkpl.py:mkpl_subdivide, ops/ccl.py,
-geometry/quad.py) are held to the JAX package
-by tests/test_torch_regions.py, tests/test_torch_rect.py,
-tests/test_torch_hypotheses.py and tests/test_torch_polyline.py; these
-tests compile no JAX.  Everything here must be bit-equal: blblur and the
-CCL are integer arithmetic, and the pose and mkpl schedules round the same
-float operations in the same order.
+The plain versions (ops/regions.py:blblur, label_merge and
+quantize_despeckle, geometry/pose.py, ops/mkpl.py:mkpl_subdivide,
+ops/ccl.py, ops/morphology.py:strings_chain, geometry/quad.py) are held
+to the JAX package by tests/test_torch_regions.py,
+tests/test_torch_rect.py, tests/test_torch_hypotheses.py,
+tests/test_torch_morph_ccl.py and tests/test_torch_polyline.py; these
+tests compile no JAX.  Everything here must be bit-equal: blblur, the
+CCL and K3 are integer arithmetic, and the pose, mkpl and
+quant_despeckle schedules round the same float operations in the same
+order.
 """
 
 import math
@@ -30,7 +37,7 @@ import torch
 from rectdetect_tpu_torch import parity
 from rectdetect_tpu_torch.config import PipelineConfig
 from rectdetect_tpu_torch.geometry import pose, quad
-from rectdetect_tpu_torch.ops import fp, mkpl, polyline, regions
+from rectdetect_tpu_torch.ops import fp, mkpl, morphology, polyline, regions
 from rectdetect_tpu_torch.ops.ccl import label_components_plain
 from rectdetect_tpu_torch.ops.regions import _coord_maps
 from rectdetect_tpu_torch.ops.shifts import pad2d, shifted
@@ -1046,3 +1053,429 @@ def test_hyp_lanes_schedule_matches_plain():
     assert max(sizes) >= 8 and min(sizes) == 1
     assert int((picks >= 0).sum()) >= 48
     assert int((picks >= 0).sum(-1).max()) >= 4
+
+
+# ---- K3 (csrc/morph.cu): the chain on 32-pixel bit words ---------------
+
+WORD_MASK = (1 << 32) - 1
+# the kernel never reads a window row its previous stage did not write;
+# such rows hold this here, so a read would show
+_STALE_WORD = WORD_MASK
+# the halo rows: the stages' reaches summed
+K3_HALO = {"rect": 4, "poly_branch": 6}
+# each stage's reach and interior margin, in order
+K3_STAGES = {
+    "rect": (("junction", 1, 1), ("connect", 1, 2), ("stringify0", 1, 1),
+             ("stringify1", 1, 1)),
+    "poly_branch": (("junction", 1, 1), ("connect", 2, 2),
+                    ("stringify0", 1, 1), ("stringify1", 1, 1),
+                    ("remove_branch", 1, 1)),
+}
+
+
+def _bit_range(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Words with bits [lo, hi) set, 0 <= lo, hi <= 32 (int64)."""
+    one = torch.ones_like(lo)
+    m = ((one << hi) - 1) & ~((one << lo) - 1)
+    return torch.where(hi > lo, m, torch.zeros_like(m))
+
+
+def _interior_words(m, y, x0, h, w):
+    """interior(m) of the frame as words: y (T, rows, 1), x0 (T, 1, WW)."""
+    lo = (m - x0).clamp(0, 32)
+    hi = (w - m - x0).clamp(0, 32)
+    rows = (y >= m) & (y < h - m)
+    return torch.where(rows, _bit_range(lo, hi), torch.zeros_like(lo))
+
+
+class _Window:
+    """A stage's view of the (T, WR, WW) planes at rows [k, WR - k)."""
+
+    def __init__(self, k, wr):
+        self.k, self.wr = k, wr
+
+    def at(self, plane, dy, dx):
+        """Words of rows [k, WR - k) whose bit i holds pixel x0 + i + dx of
+        row y + dy; words beyond the window read 0."""
+        rows = plane[:, self.k + dy:self.wr - self.k + dy]
+        if dx == 0:
+            return rows
+        zero = torch.zeros_like(rows[..., :1])
+        if dx > 0:
+            right = torch.cat([rows[..., 1:], zero], -1)
+            return ((rows >> dx) | (right << (32 - dx))) & WORD_MASK
+        left = torch.cat([zero, rows[..., :-1]], -1)
+        return ((rows << -dx) & WORD_MASK) | (left >> (32 + dx))
+
+    def write(self, plane, words):
+        out = torch.full_like(plane, _STALE_WORD)
+        out[:, self.k:self.wr - self.k] = words
+        return out
+
+
+def _count3(win, plane):
+    """Saturating bit-sliced count of the 8 neighbour planes: at least 1,
+    2, 3 set."""
+    a1 = a2 = a3 = torch.zeros_like(win.at(plane, 0, 0))
+    for dy, dx in ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1),
+                   (1, 0), (1, 1)):
+        p = win.at(plane, dy, dx)
+        a3 = a3 | (a2 & p)
+        a2 = a2 | (a1 & p)
+        a1 = a1 | p
+    return a1, a2, a3
+
+
+def strings_chain_words(edge: torch.Tensor, variant: str, th: int,
+                        tww: int) -> torch.Tensor:
+    """csrc/morph.cu's schedule: tiles of th rows x tww words, a window of
+    K3_HALO rows and one word on each side, every stage on the words of a
+    window that shrinks by its reach."""
+    h, w = edge.shape
+    r_halo = K3_HALO[variant]
+    nty, ntx = -(-h // th), -(-w // (32 * tww))
+    wr, ww = th + 2 * r_halo, tww + 2
+    nz = edge > 0 if variant == "rect" else edge != 0
+    bits = torch.zeros((nty * th + 2 * r_halo, (ntx * tww + 2) * 32),
+                       dtype=torch.int64)
+    bits[r_halo:r_halo + h, 32:32 + w] = nz.to(torch.int64)
+    words = (bits.reshape(bits.shape[0], -1, 32)
+             << torch.arange(32, dtype=torch.int64)).sum(-1)
+    tiles = [(ty, tx) for ty in range(nty) for tx in range(ntx)]
+    planes = {"in": torch.stack([
+        words[ty * th:ty * th + wr, tx * tww:tx * tww + ww]
+        for ty, tx in tiles])}
+    ys = torch.tensor([ty * th - r_halo for ty, _ in tiles])[:, None, None]
+    x0s = torch.tensor([(tx * tww - 1) * 32 for _, tx in tiles])[:, None, None]
+    x0s = x0s + 32 * torch.arange(ww)[None, None, :]
+    k = 0
+    for name, reach, margin in K3_STAGES[variant]:
+        k += reach
+        win = _Window(k, wr)
+        y = ys + torch.arange(k, wr - k)[None, :, None]
+        inner = _interior_words(margin, y, x0s, h, w)
+        if name == "junction":
+            src = planes["in"]
+            a1, a2, _ = _count3(win, src)
+            base = win.at(src, 0, 0) & a1 & inner
+            planes["nz"] = win.write(src, base)
+            planes["one"] = win.write(src, base & ~a2 & WORD_MASK)
+        elif name == "connect":
+            nz, one = planes["nz"], planes["one"]
+
+            def n(dy, dx):
+                return win.at(nz, dy, dx)
+
+            def o(dy, dx):
+                return win.at(one, dy, dx)
+
+            if variant == "rect":
+                b = ((o(0, -1) & n(0, 1)) | (n(0, -1) & o(0, 1)) |
+                     (o(-1, 0) & n(1, 0)) | (n(-1, 0) & o(1, 0)) |
+                     (o(-1, -1) & o(1, 1)) | (o(-1, 1) & o(1, -1)) |
+                     (o(0, 1) & o(1, -1)) | (o(0, -1) & o(1, 1)) |
+                     (o(-1, 1) & o(1, 0)) | (o(-1, -1) & o(1, 0)))
+            else:
+                b = ((n(0, -2) & o(0, -1) & o(0, 1) & n(0, 2)) |
+                     (n(-2, 0) & o(-1, 0) & o(1, 0) & n(2, 0)) |
+                     (n(-2, -2) & o(-1, -1) & o(1, 1) & n(2, 2)) |
+                     (n(-2, 2) & o(-1, 1) & o(1, -1) & n(2, -2)) |
+                     (n(0, 2) & o(0, 1) & o(1, -1) & n(1, -2)) |
+                     (n(0, -2) & o(0, -1) & o(1, 1) & n(1, 2)) |
+                     (n(-2, 1) & o(-1, 1) & o(1, 0) & n(2, 0)) |
+                     (n(-2, -1) & o(-1, -1) & o(1, 0) & n(2, 0)))
+            planes["s"] = win.write(nz, (n(0, 0) | b) & inner)
+        elif name.startswith("stringify"):
+            src = planes["s"]
+            parity = torch.where(((y + int(name[-1])) & 1) == 1,
+                                 torch.tensor(0xAAAAAAAA),
+                                 torch.tensor(0x55555555))
+            corner = ((win.at(src, -1, 0) | win.at(src, 1, 0)) &
+                      (win.at(src, 0, -1) | win.at(src, 0, 1)))
+            clear = parity & corner & inner
+            planes["s"] = win.write(src, win.at(src, 0, 0) & ~clear
+                                    & WORD_MASK)
+        else:
+            src = planes["s"]
+            _, _, a3 = _count3(win, src)
+            planes["s"] = win.write(src, win.at(src, 0, 0) & ~a3 & inner
+                                    & WORD_MASK)
+    tile = planes["s"][:, r_halo:r_halo + th, 1:1 + tww]
+    out_bits = (tile[..., None] >> torch.arange(32)) & 1
+    out = torch.zeros((nty * th, ntx * tww * 32), dtype=torch.int32)
+    for t, (ty, tx) in enumerate(tiles):
+        out[ty * th:(ty + 1) * th, tx * tww * 32:(tx + 1) * tww * 32] = (
+            out_bits[t].reshape(th, tww * 32))
+    return out[:h, :w]
+
+
+def signed_edges(shape, density, seed):
+    """(H,W) int32 in {-1, 0, 1, 2}, nonzero with probability `density`:
+    rect's junction counts only values > 0, poly's every nonzero."""
+    r = np.random.default_rng(seed)
+    vals = r.choice(np.array([-1, 1, 2], np.int32), size=shape)
+    return torch.from_numpy(np.where(r.random(shape) < density, vals, 0)
+                            .astype(np.int32))
+
+
+K3_SHAPES = [(37, 53), (70, 33), (1, 61), (61, 1), (33, 97)]
+
+
+@pytest.mark.parametrize("variant", ["rect", "poly_branch"])
+@pytest.mark.parametrize("shape", K3_SHAPES)
+def test_k3_word_schedule_matches_plain(shape, variant):
+    """csrc/morph.cu's bit-word chain, tiles of 8 rows x 1 and 2 words, is
+    bit-equal to morphology.strings_chain."""
+    for i, density in enumerate((0.1, 0.3, 0.6)):
+        edge = signed_edges(shape, density, seed=40 + i + sum(shape))
+        want = morphology.strings_chain(edge, variant)
+        for tww in (1, 2):
+            got = strings_chain_words(edge, variant, 8, tww)
+            assert torch.equal(got, want), (density, tww)
+
+
+def test_k3_word_schedule_on_chains_across_tiles():
+    """1-px chains, 2-px gaps and crossings that run across tile and word
+    edges: the bridges and the parity masks on structure the random maps
+    rarely make."""
+    h, w = 41, 99
+    e = np.zeros((h, w), np.int32)
+    e[7, 2:97] = 1
+    e[7, 31:33] = 0                      # a 2-px gap across a word edge
+    e[8:40, 64] = 1
+    e[16, 60:70] = 1                     # a crossing on a tile row edge
+    for i in range(30):
+        e[9 + i, 10 + i] = 1             # a diagonal over three tiles
+    e[24, 40:45] = 1
+    e[24, 46:50] = 1                     # a 1-px gap
+    e[30:33, 90:93] = 2
+    e[35, 30:40] = -1                    # rect ignores values <= 0
+    edge = torch.from_numpy(e)
+    for variant in ("rect", "poly_branch"):
+        want = morphology.strings_chain(edge, variant)
+        assert int(want.sum()) > 0
+        for tww in (1, 2):
+            assert torch.equal(strings_chain_words(edge, variant, 8, tww),
+                               want), (variant, tww)
+
+
+def border_bridges(h, w):
+    """poly's 2-reach bridges whose far end lies on the frame's border
+    ring: a chain end of degree 2 one pixel in from the border, a gap,
+    and a chain beyond it.  The bridge closes only while the junction map
+    keeps its border ring at 0."""
+    e = np.zeros((h, w), np.int32)
+    for x in (5, 40):
+        e[0:2, x] = 1
+        e[3:5, x] = 1
+        e[h - 2:h, x + 3] = 1
+        e[h - 5:h - 3, x + 3] = 1
+    for y in (6, 17):
+        e[y, 0:2] = 1
+        e[y, 3:5] = 1
+        e[y + 3, w - 2:w] = 1
+        e[y + 3, w - 5:w - 3] = 1
+    return torch.from_numpy(e)
+
+
+@pytest.mark.parametrize("shape", [(30, 50), (33, 97)])
+def test_k3_word_schedule_at_the_frame_border(shape):
+    """Chains that end on the frame's border ring: the junction's and the
+    connect's interior masks, in frame coordinates, decide the bridges."""
+    edge = border_bridges(*shape)
+    for variant in ("rect", "poly_branch"):
+        want = morphology.strings_chain(edge, variant)
+        for tww in (1, 2):
+            assert torch.equal(strings_chain_words(edge, variant, 8, tww),
+                               want), (variant, tww)
+
+
+# ---- quant_despeckle (csrc/quant_despeckle.cu): the window schedule -----
+
+# window rows and columns of a th x tw tile: the tile and a one-pixel halo
+def qd_window(th, tw):
+    return th + 2, tw + 2
+
+
+# the most levels a channel may have for the per-block code table
+QD_MAX_LEVELS = 255
+
+
+def quantize_by_table(win_p, n0, n1, n2):
+    """The kernel's quantizer: each channel's level floor(v n + 1/2) by
+    one fused multiply-add, its code from a table of floor(k / n 2^bits)
+    over 0 <= k <= n; channels of more than QD_MAX_LEVELS levels or fewer
+    than 0 divide per pixel, as the plain version does."""
+    ns = (n0, n1, n2)
+    if max(ns) > QD_MAX_LEVELS or min(ns) < 0:
+        return regions.quantize_packed(win_p, n0, n1, n2)
+    lab = regions.color.unpack_labf(win_p)
+    code = torch.zeros(win_p.shape, dtype=torch.int64)
+    for ch, (n, size, shift) in enumerate(zip(ns, (4096, 1024, 1024),
+                                              (0, 12, 22))):
+        k = torch.floor(fp.fma(lab[..., ch], float(n), 0.5)).long()
+        q = torch.arange(n + 1, dtype=torch.float32) / torch.tensor(
+            float(n), dtype=torch.float32)
+        table = torch.floor(q * size).clamp(0, size - 1).long() << shift
+        code |= table[k]
+    return ((code + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def quant_despeckle_windows(packed, emag, n0, n1, n2, th=8, tw=8):
+    """csrc/quant_despeckle.cu's schedule: each tile quantizes its window
+    once, by the code table (out-of-frame pixels marked on-edge, never
+    candidates), then each
+    on-edge pixel scans its 9 window candidates in (dy, dx) order with a
+    strict <, its squared distances from integer lattice differences and
+    its sqrt only where the square is below the best one's."""
+    h, w = packed.shape
+    nty, ntx = -(-h // th), -(-w // tw)
+    wr, wc = qd_window(th, tw)
+    pp = torch.zeros((nty * th + 2, ntx * tw + 2), dtype=torch.int32)
+    ep = torch.ones((nty * th + 2, ntx * tw + 2), dtype=torch.float32)
+    pp[1:1 + h, 1:1 + w] = packed
+    ep[1:1 + h, 1:1 + w] = emag
+    tiles = [(ty, tx) for ty in range(nty) for tx in range(ntx)]
+    # a window row or column the kernel would not load holds stale data:
+    # an off-edge flag and a code no pixel has
+    code = torch.full((len(tiles), th + 2, tw + 2), _STALE, dtype=torch.int32)
+    off = torch.ones((len(tiles), th + 2, tw + 2), dtype=torch.bool)
+    for t, (ty, tx) in enumerate(tiles):
+        win_p = pp[ty * th:ty * th + wr, tx * tw:tx * tw + wc]
+        win_e = ep[ty * th:ty * th + wr, tx * tw:tx * tw + wc]
+        code[t, :wr, :wc] = quantize_by_table(win_p, n0, n1, n2)
+        off[t, :wr, :wc] = ~(win_e >= 1e-6)
+    self_code = code[:, 1:1 + th, 1:1 + tw]
+
+    def lattice(c):
+        c = c.to(torch.int64)
+        return c & 4095, (c >> 12) & 1023, (c >> 22) & 1023
+
+    l0, a0, b0 = lattice(self_code)
+    best = self_code
+    best_s = torch.full(self_code.shape, math.inf, dtype=torch.float32)
+    best_d = torch.full(self_code.shape, 1e10, dtype=torch.float32)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            cand = code[:, 1 + dy:1 + dy + th, 1 + dx:1 + dx + tw]
+            ok = off[:, 1 + dy:1 + dy + th, 1 + dx:1 + dx + tw]
+            cl, ca, cb = lattice(cand)
+            dl, da, db = cl - l0, ca - a0, cb - b0
+            # sq_dist: the plain version's float square in units of 2^-24,
+            # from the integer squares; the sqrt only below the best square
+            sq = ((dl * dl + 16 * da * da).to(torch.float32)
+                  + (16 * db * db).to(torch.float32))
+            take = ok & (sq < best_s)
+            take &= fp.sqrt(sq) < best_d
+            best_d = torch.where(take, fp.sqrt(sq), best_d)
+            best_s = torch.where(take, sq, best_s)
+            best = torch.where(take, cand, best)
+    out_t = torch.where(off[:, 1:1 + th, 1:1 + tw], self_code, best)
+    out = torch.zeros((nty * th, ntx * tw), dtype=torch.int32)
+    for t, (ty, tx) in enumerate(tiles):
+        out[ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw] = out_t[t]
+    return out[:h, :w]
+
+
+def lab_frame(shape, seed):
+    r = np.random.default_rng(seed)
+    h, w = shape
+    return torch.from_numpy(((r.integers(0, 1024, (h, w)) << 22)
+                             | (r.integers(0, 1024, (h, w)) << 12)
+                             | r.integers(0, 4096, (h, w))).astype(np.int32))
+
+
+def edge_magnitudes(shape, share, seed):
+    """Thinned-edge magnitudes: `share` of the pixels >= 1e-6, the rest 0
+    or just below the threshold."""
+    r = np.random.default_rng(seed)
+    on = r.random(shape) < share
+    below = np.where(r.random(shape) < 0.5, 0.0, 9e-7)
+    return torch.from_numpy(np.where(on, r.random(shape) + 1e-6, below)
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES)
+def test_quant_despeckle_window_schedule_matches_plain(shape):
+    """csrc/quant_despeckle.cu's window schedule at 8x8 tiles is bit-equal
+    to regions.quantize_despeckle, at edge shares 0, 0.3 and 1 and level
+    triples (24, 24, 24), (5, 7, 11), (1, 1, 1), the code table at its
+    limit (255), past it (300) and a negative count (-3)."""
+    packed = lab_frame(shape, seed=sum(shape))
+    for i, share in enumerate((0.0, 0.3, 1.0)):
+        emag = edge_magnitudes(shape, share, seed=60 + i)
+        for levels in ((24, 24, 24), (5, 7, 11), (1, 1, 1), (255, 255, 255),
+                       (300, 24, 24), (-3, 24, 24)):
+            want = regions.quantize_despeckle(packed, emag, *levels)
+            got = quant_despeckle_windows(packed, emag, *levels)
+            assert torch.equal(got, want), (share, levels)
+
+
+def test_quant_despeckle_window_schedule_keeps_the_first_tie():
+    """Neighbours at equal distances in every direction and across tile
+    edges: the first in (dy, dx) scan order wins, as in the plain
+    version."""
+    h, w = 19, 21
+    yy, xx = np.mgrid[0:h, 0:w]
+    # on-edge odd rows at L code 1024; the off-edge even rows alternate
+    # 512 and 1536 by column: lattice points of 24 levels (3/24, 6/24,
+    # 9/24), so every neighbour is exactly 0.125 away in L
+    cl = np.where(yy % 2 == 1, 1024, np.where(xx % 2 == 0, 512, 1536))
+    ca = np.full((h, w), 512)
+    cb = np.full((h, w), 512)
+    packed = torch.from_numpy(((cb << 22) | (ca << 12) | cl).astype(np.int32))
+    emag = torch.from_numpy((yy % 2 == 1).astype(np.float32))
+    for levels in ((24, 24, 24), (5, 7, 11)):
+        want = regions.quantize_despeckle(packed, emag, *levels)
+        got = quant_despeckle_windows(packed, emag, *levels)
+        assert torch.equal(got, want), levels
+    # ties are present: some on-edge pixel has two off-edge neighbours at
+    # its least distance with different codes
+    q = regions.quantize_packed(packed, 24, 24, 24)
+    lab = regions.color.unpack_labf(q)
+    ties = 0
+    for y in range(1, h - 1):
+        for x in range(1, w - 1):
+            if emag[y, x] < 1e-6:
+                continue
+            ds = {}
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    if emag[y + dy, x + dx] < 1e-6:
+                        d = lab[y + dy, x + dx] - lab[y, x]
+                        dist = float(fp.sqrt((d[0] * d[0] + d[1] * d[1])
+                                             + d[2] * d[2]))
+                        ds.setdefault(dist, set()).add(int(q[y + dy, x + dx]))
+            if ds and len(ds[min(ds)]) > 1:
+                ties += 1
+    assert ties > 0
+
+
+def test_quant_despeckle_integer_square_is_the_float_square():
+    """sq_dist (csrc/quant_despeckle.cu): the integer lattice squares,
+    summed and rounded as floats, times 2^-24, equal the plain version's
+    float (dl*dl + da*da) + db*db bit for bit, extremes included."""
+    r = np.random.default_rng(5)
+    n = 200_000
+    a = torch.from_numpy(((r.integers(0, 1024, n) << 22)
+                          | (r.integers(0, 1024, n) << 12)
+                          | r.integers(0, 4096, n)).astype(np.int32))
+    b = torch.from_numpy(((r.integers(0, 1024, n) << 22)
+                          | (r.integers(0, 1024, n) << 12)
+                          | r.integers(0, 4096, n)).astype(np.int32))
+    ext = torch.from_numpy(np.array(
+        [0, (1023 << 22) | (1023 << 12) | 4095, (1023 << 22) | 4095,
+         1023 << 12], np.int64).astype(np.int32))
+    a = torch.cat([a, ext.repeat_interleave(4)])
+    b = torch.cat([b, ext.repeat(4)])
+    d = regions.color.unpack_labf(a) - regions.color.unpack_labf(b)
+    want = ((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+            + d[..., 2] * d[..., 2])
+    ia, ib = a.to(torch.int64), b.to(torch.int64)
+    dl = (ia & 4095) - (ib & 4095)
+    da = ((ia >> 12) & 1023) - ((ib >> 12) & 1023)
+    db = ((ia >> 22) & 1023) - ((ib >> 22) & 1023)
+    sq = ((dl * dl + 16 * da * da).to(torch.float32)
+          + (16 * db * db).to(torch.float32))
+    assert torch.equal(sq * 2.0 ** -24, want)
+    assert torch.equal(fp.sqrt(sq) * 2.0 ** -12, fp.sqrt(want))
