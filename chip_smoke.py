@@ -30,13 +30,16 @@ the final line):
      edge_bin, the rect strings, the boundary marks), quant_despeckle's
      on the rect path's blurred colours and thinned edges, and hyp's on
      the 720p hypotheses and the seed-0 corpus; nvcc's -Xptxas -v lines
-     of morph.cu, quant_despeckle.cu, mkpl.cu, links_ccl.cu, ccl.cu and
-     hyp.cu; and, where build/parent/ holds a git archive of the parent
-     commit, the parent's K3 and quant_despeckle kernels held equal to
-     these and timed in turns with them;
+     of thin.cu, despeckle2.cu, morph.cu, quant_despeckle.cu, mkpl.cu,
+     links_ccl.cu, ccl.cu and hyp.cu; K2 in both modes; and, where
+     build/parent/ holds a git archive of the parent commit, the parent's
+     thin and despeckle2 kernels held bit-equal to these and timed in
+     turns with them, and the parent despeckle2's memset, histogram and
+     absorption timed one by one;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after, and the kernel library's own count of kernels
-     held equal to the kernels its wrappers launched:
+     held equal to the kernels its wrappers launched (7 for poly_frame,
+     37 for rect_frame):
      pipeline.poly.poly_frame with DEFAULT_CONFIG
      (held bit for bit against the mkpl_pallas=0 run and against the JAX
      fixture tests/data/poly_720p_synth.npz), pipeline.rect
@@ -94,6 +97,9 @@ POSE_JET_OPS_PER_DIR = 2 * (POSE_VALUE_OPS - 4)
 # integer work counted at this rate stays a lower bound)
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+# kernels per 720p frame of the smoke run by the library's counter
+POLY_FRAME_KERNELS = 7
+RECT_FRAME_KERNELS = 37
 
 
 def fail(msg: str):
@@ -205,47 +211,135 @@ def stream_of(torch):
     return torch.cuda.current_stream().cuda_stream
 
 
+# the parent's despeckle2 part by part, where its csrc/despeckle2.cu is
+# the memset, histogram kernel and absorption kernel version: this source
+# includes the parent's, so its kernels are in reach
+PARENT_DESPECKLE2_PARTS = r"""
+#include "despeckle2.cu"
+
+extern "C" int rd_parent_memset(void* sizes, int n, void* stream) {
+  return (int)cudaMemsetAsync(sizes, 0, sizeof(int) * (size_t)n,
+                              (cudaStream_t)stream);
+}
+
+extern "C" int rd_parent_sizes(const void* label, void* sizes, int n,
+                               void* stream) {
+  sizes_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const int*)label, (int*)sizes, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rd_parent_absorb(const void* label, const void* sizes,
+                                void* out, int h, int w, int thre,
+                                void* stream) {
+  absorb_kernel<<<rd::pixel_grid(h, w), rd::pixel_block(), 0,
+                  (cudaStream_t)stream>>>((const int*)label,
+                                          (const int*)sizes, (int*)out, h, w,
+                                          thre);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def bind_thin(torch, lib):
+    """thin_fn(em, vec, mode) through lib's rd_thin."""
+    import ctypes
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rd_thin.argtypes = [P, P, P, I, I, I, F, P]
+    lib.rd_thin.restype = ctypes.c_int
+
+    def thin_fn(em, vec, mode):
+        h, w = em.shape
+        out = torch.empty_like(em)
+        err = lib.rd_thin(em.data_ptr(), vec.data_ptr(), out.data_ptr(), h,
+                          w, int(mode == "cubic"), 0.99, stream_of(torch))
+        if err:
+            fail(f"rd_thin of {lib._name} did not launch (error {err})")
+        return out
+
+    return thin_fn
+
+
+def bind_despeckle2(torch, lib):
+    """despeckle2_fn(label, thre) through lib's rd_despeckle2."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rd_despeckle2.argtypes = [P, P, P, I, I, I, P]
+    lib.rd_despeckle2.restype = ctypes.c_int
+
+    def despeckle2_fn(label, thre):
+        h, w = label.shape
+        out = torch.empty_like(label)
+        sizes = torch.empty((h * w,), dtype=torch.int32, device=label.device)
+        err = lib.rd_despeckle2(label.data_ptr(), sizes.data_ptr(),
+                                out.data_ptr(), h, w, thre, stream_of(torch))
+        if err:
+            fail(f"rd_despeckle2 of {lib._name} did not launch (error "
+                 f"{err})")
+        return out
+
+    return despeckle2_fn
+
+
 def parent_kernels(torch, build_mod):
-    """The K3 and quant_despeckle kernels of the parent commit, for timing
-    in turns with this tree's: built from build/parent/ (a git archive of
-    the parent, unpacked there by hand; absent from a plain checkout, and
-    then None) into one library with the parent's C signatures and its own
-    launch counter.  Returns (strings_fn(edge, variant),
-    quant_fn(packed, emag, n0, n1, n2))."""
+    """The thin and despeckle2 kernels of the parent commit, for timing in
+    turns with this tree's: built from build/parent/ (a git archive of the
+    parent, unpacked there by hand; absent from a plain checkout, and then
+    None) into one library with the parent's C signatures and its own
+    launch counter.  Returns (thin_fn(em, vec, mode), despeckle2_fn(label,
+    thre), parts): parts maps the parent despeckle2's memset, histogram
+    and absorption to calls of their own (None unless the parent's source
+    has those kernels)."""
     import ctypes
     src = os.path.join(ROOT, "build", "parent", "rectdetect_tpu_torch",
                        "csrc")
     if not os.path.isdir(src):
         return None
+    with open(os.path.join(src, "despeckle2.cu")) as f:
+        split = "absorb_kernel" in f.read()
+    d2 = "despeckle2"
+    if split:
+        d2 = "despeckle2_parts"
+        with open(os.path.join(src, f"{d2}.cu"), "w") as f:
+            f.write(PARENT_DESPECKLE2_PARTS)
     lib = build_kernels(build_mod, src, os.path.join(ROOT, "build", "parent"),
-                        ("morph", "quant_despeckle"))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rd_strings_chain.argtypes = [P, P, P, P, I, I, I, P]
-    lib.rd_strings_chain.restype = ctypes.c_int
-    lib.rd_quant_despeckle.argtypes = [P, P, P, I, I, I, I, I, P]
-    lib.rd_quant_despeckle.restype = ctypes.c_int
+                        ("thin", d2))
+    parts = None
+    if split:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        for name, args in (("rd_parent_memset", [P, I, P]),
+                           ("rd_parent_sizes", [P, P, I, P]),
+                           ("rd_parent_absorb", [P, P, P, I, I, I, P])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_int
 
-    def strings_fn(edge, variant):
-        h, w = edge.shape
-        out_t = torch.empty_like(edge)
-        a, b = torch.empty_like(edge), torch.empty_like(edge)
-        if lib.rd_strings_chain(edge.data_ptr(), out_t.data_ptr(),
-                                a.data_ptr(), b.data_ptr(), h, w,
-                                {"rect": 0, "poly_branch": 1}[variant],
-                                stream_of(torch)):
-            fail("the parent's K3 kernel did not launch")
-        return out_t
+        def check(err, what):
+            if err:
+                fail(f"the parent's {what} did not launch (error {err})")
 
-    def quant_fn(packed, emag, n0, n1, n2):
-        h, w = packed.shape
-        out_t = torch.empty_like(packed)
-        if lib.rd_quant_despeckle(packed.data_ptr(), emag.data_ptr(),
-                                  out_t.data_ptr(), h, w, n0, n1, n2,
-                                  stream_of(torch)):
-            fail("the parent's quant_despeckle kernel did not launch")
-        return out_t
-
-    return strings_fn, quant_fn
+        def parts_for(label, thre):
+            """The three parts on label: the memset and the histogram
+            work on a scratch table of their own, the absorption reads
+            the sizes that one histogram run counted first."""
+            h, w = label.shape
+            s = stream_of(torch)
+            sizes = torch.zeros((h * w,), dtype=torch.int32,
+                                device=label.device)
+            check(lib.rd_parent_sizes(label.data_ptr(), sizes.data_ptr(),
+                                      h * w, s), "histogram kernel")
+            scratch = torch.zeros_like(sizes)
+            out_t = torch.empty_like(label)
+            return {
+                "memset": lambda: check(lib.rd_parent_memset(
+                    scratch.data_ptr(), h * w, s), "memset"),
+                "sizes_kernel": lambda: check(lib.rd_parent_sizes(
+                    label.data_ptr(), scratch.data_ptr(), h * w, s),
+                    "histogram kernel"),
+                "absorb_kernel": lambda: check(lib.rd_parent_absorb(
+                    label.data_ptr(), sizes.data_ptr(), out_t.data_ptr(), h,
+                    w, thre, s), "absorption kernel")}
+        parts = parts_for
+    return bind_thin(torch, lib), bind_despeckle2(torch, lib), parts
 
 
 def main() -> int:
@@ -460,17 +554,18 @@ def main() -> int:
            nb(comp.idx) + 8 * n_live + 2 * 13 * 4 * cap + nb(got[1]),
            20 * rounds * n_live)
 
-    # the redesigned kernels (csrc/morph.cu, csrc/quant_despeckle.cu,
-    # csrc/mkpl.cu, csrc/links_ccl.cu, csrc/ccl.cu, csrc/hyp.cu): their
-    # registers and spills; mkpl's device time at 0, 1 and all rounds (the
-    # fixed cost and the cost per round); K3 and quant_despeckle timed in
-    # turns with the parent commit's kernels where they were brought along
-    # (build/parent/)
+    # the redesigned kernels (csrc/thin.cu, csrc/despeckle2.cu,
+    # csrc/morph.cu, csrc/quant_despeckle.cu, csrc/mkpl.cu,
+    # csrc/links_ccl.cu, csrc/ccl.cu, csrc/hyp.cu): their registers and
+    # spills; mkpl's device time at 0, 1 and all rounds (the fixed cost and
+    # the cost per round); thin and despeckle2 timed in turns with the
+    # parent commit's kernels where they were brought along (build/parent/)
     parent = parent_kernels(torch, _build)
     redesign = {"card": card, "ptxas": {
         k: ptxas_lines(_build.ptxas_log.get(k, "not rebuilt in this run"))
-        for k in ("morph.cu", "quant_despeckle.cu", "mkpl.cu",
-                  "links_ccl.cu", "ccl.cu", "hyp.cu")}}
+        for k in ("thin.cu", "despeckle2.cu", "morph.cu",
+                  "quant_despeckle.cu", "mkpl.cu", "links_ccl.cu", "ccl.cu",
+                  "hyp.cu")}}
     for k, lines in redesign["ptxas"].items():
         for line in lines:
             phase(f"phase 3 ptxas {k}: {line}")
@@ -486,6 +581,31 @@ def main() -> int:
             out["wrapper_ms"].append(cuda_ms(torch, call, 10))
         return out
 
+    # K2 in both modes: within FLOAT_ATOL of the plain version with
+    # edge_thin > 0 equal, bit-equal to the parent's kernel, in turns
+    redesign["thin"] = {}
+    for mode in ("thres", "cubic"):
+        def call(mode=mode):
+            return hopper_thin.thinthres(em, vec, mode)
+        got = call()
+        want = hopper_thin.thin_plain(em, vec, mode)
+        err_m = (got - want).abs().max().item()
+        entry = {"max_abs_err": err_m,
+                 "edge_thin_differ": int(((got > 0) != (want > 0)).sum()),
+                 "bits_differ_from_plain": int((got != want).sum())}
+        if not err_m <= FLOAT_ATOL or entry["edge_thin_differ"]:
+            fail(f"thinthres[{mode}] differs from the plain version: "
+                 f"{entry}")
+        if parent is not None:
+            def parent_call(mode=mode):
+                return parent[0](em, vec, mode)
+            if not torch.equal(parent_call(), got):
+                fail(f"thinthres[{mode}]: the parent's kernel differs")
+            entry["parent_bit_equal"] = True
+            entry["parent_turns"] = in_turns(call, parent_call)
+        redesign["thin"][mode] = entry
+        phase(f"phase 3 thinthres[{mode}]: {json.dumps(entry)}")
+
     split = {
         f"rounds {iters - 1}": device_ms(
             torch, _build, lambda: hopper_mkpl.mkpl_subdivide(
@@ -495,7 +615,7 @@ def main() -> int:
     phase(f"phase 3 mkpl device ms per call by rounds (CUDA events, 10 "
           f"back-to-back calls, 3 turns): {json.dumps(split)}")
 
-    # K3 on each variant's own input, in turns with the parent's kernel
+    # K3 on each variant's own input
     redesign["strings_chain_inputs"] = {}
     for variant, pix in k3_inputs.items():
         def call(pix=pix, variant=variant):
@@ -506,12 +626,6 @@ def main() -> int:
                  f"the library's counter, not {hopper_morph.KERNELS}")
         entry = {"edge_pixels": int((pix != 0).sum()), "device_ms": times,
                  "bound_ms": 2 * nb(pix) / HBM_BYTES_PER_S * 1e3}
-        if parent is not None:
-            def parent_call(pix=pix, variant=variant):
-                return parent[0](pix, variant)
-            if not torch.equal(parent_call(), call()):
-                fail(f"strings_chain[{variant}]: the parent's kernel differs")
-            entry["parent_turns"] = in_turns(call, parent_call)
         redesign["strings_chain_inputs"][variant] = entry
         phase(f"phase 3 strings_chain[{variant}]: {json.dumps(entry)}")
 
@@ -607,18 +721,8 @@ def main() -> int:
            nb(blurred, fe.edge_thin, despeck), 15 * H * W,
            kernels=hopper_quant.KERNELS)
 
-    # quant_despeckle in turns with the parent's kernel
-    def quant_call():
-        return hopper_quant.quantize_despeckle(blurred, fe.edge_thin, n, n, n)
-    entry = {"on_edge": int((fe.edge_thin >= 1e-6).sum())}
-    if parent is not None:
-        def parent_call():
-            return parent[1](blurred, fe.edge_thin, n, n, n)
-        if not torch.equal(parent_call(), despeck):
-            fail("quant_despeckle: the parent's kernel differs")
-        entry["parent_turns"] = in_turns(quant_call, parent_call)
-    redesign["quant_despeckle"] = entry
-    phase(f"phase 3 quant_despeckle: {json.dumps(entry)}")
+    redesign["quant_despeckle"] = {
+        "on_edge": int((fe.edge_thin >= 1e-6).sum())}
 
     # the region merge's kernels on the maps the rect path gives them
     mask = hopper_merge_mask.junction_merge_mask(strong)
@@ -663,7 +767,27 @@ def main() -> int:
            "rectdetect_tpu/ops/pallas_morph.py:597", 0.0,
            lambda: hopper_despeckle2.sizes_despeckle2(seg0, thre2),
            cuda_ms(torch, lambda: regions.sizes_despeckle2(seg0, thre2), 3),
-           nb(seg0, seg), 2 * H * W, kernels=2)
+           nb(seg0, seg), 2 * H * W, kernels=hopper_despeckle2.KERNELS)
+
+    # despeckle2 in turns with the parent's kernels, bit-equal to them, and
+    # the parent's three parts (memset, histogram, absorption) one by one
+    def d2_call():
+        return hopper_despeckle2.sizes_despeckle2(seg0, thre2)
+    entry = {"regions": int(torch.unique(seg0).numel()),
+             "absorbed": int((seg != seg0).sum())}
+    if parent is not None:
+        def parent_call():
+            return parent[1](seg0, thre2)
+        if not torch.equal(parent_call(), seg):
+            fail("despeckle2: the parent's kernels differ")
+        entry["parent_bit_equal"] = True
+        entry["parent_turns"] = in_turns(d2_call, parent_call)
+        if parent[2] is not None:
+            entry["parent_parts_device_ms"] = {
+                name: device_ms(torch, _build, fn)[0]
+                for name, fn in parent[2](seg0, thre2).items()}
+    redesign["despeckle2"] = entry
+    phase(f"phase 3 despeckle2: {json.dumps(entry)}")
 
     boundary, _ = boundary_labels(seg, cfg)
     bids = hopper_bids.distinct_bids(boundary)
@@ -840,7 +964,9 @@ def main() -> int:
                 "pose": hopper_pose}
     launches = {}
 
-    def drive(path, names, fn):
+    def drive(path, names, fn, kernels_per_run=None):
+        """fn() with the counts set to 0 just before it and read just
+        after; kernels_per_run: the library's count the path must make."""
         torch.cuda.synchronize()
         for mod in counters.values():
             mod.launches = 0
@@ -860,12 +986,15 @@ def main() -> int:
         if kernels != want:
             fail(f"{path} launched {kernels} kernels by the library's "
                  f"counter, not the {want} its wrappers launched")
+        if kernels_per_run is not None and kernels != kernels_per_run:
+            fail(f"{path} launched {kernels} kernels by the library's "
+                 f"counter, not {kernels_per_run}")
         launches.update({k: counts[k] for k in names})
         return out
 
     front = ["edge_front", "thinthres", "strings_chain", "label_components"]
     arena, lsid = drive("poly_frame", front + ["mkpl"],
-                        lambda: poly_frame(bgr, cfg))
+                        lambda: poly_frame(bgr, cfg), POLY_FRAME_KERNELS)
     arena2, lsid2 = poly_frame(bgr, cfg)
     arena_p, lsid_p = poly_frame(bgr, PipelineConfig(mkpl_pallas=0))
     torch.cuda.synchronize()
@@ -989,7 +1118,7 @@ def main() -> int:
         fail("rect_hypotheses differs from the JAX fixture")
 
     res = drive("rect_frame", list(counters),
-                lambda: rect_frame(bgr, TAN_AOV, cfg))
+                lambda: rect_frame(bgr, TAN_AOV, cfg), RECT_FRAME_KERNELS)
     once = {k: launches[k] for k in ("hyp", "pose")}
     if once != {"hyp": 1, "pose": 1}:
         fail(f"rect_frame launched hyp and pose {once} times, not once each")

@@ -3,16 +3,27 @@
 compile-time constants, in turns, on the 720p inputs of
 bench.synth_frame(720, 1280, seed=0).
 
-    python3 kernel_sweep.py [hyp] [morph] [quant]
+    python3 kernel_sweep.py [hyp] [morph] [quant] [thin] [despeckle2]
+                            [thin-phases] [despeckle2-phases]
 
-(all three without an argument).  hyp: hyp.cu at 1, 2, 4 and 8 threads
+(all seven without an argument).  hyp: hyp.cu at 1, 2, 4 and 8 threads
 per hull candidate (kLanes), on the 720p hypotheses and the seed-0
 384-group corpus.  morph: morph.cu's output tile (kTileRows rows x
 kTileWords 32-pixel words), poly_branch on the poly path's
 strength-filtered edges and rect on the rect path's edge_bin.  quant:
 quant_despeckle.cu's tile rows and rows per pass, and its level-code
 table switched off (kMaxLevels = 0: one division per channel and pixel),
-on the rect path's blurred colours and thinned edges.
+on the rect path's blurred colours and thinned edges.  thin: thin.cu's
+output tile (kTileCols x kTileRows pixels, kRowsPerPass rows of threads)
+in both modes on the 720p edge magnitude and vectors, each build held
+bit-equal to the shipped kernel (which chip_smoke.py holds to the plain
+version).  despeckle2: despeckle2.cu's tile rows, rows per pass and table
+size (2^kSlotBits slots) on the rect path's 720p region labels.
+thin-phases and despeckle2-phases: the shipped kernel beside copies that
+return at the end of each of its phases (CUTS; `if (h > 0) return;`
+before the phase's first line, so nothing before it is dead code), on
+the same inputs; a cut copy's output is not the function's and is not
+checked.
 
 Run from the root of a checkout, on a machine with one CUDA card and nvcc.
 Each setting is a copy of csrc/ under build/kernel_sweep/<kernel>/<n>/
@@ -40,6 +51,19 @@ from concurrent.futures import ThreadPoolExecutor
 import chip_smoke
 from chip_smoke import ROOT, fail
 
+# where a cut copy returns: (stem, name) -> the source line it returns
+# before
+CUTS = {
+    ("thin", "launch"): "  const int x0 = blockIdx.x * kTileCols;",
+    ("thin", "window"):
+        "#pragma unroll\n  for (int i = tid; i < kWinRows * kCells",
+    ("thin", "window, cells"): "  const int x = x0 + threadIdx.x;",
+    ("despeckle2", "launch"): "  const cg::grid_group grid = cg::this_grid();",
+    ("despeckle2", "A"): "  grid.sync();\n\n  // B:",
+    ("despeckle2", "A, barrier"): "  // B: the counts added",
+    ("despeckle2", "A, barrier, B, barrier"): "  // C: the absorption",
+}
+
 SWEEPS = {
     "hyp": ("hyp", [{"kLanes": n} for n in (4, 1, 2, 8)]),
     "morph": ("morph", [{"kTileRows": r, "kTileWords": w} for r, w in (
@@ -48,11 +72,22 @@ SWEEPS = {
         {"kTileRows": r, "kRowsPerPass": p} for r, p in (
             (16, 8), (32, 8), (32, 16), (8, 8), (16, 4), (16, 16))]
         + [{"kMaxLevels": 0}]),
+    "thin": ("thin", [
+        {"kTileCols": c, "kTileRows": r, "kRowsPerPass": p} for c, r, p in (
+            (32, 16, 8), (32, 8, 8), (32, 32, 8), (32, 16, 4), (32, 32, 16),
+            (64, 16, 4), (64, 8, 8), (64, 16, 8))]),
+    "despeckle2": ("despeckle2", [
+        {"kTileRows": r, "kRowsPerPass": p, "kSlotBits": b} for r, p, b in (
+            (64, 8, 7), (32, 8, 6), (32, 4, 6), (64, 8, 6), (64, 4, 7),
+            (64, 16, 7), (128, 8, 7), (128, 16, 7))]),
 }
+for _stem in ("thin", "despeckle2"):
+    SWEEPS[f"{_stem}-phases"] = (_stem, [{}] + [
+        {"cut": name} for (stem, name) in CUTS if stem == _stem])
 
 
 def label(setting: dict) -> str:
-    return " ".join(f"{k}={v}" for k, v in setting.items())
+    return " ".join(f"{k}={v}" for k, v in setting.items()) or "shipped"
 
 
 def build_at(build_mod, kernel, n, setting):
@@ -67,6 +102,13 @@ def build_at(build_mod, kernel, n, setting):
     with open(path) as f:
         text = f.read()
     for name, value in setting.items():
+        if name == "cut":
+            marker = CUTS[stem, value]
+            if text.count(marker) != 1:
+                fail(f"{stem}.cu does not hold the line of cut {value!r} "
+                     f"once")
+            text = text.replace(marker, "  if (h > 0) return;\n" + marker)
+            continue
         text, count = re.subn(rf"constexpr int {name} = \d+;",
                               f"constexpr int {name} = {value};", text)
         if count != 1:
@@ -151,9 +193,12 @@ def main() -> int:
     from rectdetect_tpu_torch.config import DEFAULT_CONFIG as cfg
     from rectdetect_tpu_torch.geometry import quad
     from rectdetect_tpu_torch.ops import (_build, ccl, fp, hopper_blblur,
-                                          hopper_ccl, morphology, regions)
+                                          hopper_ccl, hopper_grad,
+                                          hopper_links, hopper_merge_mask,
+                                          hopper_thin, morphology, regions)
     from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
     from rectdetect_tpu_torch.pipeline.rect import (rect_hypotheses,
+                                                    region_smoothing,
                                                     weak_strong_labels)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -205,16 +250,37 @@ def main() -> int:
                 regions.quantize_despeckle(blurred, fe.edge_thin, q, q, q))},
             lambda torch, a, b: torch.equal(a, b))
 
+    if "thin" in kernels or "thin-phases" in kernels:
+        em, vec = hopper_grad.edge_front(fe.labb)
+        inputs["thin"] = (chip_smoke.bind_thin, {
+            f"{mode}, 720p em and vec": (
+                lambda fn, m=mode: fn(em, vec, m),
+                hopper_thin.thinthres(em, vec, mode))
+            for mode in ("thres", "cubic")},
+            lambda torch, a, b: torch.equal(a, b))
+    if "despeckle2" in kernels or "despeckle2-phases" in kernels:
+        weak, strong = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
+        despeck = region_smoothing(fe.packed0, weak, fe.edge_thin, cfg)[1]
+        seg0 = hopper_links.label_merge(
+            despeck, hopper_merge_mask.junction_merge_mask(strong), strong)
+        thre = cfg.despeckle2_thre
+        inputs["despeckle2"] = (chip_smoke.bind_despeckle2, {
+            "720p region labels": (
+                lambda fn: fn(seg0, thre),
+                regions.sizes_despeckle2(seg0, thre))},
+            lambda torch, a, b: torch.equal(a, b))
+
     result = {"card": smi.stdout.strip()}
     for kernel in kernels:
-        entry, cases, same = inputs[kernel]
+        entry, cases, same = inputs[kernel.removesuffix("-phases")]
         settings = SWEEPS[kernel][1]
         fns = {n: (entry(torch, built[kernel, n][0]), built[kernel, n][1])
                for n in range(len(settings))}
         result[kernel] = {}
         for name, (call, want) in cases.items():
             for n, (fn, _) in fns.items():
-                if not same(torch, call(fn), want):
+                if "cut" not in settings[n] and not same(torch, call(fn),
+                                                         want):
                     fail(f"{kernel} at {label(settings[n])} on {name} "
                          f"differs from the plain version")
             sweep = {n: [] for n in fns}

@@ -1,7 +1,8 @@
 // The library's own count of kernel launches.  Every rd_* entry point adds
-// one for each kernel it launches, by <<<>>> or by cudaLaunchKernelEx,
-// and rd_launch_count reads the total, so a caller can check the launches
-// of a run exactly, without a profiler (chip_smoke.py does).
+// one for each kernel it launches, by <<<>>>, cudaLaunchKernelEx or
+// cudaLaunchCooperativeKernel, and rd_launch_count reads the total, so a
+// caller can check the launches of a run exactly, without a profiler
+// (chip_smoke.py does).
 
 #include <atomic>
 

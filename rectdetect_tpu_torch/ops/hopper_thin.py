@@ -2,10 +2,13 @@
 
 Replaces the TPU kernel rectdetect_tpu/ops/pallas_thin.py:_thin_kernel
 (thinthres_pallas, and thincubic_pallas through `mode="cubic"`).  CUDA
-source: csrc/thin.cu, one thread per pixel with real gathers: the 64 taps
-of its four samples lie within +-4 px and come from L1/L2, so the kernel
-is bound by load latency rather than bandwidth; the TPU's 64 pre-rolled
-copies are not needed.
+source: csrc/thin.cu: each block stages its tile's em window (the tile and
+the taps' reach, -3..+4, mirrored at the frame border) in shared memory
+once, computes the fraction-free part of bicubicSub once per window cell,
+and each pixel's four samples read their cells from there at tile-local
+offsets; the TPU's 64 pre-rolled copies are not needed.  Its bound is
+device memory (16 B per pixel), its time is set by the float work and the
+shared-memory reads of the taps.
 
 `thinthres` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; there is no other path.
@@ -40,6 +43,9 @@ def thinthres(em: torch.Tensor, vec: torch.Tensor, mode: str = "thres",
     h, w = em.shape
     _build.check(em, "em", torch.float32, (h, w))
     _build.check(vec, "vec", torch.float32, (h, w, 2))
+    if vec.data_ptr() % 8:
+        raise ValueError("vec: the kernel reads it as float2, so it must be "
+                         "8-byte aligned")
     if h < 5 or w < 5:
         raise ValueError(f"thinning needs a frame of at least 5x5, got {h}x{w}")
     out = torch.empty_like(em)

@@ -24,8 +24,11 @@ equal to the plain version at every fused round count it compiles, and
 the pose kernel bit for bit (NaN in the same places).  The mkpl and links
 kernels are held bit-equal on arenas whose arc numbers repeat or skip and
 on frames of one region; K3 (both variants) and quant_despeckle bit-equal
-from 1x1 to 720x1280; launches are read from the kernel library's own
-counter (`_build.launch_count`).
+from 1x1 to 720x1280; K2 in both modes from 5x5 to 33x1281 within ATOL
+with edge_thin > 0 equal; despeckle2 equal on maps of one label a pixel
+(the tables spill) and of one region (every tile adds to one size) up to
+720x1280; launches are read from the kernel library's own counter
+(`_build.launch_count`).
 """
 
 import math
@@ -176,6 +179,84 @@ def test_quant_despeckle_kernel_matches_plain_at_odd_sizes(h, w):
             want = regions.quantize_despeckle(packed, emag, *levels)
             assert torch.equal(got.cpu(), want), (share, levels)
 
+
+
+def _thin_inputs(h, w, seed):
+    """Edge magnitudes with plateaus, and unit vectors of random
+    directions beside zero vectors and exact axis-aligned ones, where the
+    sample position truncates on an integer."""
+    r = np.random.default_rng(seed)
+    em = r.random((h, w)).astype(np.float32)
+    em[r.random((h, w)) < 0.2] = 0.5
+    ang = r.random((h, w)) * 2 * np.pi
+    vec = np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
+    kind = r.integers(0, 4, (h, w))
+    vec[kind == 1] = 0.0
+    axis = np.array([[1, 0], [-1, 0], [0, 1], [0, -1]], np.float32)
+    vec[kind == 2] = axis[r.integers(0, 4, int((kind == 2).sum()))]
+    return torch.from_numpy(em), torch.from_numpy(vec)
+
+
+@pytest.mark.parametrize("h,w", [(5, 5), (7, 9), (13, 31), (37, 53),
+                                 (70, 33), (33, 1281)])
+def test_thin_kernel_matches_plain_at_odd_sizes(h, w):
+    """K2 in both modes on frames smaller than one 16x32 tile and on odd
+    sizes: the parent kernel's formula, op for op, so within ATOL of
+    thin_plain (whose float64 multiply-add emulation may round twice on
+    a tie) and edge_thin > 0 equal; one kernel per call."""
+    _need_card()
+    em, vec = _thin_inputs(h, w, seed=h * 31 + w)
+    for mode in ("thres", "cubic"):
+        n0 = _build.launch_count()
+        got = hopper_thin.thinthres(em.cuda(), vec.cuda(), mode=mode)
+        torch.cuda.synchronize()
+        assert _build.launch_count() == n0 + 1
+        want = hopper_thin.thin_plain(em, vec, mode=mode)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=ATOL)
+        assert torch.equal(got.cpu() > 0, want > 0), mode
+    # the kernel reads vec as float2: a 4-byte offset raises
+    flat = torch.zeros(h * w * 2 + 1, device="cuda")
+    with pytest.raises(ValueError):
+        hopper_thin.thinthres(em.cuda(), flat[1:].view(h, w, 2))
+
+
+def _despeckle2_maps(h, w, seed):
+    """Label maps: every pixel its own label (more distinct labels a tile
+    than its table holds), 2x2 blocks, regions of exactly thre and
+    thre + 1 pixels, one region over the whole frame, and a few labels
+    out of [0, h*w) (the size index is clamped)."""
+    r = np.random.default_rng(seed)
+    n = h * w
+    flat = np.arange(n, dtype=np.int32).reshape(h, w)
+    yy, xx = np.mgrid[0:h, 0:w]
+    blocks = flat[yy - yy % 2, xx - xx % 2]
+    runs = flat[yy, xx - xx % 4]        # 1x4 runs of 4 pixels
+    strips = np.where(r.random((h, w)) < 0.5, runs, blocks)
+    odd = r.integers(0, 3, (h, w)).astype(np.int32) * (n // 3)
+    odd[r.random((h, w)) < 0.05] = -5
+    odd[r.random((h, w)) < 0.05] = n + 3
+    return [torch.from_numpy(np.ascontiguousarray(m)) for m in (
+        flat, blocks, strips, np.zeros((h, w), np.int32), odd)]
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 61), (61, 1), (37, 53),
+                                 (33, 1281), (720, 1280)])
+def test_despeckle2_kernel_matches_plain(h, w):
+    """despeckle2 equal to regions.sizes_despeckle2 at thre 16, 4 and 3
+    (regions of 4 pixels are just small enough, then just too large), on
+    maps with far more labels a tile than its table holds (the spill
+    path) and on one region over the whole frame (every tile adds to one
+    size); one kernel per call."""
+    _need_card()
+    for i, lbl in enumerate(_despeckle2_maps(h, w, seed=h + w)):
+        for thre in (16, 4, 3):
+            n0 = _build.launch_count()
+            got = hopper_despeckle2.sizes_despeckle2(lbl.cuda(), thre)
+            torch.cuda.synchronize()
+            assert (_build.launch_count() == n0 + hopper_despeckle2.KERNELS
+                    == n0 + 1)
+            want = regions.sizes_despeckle2(lbl, thre)
+            assert torch.equal(got.cpu(), want), (i, thre)
 
 def _walks(h, w, seed=3):
     """1-px chains: 8-connected random walks over sparse noise."""

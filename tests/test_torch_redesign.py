@@ -11,21 +11,26 @@ walk and picks (csrc/hyp.cu: compacted endpoints, pair tests split over
 lanes with the sqrt only past the perpendicular bound, first maxima by
 order keys, the picks by bit masks), K3's chain on 32-pixel bit words
 (csrc/morph.cu: shift-and-carry neighbours, bit-sliced counts, windows
-that shrink stage by stage, parity masks) and quant_despeckle's window
+that shrink stage by stage, parity masks), quant_despeckle's window
 (csrc/quant_despeckle.cu: one quantization per window pixel through a
 level-code table, integer squared distances, the sqrt only below the
-best square).
+best square), K2 thin's tiles (csrc/thin.cu: a mirrored em window, the
+fraction-free part of bicubicSub once per window cell, taps at
+tile-local indices) and despeckle2's one launch (csrc/despeckle2.cu:
+per-tile tables of runs of equal labels with a spill path, sizes zeroed
+and added through them, the absorption from each run's slot).
 
 The plain versions (ops/regions.py:blblur, label_merge and
 quantize_despeckle, geometry/pose.py, ops/mkpl.py:mkpl_subdivide,
-ops/ccl.py, ops/morphology.py:strings_chain, geometry/quad.py) are held
+ops/ccl.py, ops/morphology.py:strings_chain, geometry/quad.py,
+ops/thin.py, ops/regions.py:sizes_despeckle2) are held
 to the JAX package by tests/test_torch_regions.py,
 tests/test_torch_rect.py, tests/test_torch_hypotheses.py,
-tests/test_torch_morph_ccl.py and tests/test_torch_polyline.py; these
-tests compile no JAX.  Everything here must be bit-equal: blblur, the
-CCL and K3 are integer arithmetic, and the pose, mkpl and
-quant_despeckle schedules round the same float operations in the same
-order.
+tests/test_torch_morph_ccl.py, tests/test_torch_polyline.py and
+tests/test_torch_frontend.py; these tests compile no JAX.  Everything
+here must be bit-equal: blblur, the CCL, K3 and despeckle2 are integer
+arithmetic, and the pose, mkpl, quant_despeckle and thin schedules round
+the same float operations in the same order.
 """
 
 import math
@@ -37,7 +42,8 @@ import torch
 from rectdetect_tpu_torch import parity
 from rectdetect_tpu_torch.config import PipelineConfig
 from rectdetect_tpu_torch.geometry import pose, quad
-from rectdetect_tpu_torch.ops import fp, mkpl, morphology, polyline, regions
+from rectdetect_tpu_torch.ops import (fp, mkpl, morphology, polyline, regions,
+                                      thin)
 from rectdetect_tpu_torch.ops.ccl import label_components_plain
 from rectdetect_tpu_torch.ops.regions import _coord_maps
 from rectdetect_tpu_torch.ops.shifts import pad2d, shifted
@@ -1479,3 +1485,300 @@ def test_quant_despeckle_integer_square_is_the_float_square():
           + (16 * db * db).to(torch.float32))
     assert torch.equal(sq * 2.0 ** -24, want)
     assert torch.equal(fp.sqrt(sq) * 2.0 ** -12, fp.sqrt(want))
+
+
+# ---- K2 thin (csrc/thin.cu): the tiled window of bicubic cells ----------
+
+# tap offsets of a sample span -THIN_HALO[0]..+THIN_HALO[1] around its pixel
+THIN_HALO = (3, 4)
+# a window cell nothing writes
+_STALE_F = 1.0e3
+
+
+def _window_index(i: torch.Tensor, n: int) -> torch.Tensor:
+    """Reflect-101, clamped into [0, n)."""
+    m = torch.where(i < 0, -i, torch.where(i >= n, 2 * n - 2 - i, i))
+    return m.clamp(0, n - 1)
+
+
+def _cell(p0, p1, p2, p3):
+    """(A, B, C, p1): the fraction-free part of bicubicSub."""
+    v = p1 - p2
+    w = p3 - p0
+    return fp.fma(v, 3.0, w), fp.fma(-4.0, v, p0 - p1 - w), p2 - p0, p1
+
+
+def _finish(a, b, c, p1, x):
+    u = fp.fma(a, x, b)
+    u = fp.fma(u, x, c)
+    return u * x * 0.5 + p1
+
+
+def thin_tiled(em: torch.Tensor, vec: torch.Tensor, mode: str, th: int,
+               tw: int, slack: float = 0.99) -> torch.Tensor:
+    """csrc/thin.cu's schedule: each th x tw tile loads its mirrored em
+    window (rows and columns [tile - 3, tile + 4]) into a flat array of
+    pitch tw + 7, computes the cells (A, B, C, p1) of every run of 4
+    window columns, and each pixel's sample reads its 4 cells at
+    tile-local indices (a cell past the window reads what the flat arrays
+    hold there) and finishes them with its fraction."""
+    lo, hi = THIN_HALO
+    h, w = em.shape
+    wr, wc = th + lo + hi, tw + lo + hi
+    nc = wc - 3
+    out = torch.zeros_like(em)
+    for y0 in range(0, h, th):
+        for x0 in range(0, w, tw):
+            rows = _window_index(torch.arange(wr) + y0 - lo, h)
+            cols = _window_index(torch.arange(wc) + x0 - lo, w)
+            flat = torch.full((wr * wc + 8,), _STALE_F)
+            flat[:wr * wc] = em[rows][:, cols].reshape(-1)
+            start = (torch.arange(wr)[:, None] * wc
+                     + torch.arange(nc)[None, :]).reshape(-1)
+            cells = [torch.full((wr * nc + 8 * nc,), _STALE_F)
+                     for _ in range(4)]
+            for c, val in zip(cells, _cell(*(flat[start + i]
+                                             for i in range(4)))):
+                c[:wr * nc] = val
+            yy, xx = torch.meshgrid(torch.arange(y0, min(y0 + th, h)),
+                                    torch.arange(x0, min(x0 + tw, w)),
+                                    indexing="ij")
+            vx, vy = vec[yy, xx, 0], vec[yy, xx, 1]
+            base = (yy - y0 + lo) * nc + (xx - x0 + lo)
+
+            def sample(k, kr):
+                fdx, fx = thin._int_frac(k * vx, xx.float(), xx.int())
+                fdy, fy = thin._int_frac(k * vy, yy.float(), yy.int())
+                ok = lambda d: (d >= -kr) & (d <= kr)  # noqa: E731
+                fdx = torch.where(ok(fdx), fdx, -kr).long()
+                fdy = torch.where(ok(fdy), fdy, -kr).long()
+                t = base + (fdy - 1) * nc + (fdx - 1)
+                r = [_finish(*(c[t + j * nc] for c in cells), fx)
+                     for j in range(4)]
+                return _finish(*_cell(*r), fy)
+
+            am2, am1 = sample(-2.0, 2), sample(-1.0, 1)
+            ap1, ap2 = sample(1.0, 1), sample(2.0, 2)
+            a0 = flat[(yy - y0 + lo) * wc + (xx - x0 + lo)]
+            if mode == "cubic":
+                keep = ((am2 * slack <= a0) & (am1 * slack <= a0)
+                        & (a0 >= ap1 * slack) & (a0 >= ap2 * slack))
+            else:
+                keep = (am1 <= a0) & (a0 >= ap1)
+            out[yy, xx] = torch.where(keep, am2 + am1 + a0 + ap1 + ap2,
+                                      torch.zeros_like(a0))
+    return out
+
+
+def thin_inputs(shape, seed):
+    """Edge magnitudes with plateaus; unit vectors of random directions
+    beside zero vectors and exactly axis-aligned ones (the sample
+    position truncates on an integer) and diagonals."""
+    r = np.random.default_rng(seed)
+    h, w = shape
+    em = r.random((h, w)).astype(np.float32)
+    em[r.random((h, w)) < 0.2] = 0.5
+    ang = r.random((h, w)) * 2 * np.pi
+    vec = np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
+    kind = r.integers(0, 4, (h, w))
+    vec[kind == 1] = 0.0
+    axis = np.array([[1, 0], [-1, 0], [0, 1], [0, -1]], np.float32)
+    vec[kind == 2] = axis[r.integers(0, 4, int((kind == 2).sum()))]
+    diag = np.float32(np.sqrt(0.5)) * np.array(
+        [[1, 1], [-1, 1], [1, -1], [-1, -1]], np.float32)
+    vec[kind == 3] = diag[r.integers(0, 4, int((kind == 3).sum()))]
+    return torch.from_numpy(em), torch.from_numpy(vec)
+
+
+@pytest.mark.parametrize("tile", [(16, 32), (4, 8)])
+@pytest.mark.parametrize("shape", [(5, 5), (37, 53), (9, 20), (70, 33)])
+def test_thin_tiled_schedule_matches_plain(shape, tile):
+    """csrc/thin.cu's cells, bit-equal to thin.thinthres and thincubic in
+    both modes: at the kernel's 16 x 32 tiles and at 4 x 8 tiles (every
+    tile edge inside the frame), on the wrapper's smallest frame (5 x 5),
+    frames narrower than a tile and tiles straddling every border, with
+    zero, axis-aligned and diagonal vectors.  Fails with the halo one row
+    or column short on either side (THIN_HALO (2, 4) or (3, 3))."""
+    em, vec = thin_inputs(shape, seed=sum(shape))
+    for mode, plain in (("thres", thin.thinthres), ("cubic", thin.thincubic)):
+        want = plain(em, vec)
+        assert torch.equal(thin_tiled(em, vec, mode, *tile), want), mode
+
+
+# ---- despeckle2 (csrc/despeckle2.cu): tile tables and one launch --------
+
+# the kernel's tile (rows x columns, a column a lane), table size and
+# probe limit
+D2_TILE = (64, 32)
+D2_SLOT_BITS = 7
+D2_MAX_PROBES = 8
+
+
+def _d2_slot(label: int, bits: int) -> int:
+    return ((label * 2654435761) & 0xFFFFFFFF) >> (32 - bits)
+
+
+def _d2_count_tile(lab, n, y0, x0, h, w, th, tw, rng, bits, probes):
+    """One tile's count: the runs of equal clamped labels along each of
+    its rows, inserted in an order shuffled by rng (the warps race).
+    Returns (keys, counts, [(label, length) of each spilled run])."""
+    runs = []
+    for y in range(y0, min(y0 + th, h)):
+        x = x0
+        while x < min(x0 + tw, w):
+            cl = min(max(lab[y][x], 0), n - 1)
+            e = x
+            while e < min(x0 + tw, w) and min(max(lab[y][e], 0), n - 1) == cl:
+                e += 1
+            runs.append((cl, e - x))
+            x = e
+    nslots = 1 << bits
+    keys, counts, spilled = [-1] * nslots, [0] * nslots, []
+    for ri in rng.permutation(len(runs)):
+        cl, ln = runs[ri]
+        s = _d2_slot(cl, bits)
+        for _ in range(probes):
+            if keys[s] in (-1, cl):
+                keys[s] = cl
+                counts[s] += ln
+                break
+            s = (s + 1) % nslots
+        else:
+            spilled.append((cl, ln))
+    return keys, counts, spilled
+
+
+def despeckle2_tiled(label: torch.Tensor, thre: int, tile=D2_TILE,
+                     slot_bits=D2_SLOT_BITS, max_probes=D2_MAX_PROBES,
+                     seed=0) -> torch.Tensor:
+    """csrc/despeckle2.cu's schedule.  A: each tile counts its runs into
+    a table of 2^slot_bits slots (linear probing, at most max_probes
+    probes; a run that finds none spills; _d2_count_tile) and zeroes the
+    size of every table key and spilled label in a size table of garbage;
+    B: adds each table count and spilled run; C: each pixel whose region
+    has <= thre pixels takes the first largest in-frame 3x3 neighbour in
+    (dy, dx) order."""
+    h, w = label.shape
+    n = h * w
+    lab = label.tolist()
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(-9, 9, n).tolist()       # scratch, never zeroed
+    th, tw = tile
+    tiles = [_d2_count_tile(lab, n, y0, x0, h, w, th, tw, rng, slot_bits,
+                            max_probes)
+             for y0 in range(0, h, th) for x0 in range(0, w, tw)]
+    for keys, _, spilled in tiles:                # A
+        for k in keys:
+            if k >= 0:
+                sizes[k] = 0
+        for cl, _ in spilled:
+            sizes[cl] = 0
+    for keys, counts, spilled in tiles:           # B
+        for k, c in zip(keys, counts):
+            if k >= 0:
+                sizes[k] += c
+        for cl, ln in spilled:
+            sizes[cl] += ln
+    out = [row[:] for row in lab]                 # C
+    for y in range(h):
+        for x in range(w):
+            if sizes[min(max(lab[y][x], 0), n - 1)] > thre:
+                continue
+            best_sz, best = 0, lab[y][x]
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    yy, xx = y + dy, x + dx
+                    if 0 <= yy < h and 0 <= xx < w:
+                        c = lab[yy][xx]
+                        sz = sizes[min(max(c, 0), n - 1)]
+                        if sz > best_sz:
+                            best_sz, best = sz, c
+            out[y][x] = best
+    return torch.tensor(out, dtype=torch.int32)
+
+
+def d2_maps(shape, seed):
+    """Label maps: every pixel its own label, 2x2 blocks, 1x4 runs and
+    blocks mixed (regions of 4 pixels: thre 4 absorbs them, thre 3 keeps
+    them), three labels scattered (not one component each), and labels
+    out of [0, h*w) (the size index is clamped)."""
+    r = np.random.default_rng(seed)
+    h, w = shape
+    n = h * w
+    flat = np.arange(n, dtype=np.int32).reshape(h, w)
+    yy, xx = np.mgrid[0:h, 0:w]
+    blocks = flat[yy - yy % 2, xx - xx % 2]
+    runs = flat[yy, xx - xx % 4]
+    mixed = np.where((yy // 4 + xx // 8) % 2 == 0, runs, blocks)
+    odd = r.integers(0, 3, (h, w)).astype(np.int32) * (n // 3)
+    odd[r.random((h, w)) < 0.05] = -5
+    odd[r.random((h, w)) < 0.05] = n + 3
+    return [torch.from_numpy(np.ascontiguousarray(m))
+            for m in (flat, blocks, mixed, odd)]
+
+
+def d2_ties(h, w):
+    """Single pixels between two regions of equal size (20 pixels each,
+    different labels) left and right of them, and single pixels on every
+    frame border and corner: a pixel's largest neighbours tie, and the
+    first in (dy, dx) order must win."""
+    lab = np.zeros((h, w), np.int32)
+    for y in range(h):
+        for x in range(w):
+            lab[y, x] = (y // 4) * w + (x // 5) * 5
+    for y in range(1, h - 1, 4):
+        for x in range(5, w - 1, 10):
+            lab[y, x] = y * w + x                 # a 1-pixel region
+    for y, x in ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1),
+                 (0, w // 2), (h - 1, w // 2), (h // 2, 0), (h // 2, w - 1)):
+        lab[y, x] = y * w + x
+    return torch.from_numpy(lab)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 61), (61, 1), (37, 53),
+                                   (70, 33)])
+def test_despeckle2_tiled_schedule_matches_plain(shape):
+    """csrc/despeckle2.cu's tables and runs, equal to
+    regions.sizes_despeckle2 at thre 16, 4 and 3, at the kernel's 64 x 32
+    tiles and 128-slot tables (maps of one label a pixel spill) and at
+    8 x 8 tiles with 4-slot tables and 2 probes (nearly every tile
+    spills), in two insertion orders.  Fails if the spilled runs are not
+    added."""
+    for i, lbl in enumerate(d2_maps(shape, seed=sum(shape))):
+        for thre in (16, 4, 3):
+            want = regions.sizes_despeckle2(lbl, thre)
+            for cfg in ({}, {"tile": (8, 8), "slot_bits": 2,
+                             "max_probes": 2}):
+                for seed in (0, 1):
+                    got = despeckle2_tiled(lbl, thre, seed=seed, **cfg)
+                    assert torch.equal(got, want), (i, thre, cfg, seed)
+
+
+def test_despeckle2_tiled_schedule_takes_the_first_tie():
+    """Blocks of 20 pixels and of 19 (those that hold a 1-pixel region)
+    at thre 19 and 20 (regions of exactly thre and thre + 1 pixels),
+    ties between equal neighbours and small regions on the frame border:
+    equal to the plain version, and some 1-pixel region has two largest
+    neighbours of different labels.  Fails if ties are taken with >=
+    instead of >."""
+    lbl = d2_ties(29, 41)
+    for thre in (1, 19, 20, 21):
+        want = regions.sizes_despeckle2(lbl, thre)
+        for cfg in ({}, {"tile": (8, 8), "slot_bits": 2, "max_probes": 2}):
+            assert torch.equal(despeckle2_tiled(lbl, thre, **cfg), want), \
+                (thre, cfg)
+    sizes = regions.label_sizes(lbl)
+    h, w = lbl.shape
+    ties = 0
+    for y in range(h):
+        for x in range(w):
+            if int(sizes[lbl[y, x]]) > 1:
+                continue
+            nb = {}
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    if 0 <= y + dy < h and 0 <= x + dx < w:
+                        c = int(lbl[y + dy, x + dx])
+                        nb.setdefault(int(sizes[c]), set()).add(c)
+            ties += len(nb[max(nb)]) > 1
+    assert ties > 0
