@@ -30,16 +30,17 @@ the final line):
      edge_bin, the rect strings, the boundary marks), quant_despeckle's
      on the rect path's blurred colours and thinned edges, and hyp's on
      the 720p hypotheses and the seed-0 corpus; nvcc's -Xptxas -v lines
-     of thin.cu, despeckle2.cu, morph.cu, quant_despeckle.cu, mkpl.cu,
-     links_ccl.cu, ccl.cu and hyp.cu; K2 in both modes; and, where
-     build/parent/ holds a git archive of the parent commit, the parent's
-     thin and despeckle2 kernels held bit-equal to these and timed in
-     turns with them, and the parent despeckle2's memset, histogram and
-     absorption timed one by one;
+     of merge_mask.cu, scan.cu, thin.cu, despeckle2.cu, morph.cu,
+     quant_despeckle.cu, mkpl.cu, links_ccl.cu, ccl.cu and hyp.cu; K2 in
+     both modes; and, where build/parent/ holds a git archive of the
+     parent commit, the parent's merge_mask and seg_total held bit-equal
+     to these and timed in turns with them, and where the parent's
+     seg_total is two three-launch scans, their six kernels timed one by
+     one;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after, and the kernel library's own count of kernels
      held equal to the kernels its wrappers launched (7 for poly_frame,
-     37 for rect_frame):
+     32 for rect_frame):
      pipeline.poly.poly_frame with DEFAULT_CONFIG
      (held bit for bit against the mkpl_pallas=0 run and against the JAX
      fixture tests/data/poly_720p_synth.npz), pipeline.rect
@@ -99,7 +100,7 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 # kernels per 720p frame of the smoke run by the library's counter
 POLY_FRAME_KERNELS = 7
-RECT_FRAME_KERNELS = 37
+RECT_FRAME_KERNELS = 32
 
 
 def fail(msg: str):
@@ -211,31 +212,28 @@ def stream_of(torch):
     return torch.cuda.current_stream().cuda_stream
 
 
-# the parent's despeckle2 part by part, where its csrc/despeckle2.cu is
-# the memset, histogram kernel and absorption kernel version: this source
-# includes the parent's, so its kernels are in reach
-PARENT_DESPECKLE2_PARTS = r"""
-#include "despeckle2.cu"
+# the parent's two scans kernel by kernel (tile, carry, fix): this source
+# includes the parent's csrc/scan.cu, so its kernels are in reach
+PARENT_SCAN_PARTS = r"""
+#include "scan.cu"
 
-extern "C" int rd_parent_memset(void* sizes, int n, void* stream) {
-  return (int)cudaMemsetAsync(sizes, 0, sizeof(int) * (size_t)n,
-                              (cudaStream_t)stream);
-}
-
-extern "C" int rd_parent_sizes(const void* label, void* sizes, int n,
-                               void* stream) {
-  sizes_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (const int*)label, (int*)sizes, n);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int rd_parent_absorb(const void* label, const void* sizes,
-                                void* out, int h, int w, int thre,
-                                void* stream) {
-  absorb_kernel<<<rd::pixel_grid(h, w), rd::pixel_block(), 0,
-                  (cudaStream_t)stream>>>((const int*)label,
-                                          (const int*)sizes, (int*)out, h, w,
-                                          thre);
+extern "C" int rd_parent_scan_part(int part, const void* key,
+                                   const void* val, void* out, void* scratch,
+                                   int n, int op, int cap, int rev,
+                                   void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int ntiles = (n + kTile - 1) / kTile;
+  int* sc = (int*)scratch;
+  if (part == 0)
+    tile_kernel<<<ntiles, kThreads, 0, s>>>(
+        (const int*)key, (const int*)val, (int*)out, sc, sc + ntiles,
+        sc + 2 * ntiles, n, op, cap, rev);
+  else if (part == 1)
+    carry_kernel<<<1, kThreads, 0, s>>>(sc, sc + ntiles, sc + 3 * ntiles,
+                                        ntiles, op, cap);
+  else
+    fix_kernel<<<ntiles, kThreads, 0, s>>>((int*)out, sc + 3 * ntiles,
+                                           sc + 2 * ntiles, n, op, cap, rev);
   return (int)cudaGetLastError();
 }
 """
@@ -281,65 +279,121 @@ def bind_despeckle2(torch, lib):
     return despeckle2_fn
 
 
+def bind_merge_mask(torch, lib):
+    """merge_mask_fn(strong) through lib's rd_merge_mask."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rd_merge_mask.argtypes = [P, P, I, I, P]
+    lib.rd_merge_mask.restype = ctypes.c_int
+
+    def merge_mask_fn(strong):
+        h, w = strong.shape
+        out = torch.empty_like(strong)
+        err = lib.rd_merge_mask(strong.data_ptr(), out.data_ptr(), h, w,
+                                stream_of(torch))
+        if err:
+            fail(f"rd_merge_mask of {lib._name} did not launch (error {err})")
+        return out
+
+    return merge_mask_fn
+
+
+def bind_seg_total(torch, lib):
+    """seg_total_fn(key, val, cap) through lib's rd_seg_total."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rd_seg_total.argtypes = [P, P, P, P, I, I, P]
+    lib.rd_seg_total.restype = ctypes.c_int
+    lib.rd_seg_total_scratch_words.argtypes = [I]
+    lib.rd_seg_total_scratch_words.restype = ctypes.c_int
+
+    def seg_total_fn(key, val, cap):
+        n = key.shape[0]
+        out = torch.empty_like(val)
+        scratch = torch.empty((lib.rd_seg_total_scratch_words(n),),
+                              dtype=torch.int32, device=key.device)
+        err = lib.rd_seg_total(key.data_ptr(), val.data_ptr(), out.data_ptr(),
+                               scratch.data_ptr(), n, cap, stream_of(torch))
+        if err:
+            fail(f"rd_seg_total of {lib._name} did not launch (error {err})")
+        return out
+
+    return seg_total_fn
+
+
 def parent_kernels(torch, build_mod):
-    """The thin and despeckle2 kernels of the parent commit, for timing in
-    turns with this tree's: built from build/parent/ (a git archive of the
-    parent, unpacked there by hand; absent from a plain checkout, and then
-    None) into one library with the parent's C signatures and its own
-    launch counter.  Returns (thin_fn(em, vec, mode), despeckle2_fn(label,
-    thre), parts): parts maps the parent despeckle2's memset, histogram
-    and absorption to calls of their own (None unless the parent's source
-    has those kernels)."""
+    """The merge_mask and seg_scan kernels of the parent commit, for timing
+    in turns with this tree's: built from build/parent/ (a git archive of
+    the parent, unpacked there by hand; absent from a plain checkout, and
+    then None) into one library with the parent's C signatures and its own
+    launch counter.  Returns (merge_mask_fn(strong), seg_total_fn(key, val,
+    cap), parts): seg_total_fn is the parent's rd_seg_total, or where it
+    has none its two three-launch scans (a forward satsum scan, then a
+    reverse max scan of its output, through the `rev` argument those
+    parents' rd_seg_scan took); parts(key, val, cap) maps the six kernels
+    of those two scans to calls of their own, and is None where the parent
+    has rd_seg_total."""
     import ctypes
     src = os.path.join(ROOT, "build", "parent", "rectdetect_tpu_torch",
                        "csrc")
     if not os.path.isdir(src):
         return None
-    with open(os.path.join(src, "despeckle2.cu")) as f:
-        split = "absorb_kernel" in f.read()
-    d2 = "despeckle2"
-    if split:
-        d2 = "despeckle2_parts"
-        with open(os.path.join(src, f"{d2}.cu"), "w") as f:
-            f.write(PARENT_DESPECKLE2_PARTS)
+    with open(os.path.join(src, "scan.cu")) as f:
+        one_launch = "rd_seg_total" in f.read()
+    if one_launch:
+        lib = build_kernels(build_mod, src,
+                            os.path.join(ROOT, "build", "parent"),
+                            ("merge_mask", "scan"))
+        return bind_merge_mask(torch, lib), bind_seg_total(torch, lib), None
+    with open(os.path.join(src, "scan_parts.cu"), "w") as f:
+        f.write(PARENT_SCAN_PARTS)
     lib = build_kernels(build_mod, src, os.path.join(ROOT, "build", "parent"),
-                        ("thin", d2))
-    parts = None
-    if split:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        for name, args in (("rd_parent_memset", [P, I, P]),
-                           ("rd_parent_sizes", [P, P, I, P]),
-                           ("rd_parent_absorb", [P, P, P, I, I, I, P])):
-            getattr(lib, name).argtypes = args
-            getattr(lib, name).restype = ctypes.c_int
+                        ("merge_mask", "scan_parts"))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rd_seg_scan.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.rd_parent_scan_part.argtypes = [I, P, P, P, P, I, I, I, I, P]
+    for name in ("rd_seg_scan", "rd_parent_scan_part"):
+        getattr(lib, name).restype = ctypes.c_int
 
-        def check(err, what):
-            if err:
-                fail(f"the parent's {what} did not launch (error {err})")
+    def check(err, what):
+        if err:
+            fail(f"the parent's {what} did not launch (error {err})")
 
-        def parts_for(label, thre):
-            """The three parts on label: the memset and the histogram
-            work on a scratch table of their own, the absorption reads
-            the sizes that one histogram run counted first."""
-            h, w = label.shape
-            s = stream_of(torch)
-            sizes = torch.zeros((h * w,), dtype=torch.int32,
-                                device=label.device)
-            check(lib.rd_parent_sizes(label.data_ptr(), sizes.data_ptr(),
-                                      h * w, s), "histogram kernel")
-            scratch = torch.zeros_like(sizes)
-            out_t = torch.empty_like(label)
-            return {
-                "memset": lambda: check(lib.rd_parent_memset(
-                    scratch.data_ptr(), h * w, s), "memset"),
-                "sizes_kernel": lambda: check(lib.rd_parent_sizes(
-                    label.data_ptr(), scratch.data_ptr(), h * w, s),
-                    "histogram kernel"),
-                "absorb_kernel": lambda: check(lib.rd_parent_absorb(
-                    label.data_ptr(), sizes.data_ptr(), out_t.data_ptr(), h,
-                    w, thre, s), "absorption kernel")}
-        parts = parts_for
-    return bind_thin(torch, lib), bind_despeckle2(torch, lib), parts
+    def scan_args(key, val, op, cap, rev):
+        """(arguments of one rd_seg_scan call, its output)"""
+        n = key.shape[0]
+        out = torch.empty_like(val)
+        scratch = torch.empty((4 * max(1, -(-n // 1024)),),
+                              dtype=torch.int32, device=key.device)
+        return (key.data_ptr(), val.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), n, op, cap, rev, stream_of(torch)), out
+
+    def scan(key, val, op, cap, rev):
+        args, out = scan_args(key, val, op, cap, rev)
+        check(lib.rd_seg_scan(*args), "rd_seg_scan")
+        return out
+
+    def seg_total_fn(key, val, cap):
+        return scan(key, scan(key, val, 0, cap, 0), 1, cap, 1)
+
+    def parts(key, val, cap):
+        """The six kernels on the strength table: each scan's tile, carry
+        and fix on scratch that one whole scan filled first (the fix
+        re-applies the carries to that scan's output in place: the same
+        work each call)."""
+        calls = {}
+        fwd = scan(key, val, 0, cap, 0)
+        for name, op, inp, rev in (("forward satsum", 0, val, 0),
+                                   ("reverse max", 1, fwd, 1)):
+            args, _ = scan_args(key, inp, op, cap, rev)
+            check(lib.rd_seg_scan(*args), "rd_seg_scan")
+            for part, kernel in enumerate(("tile", "carry", "fix")):
+                calls[f"{name} {kernel}"] = (
+                    lambda part=part, args=args: check(
+                        lib.rd_parent_scan_part(part, *args), "scan part"))
+        return calls
+
+    return bind_merge_mask(torch, lib), seg_total_fn, parts
 
 
 def main() -> int:
@@ -554,18 +608,19 @@ def main() -> int:
            nb(comp.idx) + 8 * n_live + 2 * 13 * 4 * cap + nb(got[1]),
            20 * rounds * n_live)
 
-    # the redesigned kernels (csrc/thin.cu, csrc/despeckle2.cu,
-    # csrc/morph.cu, csrc/quant_despeckle.cu, csrc/mkpl.cu,
-    # csrc/links_ccl.cu, csrc/ccl.cu, csrc/hyp.cu): their registers and
-    # spills; mkpl's device time at 0, 1 and all rounds (the fixed cost and
-    # the cost per round); thin and despeckle2 timed in turns with the
-    # parent commit's kernels where they were brought along (build/parent/)
+    # the redesigned kernels (csrc/merge_mask.cu, csrc/scan.cu,
+    # csrc/thin.cu, csrc/despeckle2.cu, csrc/morph.cu,
+    # csrc/quant_despeckle.cu, csrc/mkpl.cu, csrc/links_ccl.cu, csrc/ccl.cu,
+    # csrc/hyp.cu): their registers and spills; mkpl's device time at 0, 1
+    # and all rounds (the fixed cost and the cost per round); merge_mask and
+    # seg_scan timed in turns with the parent commit's kernels where they
+    # were brought along (build/parent/)
     parent = parent_kernels(torch, _build)
     redesign = {"card": card, "ptxas": {
         k: ptxas_lines(_build.ptxas_log.get(k, "not rebuilt in this run"))
-        for k in ("thin.cu", "despeckle2.cu", "morph.cu",
-                  "quant_despeckle.cu", "mkpl.cu", "links_ccl.cu", "ccl.cu",
-                  "hyp.cu")}}
+        for k in ("merge_mask.cu", "scan.cu", "thin.cu", "despeckle2.cu",
+                  "morph.cu", "quant_despeckle.cu", "mkpl.cu",
+                  "links_ccl.cu", "ccl.cu", "hyp.cu")}}
     for k, lines in redesign["ptxas"].items():
         for line in lines:
             phase(f"phase 3 ptxas {k}: {line}")
@@ -582,7 +637,7 @@ def main() -> int:
         return out
 
     # K2 in both modes: within FLOAT_ATOL of the plain version with
-    # edge_thin > 0 equal, bit-equal to the parent's kernel, in turns
+    # edge_thin > 0 equal
     redesign["thin"] = {}
     for mode in ("thres", "cubic"):
         def call(mode=mode):
@@ -596,13 +651,6 @@ def main() -> int:
         if not err_m <= FLOAT_ATOL or entry["edge_thin_differ"]:
             fail(f"thinthres[{mode}] differs from the plain version: "
                  f"{entry}")
-        if parent is not None:
-            def parent_call(mode=mode):
-                return parent[0](em, vec, mode)
-            if not torch.equal(parent_call(), got):
-                fail(f"thinthres[{mode}]: the parent's kernel differs")
-            entry["parent_bit_equal"] = True
-            entry["parent_turns"] = in_turns(call, parent_call)
         redesign["thin"][mode] = entry
         phase(f"phase 3 thinthres[{mode}]: {json.dumps(entry)}")
 
@@ -643,6 +691,10 @@ def main() -> int:
           f"({int((skey < H * W).sum())} live rows)")
     if ndiff:
         fail(f"seg_scan: {ndiff} totals differ from the plain version")
+    for op in ("satsum", "max"):
+        if not torch.equal(hopper_scan.seg_scan_sorted(skey, sval, op, thre),
+                           hopper_scan.seg_scan_plain(skey, sval, op, thre)):
+            fail(f"seg_scan_sorted[{op}] differs from the plain version")
     # the timed function is seg_total_sorted: keys and values read once,
     # the totals written once; ops: a combine per element to sum each run
     # and one more to spread its total
@@ -651,7 +703,28 @@ def main() -> int:
            lambda: hopper_scan.seg_total_sorted(skey, sval, thre),
            cuda_ms(torch, lambda: hopper_scan.seg_total_plain(
                skey, sval, thre), 5), nb(skey, sval, tot), 2 * sp,
-           kernels=6)
+           kernels=hopper_scan.TOTAL_KERNELS)
+
+    # seg_total in turns with the parent's, bit-equal to it, and the
+    # parent's six kernels (tile, carry, fix of each of its two scans) one
+    # by one
+    def seg_call():
+        return hopper_scan.seg_total_sorted(skey, sval, thre)
+    entry = {"rows": sp, "live_rows": int((skey < H * W).sum()),
+             "runs": int((skey[1:] != skey[:-1]).sum()) + 1}
+    if parent is not None:
+        def parent_call():
+            return parent[1](skey, sval, thre)
+        if not torch.equal(parent_call(), tot):
+            fail("seg_scan: the parent's kernels differ")
+        entry["parent_bit_equal"] = True
+        entry["parent_turns"] = in_turns(seg_call, parent_call)
+        if parent[2] is not None:
+            entry["parent_parts_device_ms"] = {
+                name: device_ms(torch, _build, fn)[0]
+                for name, fn in parent[2](skey, sval, thre).items()}
+    redesign["seg_scan"] = entry
+    phase(f"phase 3 seg_scan: {json.dumps(entry)}")
 
     weak, strong = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
     weak_bin = (weak > 0).to(torch.int32)
@@ -739,6 +812,21 @@ def main() -> int:
            cuda_ms(torch, lambda: regions.junction_merge_mask(strong), 3),
            nb(strong, mask), H * W)
 
+    # merge_mask in turns with the parent's kernel, bit-equal to it
+    def mm_call():
+        return hopper_merge_mask.junction_merge_mask(strong)
+    entry = {"edge_pixels": int((strong > 0).sum()),
+             "mask_pixels": int(mask.sum())}
+    if parent is not None:
+        def parent_call():
+            return parent[0](strong)
+        if not torch.equal(parent_call(), mask):
+            fail("merge_mask: the parent's kernel differs")
+        entry["parent_bit_equal"] = True
+        entry["parent_turns"] = in_turns(mm_call, parent_call)
+    redesign["merge_mask"] = entry
+    phase(f"phase 3 merge_mask: {json.dumps(entry)}")
+
     seg0 = hopper_links.label_merge(despeck, mask, strong)
     seg0_p = regions.label_merge(despeck, mask, strong)
     ndiff = int((seg0 != seg0_p).sum())
@@ -769,25 +857,9 @@ def main() -> int:
            cuda_ms(torch, lambda: regions.sizes_despeckle2(seg0, thre2), 3),
            nb(seg0, seg), 2 * H * W, kernels=hopper_despeckle2.KERNELS)
 
-    # despeckle2 in turns with the parent's kernels, bit-equal to them, and
-    # the parent's three parts (memset, histogram, absorption) one by one
-    def d2_call():
-        return hopper_despeckle2.sizes_despeckle2(seg0, thre2)
-    entry = {"regions": int(torch.unique(seg0).numel()),
-             "absorbed": int((seg != seg0).sum())}
-    if parent is not None:
-        def parent_call():
-            return parent[1](seg0, thre2)
-        if not torch.equal(parent_call(), seg):
-            fail("despeckle2: the parent's kernels differ")
-        entry["parent_bit_equal"] = True
-        entry["parent_turns"] = in_turns(d2_call, parent_call)
-        if parent[2] is not None:
-            entry["parent_parts_device_ms"] = {
-                name: device_ms(torch, _build, fn)[0]
-                for name, fn in parent[2](seg0, thre2).items()}
-    redesign["despeckle2"] = entry
-    phase(f"phase 3 despeckle2: {json.dumps(entry)}")
+    redesign["despeckle2"] = {"regions": int(torch.unique(seg0).numel()),
+                              "absorbed": int((seg != seg0).sum())}
+    phase(f"phase 3 despeckle2: {json.dumps(redesign['despeckle2'])}")
 
     boundary, _ = boundary_labels(seg, cfg)
     bids = hopper_bids.distinct_bids(boundary)

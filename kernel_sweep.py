@@ -4,9 +4,11 @@ compile-time constants, in turns, on the 720p inputs of
 bench.synth_frame(720, 1280, seed=0).
 
     python3 kernel_sweep.py [hyp] [morph] [quant] [thin] [despeckle2]
-                            [thin-phases] [despeckle2-phases]
+                            [merge_mask] [seg_scan] [thin-phases]
+                            [despeckle2-phases] [merge_mask-phases]
+                            [seg_scan-phases] [merge_mask-parent-phases]
 
-(all seven without an argument).  hyp: hyp.cu at 1, 2, 4 and 8 threads
+(all but the last without an argument).  hyp: hyp.cu at 1, 2, 4 and 8 threads
 per hull candidate (kLanes), on the 720p hypotheses and the seed-0
 384-group corpus.  morph: morph.cu's output tile (kTileRows rows x
 kTileWords 32-pixel words), poly_branch on the poly path's
@@ -19,11 +21,20 @@ in both modes on the 720p edge magnitude and vectors, each build held
 bit-equal to the shipped kernel (which chip_smoke.py holds to the plain
 version).  despeckle2: despeckle2.cu's tile rows, rows per pass and table
 size (2^kSlotBits slots) on the rect path's 720p region labels.
-thin-phases and despeckle2-phases: the shipped kernel beside copies that
-return at the end of each of its phases (CUTS; `if (h > 0) return;`
+merge_mask: merge_mask.cu's output tile (kTileRows rows x kTileWords
+32-pixel words) on the rect path's 720p strong labels.  seg_scan:
+scan.cu's seg_total block size and items a thread (kTotalThreads x
+kTotalItems elements a tile) on the 720p strength table.
+thin-phases, despeckle2-phases, merge_mask-phases and seg_scan-phases:
+the shipped kernel beside copies that return at the end of each of its
+phases (CUTS; `if (h > 0) return;`, or `n` where the kernel has no `h`,
 before the phase's first line, so nothing before it is dead code), on
 the same inputs; a cut copy's output is not the function's and is not
-checked.
+checked.  merge_mask-parent-phases: the same for the parent commit's
+merge_mask.cu, from build/parent/ (a git archive of the parent, see
+chip_smoke.py), with the cuts whose line that source holds: those of the
+one-thread-a-pixel kernel that merge_mask.cu replaced, or this tree's
+where the parent has its kernel.
 
 Run from the root of a checkout, on a machine with one CUDA card and nvcc.
 Each setting is a copy of csrc/ under build/kernel_sweep/<kernel>/<n>/
@@ -54,6 +65,24 @@ from chip_smoke import ROOT, fail
 # where a cut copy returns: (stem, name) -> the source line it returns
 # before
 CUTS = {
+    ("merge_mask", "launch"): "  // load: all of a warp's pixels first",
+    ("merge_mask", "load"): "  // junction: ANY, END and CORE",
+    ("merge_mask", "load, junction"): "  // dilate: one thread per tile word",
+    ("merge_mask", "load, junction, dilate"):
+        "  // store: one warp per tile word",
+    ("scan", "launch"): "  // A: scan each tile, publish its descriptor",
+    ("scan", "A"): "  grid.sync();\n\n  // B: the totals",
+    ("scan", "A, barrier"): "  // B: the totals, the tiles in reverse",
+    ("scan", "A, barrier, looks"):
+        "    __syncthreads();\n    const int base = t * kTotalTile",
+    # the merge_mask.cu this one replaced (one thread a pixel over byte
+    # windows), for merge_mask-parent-phases
+    ("merge_mask", "bytes: launch"):
+        "  for (int i = tid; i < kNW * kNW; i += nthreads) {",
+    ("merge_mask", "bytes: staging"):
+        "  for (int i = tid; i < kJW * kJW; i += nthreads) {",
+    ("merge_mask", "bytes: staging, junction code"):
+        "  const int gx = x0 + threadIdx.x;",
     ("thin", "launch"): "  const int x0 = blockIdx.x * kTileCols;",
     ("thin", "window"):
         "#pragma unroll\n  for (int i = tid; i < kWinRows * kCells",
@@ -63,6 +92,8 @@ CUTS = {
     ("despeckle2", "A, barrier"): "  // B: the counts added",
     ("despeckle2", "A, barrier, B, barrier"): "  // C: the absorption",
 }
+# the cut's guard variable, where the kernel has no `h`
+GUARD = {"scan": "n"}
 
 SWEEPS = {
     "hyp": ("hyp", [{"kLanes": n} for n in (4, 1, 2, 8)]),
@@ -80,10 +111,38 @@ SWEEPS = {
         {"kTileRows": r, "kRowsPerPass": p, "kSlotBits": b} for r, p, b in (
             (64, 8, 7), (32, 8, 6), (32, 4, 6), (64, 8, 6), (64, 4, 7),
             (64, 16, 7), (128, 8, 7), (128, 16, 7))]),
+    "merge_mask": ("merge_mask", [
+        {"kTileRows": r, "kTileWords": w} for r, w in (
+            (64, 2), (32, 4), (32, 8), (64, 4), (128, 2), (64, 1), (128, 1),
+            (16, 8))]),
+    "seg_scan": ("scan", [
+        {"kTotalThreads": t, "kTotalItems": i} for t, i in (
+            (256, 4), (128, 4), (512, 4), (1024, 4), (128, 8), (256, 8))]),
 }
-for _stem in ("thin", "despeckle2"):
-    SWEEPS[f"{_stem}-phases"] = (_stem, [{}] + [
-        {"cut": name} for (stem, name) in CUTS if stem == _stem])
+for _kernel, _stem in (("thin", "thin"), ("despeckle2", "despeckle2"),
+                       ("merge_mask", "merge_mask"), ("seg_scan", "scan")):
+    SWEEPS[f"{_kernel}-phases"] = (_stem, [{}] + [
+        {"cut": name} for (stem, name) in CUTS
+        if stem == _stem and not name.startswith("bytes")])
+SWEEPS["merge_mask-parent-phases"] = ("merge_mask", [{"src": "parent"}] + [
+    {"src": "parent", "cut": name} for (stem, name) in CUTS
+    if stem == "merge_mask"])
+PARENT = os.path.join(ROOT, "build", "parent")
+
+
+def settings_of(kernel: str) -> list:
+    """SWEEPS[kernel]'s settings; of the parent's, those whose cut line
+    the parent's source holds once."""
+    stem, settings = SWEEPS[kernel]
+    if not settings[0].get("src"):
+        return settings
+    path = os.path.join(PARENT, "rectdetect_tpu_torch", "csrc", f"{stem}.cu")
+    if not os.path.exists(path):
+        fail(f"{kernel} needs the parent's {path}")
+    with open(path) as f:
+        text = f.read()
+    return [s for s in settings
+            if "cut" not in s or text.count(CUTS[stem, s["cut"]]) == 1]
 
 
 def label(setting: dict) -> str:
@@ -91,23 +150,28 @@ def label(setting: dict) -> str:
 
 
 def build_at(build_mod, kernel, n, setting):
-    """The library of csrc/ with `setting`'s constants substituted in
-    kernel's source (each must be defined once), and its launch counter."""
+    """The library of csrc/ (the parent's where setting["src"] is
+    "parent") with `setting`'s constants substituted in kernel's source
+    (each must be defined once), and its launch counter."""
     stem = SWEEPS[kernel][0]
     out_dir = os.path.join(ROOT, "build", "kernel_sweep", kernel, str(n))
     src = os.path.join(out_dir, "csrc")
+    origin = PARENT if setting.get("src") == "parent" else ROOT
     shutil.rmtree(out_dir, ignore_errors=True)
-    shutil.copytree(os.path.join(ROOT, "rectdetect_tpu_torch", "csrc"), src)
+    shutil.copytree(os.path.join(origin, "rectdetect_tpu_torch", "csrc"), src)
     path = os.path.join(src, f"{stem}.cu")
     with open(path) as f:
         text = f.read()
     for name, value in setting.items():
+        if name == "src":
+            continue
         if name == "cut":
             marker = CUTS[stem, value]
             if text.count(marker) != 1:
                 fail(f"{stem}.cu does not hold the line of cut {value!r} "
                      f"once")
-            text = text.replace(marker, "  if (h > 0) return;\n" + marker)
+            text = text.replace(
+                marker, f"  if ({GUARD.get(stem, 'h')} > 0) return;\n" + marker)
             continue
         text, count = re.subn(rf"constexpr int {name} = \d+;",
                               f"constexpr int {name} = {value};", text)
@@ -183,7 +247,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
              "card")
-    kernels = sys.argv[1:] or list(SWEEPS)
+    kernels = sys.argv[1:] or [k for k in SWEEPS if "parent" not in k]
     unknown = [k for k in kernels if k not in SWEEPS]
     if unknown:
         fail(f"unknown kernels {unknown}; choose from {list(SWEEPS)}")
@@ -195,6 +259,7 @@ def main() -> int:
     from rectdetect_tpu_torch.ops import (_build, ccl, fp, hopper_blblur,
                                           hopper_ccl, hopper_grad,
                                           hopper_links, hopper_merge_mask,
+                                          hopper_morph, hopper_scan,
                                           hopper_thin, morphology, regions)
     from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
     from rectdetect_tpu_torch.pipeline.rect import (rect_hypotheses,
@@ -207,7 +272,8 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
 
-    jobs = [(k, n, s) for k in kernels for n, s in enumerate(SWEEPS[k][1])]
+    plan = {k: settings_of(k) for k in kernels}
+    jobs = [(k, n, s) for k in kernels for n, s in enumerate(plan[k])]
     with ThreadPoolExecutor(8) as pool:
         futures = [pool.submit(build_at, _build, *job) for job in jobs]
         built = {(k, n): f.result() for (k, n, _), f in zip(jobs, futures)}
@@ -258,6 +324,24 @@ def main() -> int:
                 hopper_thin.thinthres(em, vec, mode))
             for mode in ("thres", "cubic")},
             lambda torch, a, b: torch.equal(a, b))
+    if any(k.startswith("merge_mask") for k in kernels):
+        _, strong = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
+        inputs["merge_mask"] = (chip_smoke.bind_merge_mask, {
+            "720p strong labels": (
+                lambda fn: fn(strong), regions.junction_merge_mask(strong))},
+            lambda torch, a, b: torch.equal(a, b))
+    if any(k.startswith("seg_scan") for k in kernels):
+        lbl_r = hopper_ccl.label_components(
+            hopper_morph.strings_chain(fe.edge_bin, "rect"), 0)
+        sp = max(4096, 720 * 1280 // cfg.sparse_factor)
+        thre = max(cfg.strength_weak, cfg.strength_strong)
+        skey, sval, _ = ccl.strength_table(fe.edge_thin, lbl_r, sp, thre,
+                                           cfg.strength_scale)
+        inputs["seg_scan"] = (chip_smoke.bind_seg_total, {
+            "720p strength table": (
+                lambda fn: fn(skey, sval, thre),
+                hopper_scan.seg_total_plain(skey, sval, thre))},
+            lambda torch, a, b: torch.equal(a, b))
     if "despeckle2" in kernels or "despeckle2-phases" in kernels:
         weak, strong = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
         despeck = region_smoothing(fe.packed0, weak, fe.edge_thin, cfg)[1]
@@ -272,8 +356,9 @@ def main() -> int:
 
     result = {"card": smi.stdout.strip()}
     for kernel in kernels:
-        entry, cases, same = inputs[kernel.removesuffix("-phases")]
-        settings = SWEEPS[kernel][1]
+        entry, cases, same = inputs[kernel.removesuffix("-phases")
+                                    .removesuffix("-parent")]
+        settings = plan[kernel]
         fns = {n: (entry(torch, built[kernel, n][0]), built[kernel, n][1])
                for n in range(len(settings))}
         result[kernel] = {}

@@ -44,7 +44,8 @@ SIGNATURES = {
     "rd_strings_chain": (_P, _P, _I, _I, _I, _P),
     "rd_label_components": (_P, _P, _I, _I, _I, _P),
     "rd_mkpl": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "rd_seg_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rd_seg_scan": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "rd_seg_total": (_P, _P, _P, _P, _I, _I, _P),
     "rd_blblur": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rd_quant_despeckle": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rd_merge_mask": (_P, _P, _I, _I, _P),
@@ -58,6 +59,7 @@ SIGNATURES = {
 QUERIES = {
     "rd_launch_count": ((), ctypes.c_longlong),
     "rd_mkpl_scratch_words": ((_I, _I), ctypes.c_int),
+    "rd_seg_total_scratch_words": ((_I,), ctypes.c_int),
 }
 
 _lib = None

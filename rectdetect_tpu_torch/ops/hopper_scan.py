@@ -1,13 +1,17 @@
 """Kernel #10 seg_scan: segmented scans over sorted 1-D tables.
 
 Replaces the TPU kernel rectdetect_tpu/ops/pallas_scan.py:_seg_scan_kernel
-(seg_scan_sorted, seg_total_sorted).  CUDA source: csrc/scan.cu, a
-three-phase scan (tile scans, one block for the tile carries, a fix-up of
-each tile's leading run) in three launches per scan; a scan is bound by
-device memory, 12 B per element, and `seg_total_sorted`, two scans, needs
-those 12 B once but moves them twice.  The TPU kernel carried (last key,
+(seg_scan_sorted, seg_total_sorted).  CUDA source: csrc/scan.cu.
+`seg_total_sorted` (the strength pair's per-element run totals, on the
+main path) is one cooperative launch: tile scans in registers publish
+tile descriptors, and after one grid barrier each tile looks back and
+forward over them for the carries of the runs that cross its edges; it
+reads key and val once and writes the totals once, 12 B per element, the
+bound.  `seg_scan_sorted` (off the main path) keeps the three-phase form
+(tile scans, one block for the tile carries, a fix-up of each tile's
+leading run) in three launches.  The TPU kernel carried (last key,
 running value) from one sequential grid step to the next; Hopper's blocks
-run in parallel, hence the carry pass.
+run in parallel, hence the carries.
 
 Segments are maximal runs of equal keys (the keys need not be sorted).
 Values must be non-negative.  'satsum' sums saturating at `cap` (each
@@ -27,6 +31,8 @@ from rectdetect_tpu_torch.ops import _build
 
 _OPS = {"satsum": 0, "max": 1}
 _TILE = 1024          # csrc/scan.cu kTile
+# kernels launched per seg_total_sorted call (of a non-empty table)
+TOTAL_KERNELS = 1
 
 launches = 0
 
@@ -70,39 +76,53 @@ def seg_total_plain(key: torch.Tensor, val: torch.Tensor,
                                      torch.flip(fwd, (0,)), "max", cap), (0,))
 
 
-def _launch(key, val, op: str, cap: int, rev: bool) -> torch.Tensor:
-    global launches
+def _check(key, val, cap: int) -> int:
+    """Raise unless key and val are (S,) int32 CUDA tensors and cap fits
+    int32; returns S."""
     s = key.shape[0]
     _build.check(key, "key", torch.int32, (s,))
     _build.check(val, "val", torch.int32, (s,))
     if not 0 <= cap < 2 ** 31:
         raise ValueError(f"cap must fit int32, got {cap}")
-    out = torch.empty_like(val)
-    scratch = torch.empty((4 * max(1, -(-s // _TILE)),), dtype=torch.int32,
-                          device=key.device)
-    _build.launch("rd_seg_scan", key.device, key.data_ptr(), val.data_ptr(),
-                  out.data_ptr(), scratch.data_ptr(), s, _OPS[op], cap,
-                  int(rev), kernels=3 if s else 0)
-    launches += 1
-    return out
+    return s
 
 
 def seg_scan_sorted(key: torch.Tensor, val: torch.Tensor, op: str = "satsum",
                     cap: int = 2 ** 30) -> torch.Tensor:
     """key, val (S,) int32 -> (S,) int32 segmented inclusive scan."""
+    global launches
     if op not in _OPS:
         raise ValueError(f"unknown scan op {op!r}")
     if not _build.on_cuda(key, val):
         return seg_scan_plain(key, val, op, cap)
-    return _launch(key, val, op, cap, False)
+    s = _check(key, val, cap)
+    out = torch.empty_like(val)
+    scratch = torch.empty((4 * max(1, -(-s // _TILE)),), dtype=torch.int32,
+                          device=key.device)
+    _build.launch("rd_seg_scan", key.device, key.data_ptr(), val.data_ptr(),
+                  out.data_ptr(), scratch.data_ptr(), s, _OPS[op], cap,
+                  kernels=3 if s else 0)
+    launches += 1
+    return out
 
 
 def seg_total_sorted(key: torch.Tensor, val: torch.Tensor,
                      cap: int) -> torch.Tensor:
-    """Per-element segment total saturating at cap: a forward satsum scan
-    (totals land at run ends), then a reverse max scan spreads each run's
-    end value over the run (ops/pallas_scan.py:169-179)."""
+    """Per-element segment total saturating at cap: what a forward satsum
+    scan (totals land at run ends) followed by a reverse max scan (each
+    run's end value spread over the run) gives (ops/pallas_scan.py:169-179):
+    min(cap, the run's sum), and at a run's first element the larger of
+    that and its own value; in one launch."""
+    global launches
     if not _build.on_cuda(key, val):
         return seg_total_plain(key, val, cap)
-    fwd = _launch(key, val, "satsum", cap, False)
-    return _launch(key, fwd, "max", cap, True)
+    s = _check(key, val, cap)
+    out = torch.empty_like(val)
+    # tile descriptors, written before they are read
+    scratch = torch.empty((_build.lib().rd_seg_total_scratch_words(s),),
+                          dtype=torch.int32, device=key.device)
+    _build.launch("rd_seg_total", key.device, key.data_ptr(), val.data_ptr(),
+                  out.data_ptr(), scratch.data_ptr(), s, cap,
+                  kernels=TOTAL_KERNELS if s else 0)
+    launches += 1
+    return out

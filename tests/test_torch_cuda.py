@@ -15,7 +15,9 @@ multiply-add may round twice on a tie), edge_thin > 0 equal.  The mkpl
 kernel's arena is held bit-equal to the plain subdivision on the card
 (the same float operations on both sides); seg_scan, blblur,
 quant_despeckle, merge_mask, label_merge, despeckle2 and distinct_bids
-are integer-valued and equal; rect_hypotheses' maps, valid and status
+are integer-valued and equal (merge_mask from 1x1 to 720x1280, frames all
+edge and with no edge; seg_total_sorted from 1 to 2 764 800 rows, more
+tiles than co-resident blocks; seg_scan_sorted in both directions); rect_hypotheses' maps, valid and status
 equal, segs within atol 2e-4.  The hyp and pose kernels run their plain
 versions' float operations, so `ok` and c2 are held equal and the other
 floats within rtol 1e-3 (bit-equal expected); rect_frame's valid and
@@ -218,6 +220,28 @@ def test_thin_kernel_matches_plain_at_odd_sizes(h, w):
     flat = torch.zeros(h * w * 2 + 1, device="cuda")
     with pytest.raises(ValueError):
         hopper_thin.thinthres(em.cuda(), flat[1:].view(h, w, 2))
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (5, 5), (9, 20), (37, 53),
+                                 (41, 33), (70, 33), (33, 1281), (720, 1280)])
+def test_merge_mask_kernel_matches_plain_at_odd_sizes(h, w):
+    """merge_mask equal to regions.junction_merge_mask on labels > 0, 0
+    and -1 at three densities, on a frame where every pixel is an edge and
+    on frames with no edge (all 0, all -1); one kernel a call."""
+    _need_card()
+    r = np.random.default_rng(h * 7 + w)
+    maps = [np.full((h, w), 5), np.zeros((h, w)), np.full((h, w), -1)]
+    for density in (0.1, 0.3, 0.6):
+        lab = np.where(r.random((h, w)) < density,
+                       r.integers(1, 900, (h, w)), 0)
+        maps.append(np.where(r.random((h, w)) < 0.1, -1, lab))
+    for i, m in enumerate(maps):
+        strong = torch.from_numpy(m.astype(np.int32))
+        n0 = _build.launch_count()
+        got = hopper_merge_mask.junction_merge_mask(strong.cuda())
+        torch.cuda.synchronize()
+        assert _build.launch_count() == n0 + 1
+        assert torch.equal(got.cpu(), regions.junction_merge_mask(strong)), i
 
 
 def _despeckle2_maps(h, w, seed):
@@ -518,6 +542,71 @@ def test_seg_scan_kernel_matches_plain():
         starts[cuts] = 1
         _check_scan(np.cumsum(starts), r.integers(1, 400, s),
                     (2500, 2 ** 30))
+
+
+# seg_total sizes: one element, a tile less one, one tile, a tile and one,
+# the 720p strength table, and the 4K one (more tiles than co-resident
+# blocks, so each block walks several tiles)
+SEG_TOTAL_SIZES = [1, 1023, 1024, 1025, 307200, 2764800]
+
+
+def _seg_total_tables(s, seed):
+    """(key, val, caps) tables of s rows: short runs, a few runs over many
+    tiles and a run to the end, values 0-399 (above the smaller caps, so
+    runs saturate and some first values exceed the cap); one key
+    throughout; all keys distinct; values near 2^31 whose sums pass 2^31
+    (cap at the int32 maximum); the strength table's shape, labelled rows
+    and a tail of one key with value 0."""
+    r = np.random.default_rng(seed)
+    big = (1 << 31) - 1
+    lengths = np.concatenate([r.integers(1, 40, s // 20 + 1),
+                              r.integers(900, 5000, 4), [s]])
+    runs = np.repeat(np.arange(lengths.size), lengths)[:s]
+    live = s * 2 // 3
+    tail = np.concatenate([np.sort(r.integers(1, max(2, s // 8), live)),
+                           np.full(s - live, s)])
+    return [(runs, r.integers(0, 400, s), (300, 2500, big)),
+            (np.zeros(s), r.integers(0, 400, s), (300, big)),
+            (np.arange(s), r.integers(0, 400, s), (300,)),
+            (runs, r.integers(1 << 29, big, s), (big,)),
+            (tail, np.where(np.arange(s) < live, r.integers(0, 60, s), 0),
+             (100, 2500))]
+
+
+@pytest.mark.parametrize("s", SEG_TOTAL_SIZES)
+def test_seg_total_kernel_matches_plain(s):
+    """seg_total_sorted equal to seg_total_plain on the card, one kernel a
+    call."""
+    _need_card()
+    for i, (key, val, caps) in enumerate(_seg_total_tables(s, seed=s)):
+        key = torch.from_numpy(key.astype(np.int32)).cuda()
+        val = torch.from_numpy(val.astype(np.int32)).cuda()
+        for cap in caps:
+            n0 = _build.launch_count()
+            got = hopper_scan.seg_total_sorted(key, val, cap)
+            torch.cuda.synchronize()
+            assert (_build.launch_count() - n0
+                    == hopper_scan.TOTAL_KERNELS == 1)
+            assert torch.equal(got, hopper_scan.seg_total_plain(key, val,
+                                                                cap)), (i, cap)
+
+
+@pytest.mark.parametrize("s", [1, 1023, 1025, 70000, 307200])
+def test_seg_scan_kernel_both_ops_and_directions(s):
+    """The three-launch scan of seg_scan_sorted, satsum and max, equal to
+    seg_scan_plain forward and from the end (a scan from the end is one of
+    the flipped table, as ops/pallas_scan.py runs it)."""
+    _need_card()
+    for key, val, caps in _seg_total_tables(s, seed=s + 1)[:2]:
+        key = torch.from_numpy(key.astype(np.int32)).cuda()
+        val = torch.from_numpy(val.astype(np.int32)).cuda()
+        for cap in caps:
+            for op in ("satsum", "max"):
+                for k, v in ((key, val), (torch.flip(key, (0,)),
+                                          torch.flip(val, (0,)))):
+                    assert torch.equal(
+                        hopper_scan.seg_scan_sorted(k, v, op, cap),
+                        hopper_scan.seg_scan_plain(k, v, op, cap)), (op, cap)
 
 
 def test_blblur_and_quant_despeckle_kernels_match_plain():

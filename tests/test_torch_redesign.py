@@ -42,8 +42,8 @@ import torch
 from rectdetect_tpu_torch import parity
 from rectdetect_tpu_torch.config import PipelineConfig
 from rectdetect_tpu_torch.geometry import pose, quad
-from rectdetect_tpu_torch.ops import (fp, mkpl, morphology, polyline, regions,
-                                      thin)
+from rectdetect_tpu_torch.ops import (fp, hopper_scan, mkpl, morphology,
+                                      polyline, regions, thin)
 from rectdetect_tpu_torch.ops.ccl import label_components_plain
 from rectdetect_tpu_torch.ops.regions import _coord_maps
 from rectdetect_tpu_torch.ops.shifts import pad2d, shifted
@@ -1782,3 +1782,352 @@ def test_despeckle2_tiled_schedule_takes_the_first_tie():
                         nb.setdefault(int(sizes[c]), set()).add(c)
             ties += len(nb[max(nb)]) > 1
     assert ties > 0
+
+
+# ---- merge_mask (csrc/merge_mask.cu): bit words and row-union dilations --
+
+# the window's halo: 8 rows (the d^2 < 64 disk's 7 and the junction's
+# stencil's 1) and one word on each side
+MM_HALO = 8
+MM_HALO_WORDS = 1
+# the kernel's structuring elements: (|dx| values, the |dy| rows whose run
+# reaches them); each |dx| is taken from the union of those rows
+MM_RING = (((0, 1, 2), (4, 5)), ((3,), (3, 4, 5)), ((4,), (0, 1, 2, 3, 4)),
+           ((5,), (0, 1, 2, 3)))
+MM_D64 = (((0, 1, 2, 3), tuple(range(8))), ((4, 5), tuple(range(7))),
+          ((6,), tuple(range(6))), ((7,), (0, 1, 2, 3)))
+MM_D16 = (((0, 1, 2), (0, 1, 2, 3)), ((3,), (0, 1, 2)))
+
+
+def _word_shift(words: torch.Tensor, dx: int) -> torch.Tensor:
+    """Words (..., WW) whose bit i holds pixel x0 + i + dx, |dx| < 32: the
+    funnel shift of two adjacent words; words beyond the last axis read
+    0."""
+    if dx == 0:
+        return words
+    zero = torch.zeros_like(words[..., :1])
+    if dx > 0:
+        right = torch.cat([words[..., 1:], zero], -1)
+        return ((words >> dx) | (right << (32 - dx))) & WORD_MASK
+    left = torch.cat([zero, words[..., :-1]], -1)
+    return ((words << -dx) & WORD_MASK) | (left >> (32 + dx))
+
+
+def _element_offsets(groups) -> set:
+    return {(sy * dy, sx * dx) for dxs, dys in groups for dx in dxs
+            for dy in dys for sy in (-1, 1) for sx in (-1, 1)}
+
+
+def merge_mask_words(strong: torch.Tensor, th: int, tww: int,
+                     halo: int = MM_HALO,
+                     halo_words: int = MM_HALO_WORDS) -> torch.Tensor:
+    """csrc/merge_mask.cu's schedule: tiles of th rows x tww words, a window
+    of `halo` rows and `halo_words` words on each side loaded as words of
+    "label > 0"; the junction's ANY, END and CORE planes on the window rows
+    [1, rows - 1) from the funnel-shifted neighbour words and a saturating
+    bit-sliced count, masked by the frame's interior in frame coordinates;
+    each tile word's three dilations as ORs of shifted row unions."""
+    h, w = strong.shape
+    nty, ntx = -(-h // th), -(-w // (32 * tww))
+    wr, ww = th + 2 * halo, tww + 2 * halo_words
+    bits = torch.zeros((nty * th + 2 * halo, (ntx * tww + 2 * halo_words) * 32),
+                       dtype=torch.int64)
+    bits[halo:halo + h, 32 * halo_words:32 * halo_words + w] = (
+        strong > 0).to(torch.int64)
+    words = (bits.reshape(bits.shape[0], -1, 32)
+             << torch.arange(32, dtype=torch.int64)).sum(-1)
+    tiles = [(ty, tx) for ty in range(nty) for tx in range(ntx)]
+    nz = torch.stack([words[ty * th:ty * th + wr, tx * tww:tx * tww + ww]
+                      for ty, tx in tiles])
+    ys = torch.tensor([ty * th - halo for ty, _ in tiles])[:, None, None]
+    x0s = torch.tensor([(tx * tww - halo_words) * 32
+                        for _, tx in tiles])[:, None, None]
+    x0s = x0s + 32 * torch.arange(ww)[None, None, :]
+    # junction on the rows [1, wr - 1); the rows it does not write stay
+    # stale, so a dilation that reaches them shows
+    win = _Window(1, wr)
+    a1, a2, _ = _count3(win, nz)
+    inner = _interior_words(1, ys + torch.arange(1, wr - 1)[None, :, None],
+                            x0s, h, w)
+    anyj = win.at(nz, 0, 0) & a1 & inner
+    planes = {"any": win.write(nz, anyj),
+              "end": win.write(nz, anyj & ~a2 & WORD_MASK),
+              "core": win.write(nz, anyj & a2)}
+
+    def dilate(plane, groups):
+        acc = torch.zeros_like(plane[:, halo:halo + th])
+        for dxs, dys in groups:
+            rows = torch.zeros_like(acc)
+            for dy in dys:
+                rows = rows | plane[:, halo + dy:halo + th + dy]
+                rows = rows | plane[:, halo - dy:halo + th - dy]
+            for dx in dxs:
+                acc = acc | _word_shift(rows, dx) | _word_shift(rows, -dx)
+        return acc
+
+    ring = dilate(planes["any"], MM_RING)
+    clear = dilate(planes["end"], MM_D64) | dilate(planes["core"], MM_D16)
+    tile = (ring & ~clear & WORD_MASK)[..., halo_words:halo_words + tww]
+    out_bits = (tile[..., None] >> torch.arange(32)) & 1
+    out = torch.zeros((nty * th, ntx * tww * 32), dtype=torch.int32)
+    for t, (ty, tx) in enumerate(tiles):
+        out[ty * th:(ty + 1) * th, tx * tww * 32:(tx + 1) * tww * 32] = (
+            out_bits[t].reshape(th, tww * 32))
+    return out[:h, :w]
+
+
+def strong_labels(shape, density, seed):
+    """(H,W) int32 strong-edge labels: positive labels with probability
+    `density`, and 0 and -1 (not edges) beside them."""
+    r = np.random.default_rng(seed)
+    lab = r.integers(1, 900, shape)
+    lab = np.where(r.random(shape) < density, lab, 0)
+    lab = np.where(r.random(shape) < 0.1, -1, lab)
+    return torch.from_numpy(lab.astype(np.int32))
+
+
+def junctions_at_edges(h, w):
+    """Chains on the first and last interior rows and columns (junctions
+    there, none on the border ring), line ends whose 7-px clear disk
+    crosses the 8-row and 32-px tile edges, crossings, and -1 and 0
+    labels beside positive ones."""
+    e = np.zeros((h, w), np.int32)
+    e[1, 2:w - 2] = 3
+    e[h - 2, 2:w - 2] = 4
+    e[2:h - 2, 1] = 5
+    e[2:h - 2, w - 2] = 6
+    e[h // 2, 5:min(31, w - 3)] = 7      # ends at a word edge
+    e[9:min(16, h - 3), 12] = 8         # starts just below a tile edge
+    if w > 40:
+        e[6:h - 6, 36] = 9              # crosses the row at h // 2
+        e[h // 2, 36:w - 4] = 10
+    e[h // 3, 2:w - 2] = np.where(np.arange(2, w - 2) % 5 == 0, -1, 11)
+    e[0, :] = -1                        # the border ring is never a junction
+    e[:, 0] = 12
+    return torch.from_numpy(e)
+
+
+@pytest.mark.parametrize("shape", [(5, 5), (37, 53), (9, 20), (41, 33),
+                                   (29, 70)])
+def test_merge_mask_word_schedule_matches_plain(shape):
+    """csrc/merge_mask.cu's bit-word schedule, tiles of 8 rows x 1 and 2
+    words and of the kernel's 64 rows x 2 words, is equal to regions.junction_merge_mask on labels > 0, 0
+    and -1 at three densities (frames narrower than a word, and widths of
+    33 and 70 whose words straddle the frame edge).  Mutation checks on a
+    copy: fails with MM_HALO 7 (a row short: the d^2 < 64 disk reads a row
+    the junction left stale) and when the junction's interior test takes
+    tile coordinates."""
+    for i, density in enumerate((0.1, 0.25, 0.5)):
+        strong = strong_labels(shape, density, seed=70 + i + sum(shape))
+        want = regions.junction_merge_mask(strong)
+        for th, tww in ((8, 1), (8, 2), (64, 2)):
+            got = merge_mask_words(strong, th, tww)
+            assert torch.equal(got, want), (density, th, tww)
+
+
+@pytest.mark.parametrize("shape", [(30, 50), (45, 97), (20, 33)])
+def test_merge_mask_word_schedule_at_the_frame_and_tile_edges(shape):
+    """Junctions on the first and last interior rows and columns, line
+    ends whose clear disk crosses tile edges, -1 and 0 labels beside
+    positive ones: equal to the plain version.  Mutation checks on a copy:
+    fails with MM_HALO 7 (a row short), with MM_HALO_WORDS 0 (a word
+    short: the dilations miss taps across the tile's side edges) and when
+    the junction's interior test takes tile coordinates (the window's own
+    origin in place of ys and x0s)."""
+    strong = junctions_at_edges(*shape)
+    want = regions.junction_merge_mask(strong)
+    assert int(want.sum()) > 0
+    for th, tww in ((8, 1), (8, 2), (16, 1)):
+        assert torch.equal(merge_mask_words(strong, th, tww), want), (th,
+                                                                      tww)
+
+
+def test_merge_mask_row_unions_are_the_structuring_elements():
+    """The kernel's row unions cover exactly the plain version's ring,
+    d^2 < 64 and d^2 < 16 offsets (regions.RING_16_36, DISK_64, DISK_16;
+    the runs of pallas_morph.py:_se_runs)."""
+    for groups, offsets in ((MM_RING, regions.RING_16_36),
+                            (MM_D64, regions.DISK_64),
+                            (MM_D16, regions.DISK_16)):
+        assert _element_offsets(groups) == set(map(tuple, offsets))
+    assert MM_HALO == max(dy for _, dys in MM_D64 for dy in dys) + 1
+
+
+# ---- seg_total (csrc/scan.cu): tile descriptors, look-back and forward --
+
+
+def seg_total_tiled(key: torch.Tensor, val: torch.Tensor, cap: int,
+                    tile: int = 8, resident: int = 3, lanes: int = 32,
+                    skip_between: bool = False) -> torch.Tensor:
+    """csrc/scan.cu's seg_total schedule.  A: blocks (min(tiles, resident)
+    of them) walk tiles b, b + g, ...; each tile's exact prefix sums, its
+    elements' last start at or before them and first start after them, and
+    its descriptor (lead, trail or -1 without a start; sums saturated at
+    cap).  B, after the barrier, each block's tiles in reverse: the
+    carry-in from a look back to the nearest earlier tile with a start,
+    the carry-out from a look forward to the nearest later one, `lanes`
+    descriptors at a time; each element's total min(cap, run sum), at a
+    run's first element at least its own value.  skip_between: the
+    carry-out takes only the lead of the tile where the run ends, not
+    those of the tiles between."""
+    k = key.tolist()
+    v = val.tolist()
+    n = len(k)
+    ntiles = -(-n // tile)
+    blocks = min(ntiles, resident)
+
+    def scan_tile(t):
+        lo = t * tile
+        st = [lo + j < n and (lo + j == 0 or k[lo + j] != k[lo + j - 1])
+              for j in range(tile)]
+        pre = [0]
+        for j in range(tile):
+            pre.append(pre[-1] + (v[lo + j] if lo + j < n else 0))
+        last, cur = [], -1
+        for j in range(tile):
+            cur = j if st[j] else cur
+            last.append(cur)
+        nxt, cur = [0] * tile, tile
+        for j in reversed(range(tile)):
+            nxt[j] = cur
+            cur = j if st[j] else cur
+        starts = [j for j in range(tile) if st[j]]
+        return pre, last, nxt, (starts[0] if starts else tile), \
+            (starts[-1] if starts else -1)
+
+    desc = [None] * ntiles
+    for b in range(blocks):                       # A
+        for t in range(b, ntiles, blocks):
+            pre, _, _, first, lastst = scan_tile(t)
+            has = first < tile
+            desc[t] = (min(cap, pre[first] if has else pre[tile]),
+                       min(cap, pre[tile] - pre[lastst]) if has else -1)
+
+    def look_back(t):
+        acc = 0
+        for c in range(t - 1, -1, -lanes):
+            chunk = [desc[tt] if tt >= 0 else (0, -1)
+                     for tt in range(c, c - lanes, -1)]
+            f = next((i for i, d in enumerate(chunk) if d[1] >= 0), lanes)
+            part = sum(d[0] for d in chunk[:f])
+            if f < lanes:
+                part += chunk[f][1]
+            acc = min(cap, acc + part)
+            if f < lanes:
+                return acc
+        raise AssertionError("tile 0 has a start")
+
+    def look_forward(t):
+        acc = 0
+        for c in range(t + 1, ntiles, lanes):
+            chunk = [desc[tt] if tt < ntiles else (0, -1)
+                     for tt in range(c, c + lanes)]
+            f = next((i for i, d in enumerate(chunk) if d[1] >= 0), lanes)
+            part = sum(d[0] for d in chunk[:f + 1])
+            if skip_between and f < lanes:
+                part = chunk[f][0]
+            acc = min(cap, acc + part)
+            if f < lanes:
+                break
+        return acc
+
+    out = [None] * n
+    for b in range(blocks):                       # B
+        for t in reversed(range(b, ntiles, blocks)):
+            pre, last, nxt, first, _ = scan_tile(t)
+            carry_in = look_back(t) if first > 0 else 0
+            carry_out = look_forward(t)
+            for j in range(tile):
+                i = t * tile + j
+                if i >= n:
+                    break
+                s = pre[nxt[j]] - pre[max(last[j], 0)]
+                if last[j] < 0:
+                    s += carry_in
+                if nxt[j] == tile:
+                    s += carry_out
+                s = min(cap, s)
+                if last[j] == j:
+                    s = max(s, pre[j + 1] - pre[j])
+                out[i] = s
+    return torch.tensor(out, dtype=torch.int32)
+
+
+def _runs(lengths, vals):
+    """Keys of the given run lengths (key = run number) and values."""
+    key = np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)
+    return torch.from_numpy(key), torch.from_numpy(
+        np.asarray(vals, dtype=np.int64).astype(np.int32))
+
+
+def _seg_cases():
+    r = np.random.default_rng(31)
+    big = (1 << 31) - 1
+    cases = {}
+    # runs of 17-40 elements across three to six tiles of 8, short runs
+    lengths = [3, 17, 1, 2, 40, 5, 24, 1, 9]
+    cases["runs over three or more tiles"] = (
+        *_runs(lengths, r.integers(0, 60, sum(lengths))), 5000)
+    # a run that ends on a tile's last element, then one that starts on the
+    # next tile's first; a run of exactly one tile
+    lengths = [8, 8, 5, 3, 16, 1, 7]
+    cases["runs ending and starting on tile edges"] = (
+        *_runs(lengths, r.integers(0, 60, sum(lengths))), 5000)
+    cases["one key throughout"] = (
+        *_runs([203], r.integers(0, 9, 203)), 10 ** 6)
+    cases["all keys distinct"] = (
+        *_runs([1] * 77, r.integers(0, 500, 77)), 300)
+    # the running sum reaches cap in the middle of the long runs; some
+    # runs start with a value above cap (their total is that value)
+    lengths = [30, 4, 1, 25, 2, 19]
+    vals = r.integers(0, 90, sum(lengths))
+    vals[34] = 400
+    vals[35] = 500
+    cases["saturating in mid-run"] = (*_runs(lengths, vals), 300)
+    # sums past 2^31 in int64, the cap at the int32 maximum
+    lengths = [12, 3, 26, 1, 6]
+    cases["sums past 2^31"] = (
+        *_runs(lengths, r.integers(1 << 28, big, sum(lengths))), big)
+    # S not a multiple of the tile, and unsorted keys (runs of equal keys
+    # in index order: key 5 returns after other keys)
+    key = torch.tensor([5, 5, 2, 2, 2, 5, 5, 5, 5, 5, 5, 5, 1, 1, 7, 7, 7,
+                        7, 7, 7, 7, 7, 7, 7, 7, 7, 5, 5, 5], dtype=torch.int32)
+    cases["ragged and unsorted"] = (
+        key, torch.from_numpy(r.integers(0, 40, key.shape[0])
+                              .astype(np.int32)), 120)
+    # the strength table's shape: a few hundred labelled rows, then the
+    # tail of key n and value 0
+    lengths = list(r.integers(1, 30, 12)) + [150]
+    vals = np.r_[r.integers(0, 20, sum(lengths) - 150), np.zeros(150)]
+    cases["a tail of one key and value 0"] = (*_runs(lengths, vals), 100)
+    return cases
+
+
+SEG_CASES = _seg_cases()
+
+
+@pytest.mark.parametrize("case", list(SEG_CASES))
+def test_seg_total_tiled_schedule_matches_plain(case):
+    """csrc/scan.cu's one-launch seg_total, tiles of 8 and 5 elements,
+    with one block, three blocks and as many blocks as tiles (3 resident
+    blocks is fewer than the tiles of every case, so B rescans all but one
+    of a block's tiles), look-backs of 32 and 2 descriptors at a time: equal to
+    hopper_scan.seg_total_plain."""
+    key, val, cap = SEG_CASES[case]
+    want = hopper_scan.seg_total_plain(key, val, cap)
+    for tile in (8, 5):
+        for resident in (1, 3, 10 ** 6):
+            for lanes in (32, 2):
+                got = seg_total_tiled(key, val, cap, tile, resident, lanes)
+                assert torch.equal(got, want), (tile, resident, lanes)
+
+
+def test_seg_total_needs_the_tiles_between():
+    """Mutation check: with the carry-out taking only the lead of the tile
+    where a run ends (skipping the tiles in between), runs over three or
+    more tiles get wrong totals."""
+    key, val, cap = SEG_CASES["runs over three or more tiles"]
+    want = hopper_scan.seg_total_plain(key, val, cap)
+    assert torch.equal(seg_total_tiled(key, val, cap), want)
+    assert not torch.equal(
+        seg_total_tiled(key, val, cap, skip_between=True), want)
