@@ -30,13 +30,15 @@ the final line):
      edge_bin, the rect strings, the boundary marks), quant_despeckle's
      on the rect path's blurred colours and thinned edges, and hyp's on
      the 720p hypotheses and the seed-0 corpus; nvcc's -Xptxas -v lines
-     of merge_mask.cu, scan.cu, thin.cu, despeckle2.cu, morph.cu,
-     quant_despeckle.cu, mkpl.cu, links_ccl.cu, ccl.cu and hyp.cu; K2 in
-     both modes; and, where build/parent/ holds a git archive of the
-     parent commit, the parent's merge_mask and seg_total held bit-equal
-     to these and timed in turns with them, and where the parent's
-     seg_total is two three-launch scans, their six kernels timed one by
-     one;
+     of distinct_bids.cu, edge_front.cu, merge_mask.cu, scan.cu,
+     thin.cu, despeckle2.cu, morph.cu, quant_despeckle.cu, mkpl.cu,
+     links_ccl.cu, ccl.cu and hyp.cu; K2 in both modes; edge_front's
+     1/sqrt: __frsqrt_rn against the float64 form on every float32 above
+     1e-10 (a failure if any differs);
+     distinct_bids' count of pixels whose window holds an id; and, where
+     build/parent/ holds a git archive of the parent commit, the
+     parent's distinct_bids and edge_front held bit-equal to these and
+     timed in turns with them;
   4. the main paths, each with every launch count set to 0 just before it
      and read just after, and the kernel library's own count of kernels
      held equal to the kernels its wrappers launched (7 for poly_frame,
@@ -212,31 +214,72 @@ def stream_of(torch):
     return torch.cuda.current_stream().cuda_stream
 
 
-# the parent's two scans kernel by kernel (tile, carry, fix): this source
-# includes the parent's csrc/scan.cu, so its kernels are in reach
-PARENT_SCAN_PARTS = r"""
-#include "scan.cu"
+# every float32 x from lo on, count of them: __frsqrt_rn(x), which
+# csrc/edge_front.cu's unit_rsqrt takes, against the float64 1/sqrt
+# rounded once to float32, which the plain version (gradient._rsqrt) and
+# the parent kernel take; counts the x where the two differ and keeps the
+# smallest
+RSQRT_CHECK = r"""
+#include <cuda_runtime.h>
 
-extern "C" int rd_parent_scan_part(int part, const void* key,
-                                   const void* val, void* out, void* scratch,
-                                   int n, int op, int cap, int rev,
-                                   void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int ntiles = (n + kTile - 1) / kTile;
-  int* sc = (int*)scratch;
-  if (part == 0)
-    tile_kernel<<<ntiles, kThreads, 0, s>>>(
-        (const int*)key, (const int*)val, (int*)out, sc, sc + ntiles,
-        sc + 2 * ntiles, n, op, cap, rev);
-  else if (part == 1)
-    carry_kernel<<<1, kThreads, 0, s>>>(sc, sc + ntiles, sc + 3 * ntiles,
-                                        ntiles, op, cap);
-  else
-    fix_kernel<<<ntiles, kThreads, 0, s>>>((int*)out, sc + 3 * ntiles,
-                                           sc + 2 * ntiles, n, op, cap, rev);
+__global__ void rsqrt_check(unsigned lo, unsigned long long count,
+                            unsigned long long* bad, unsigned* first) {
+  const unsigned long long step = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                              threadIdx.x;
+       i < count; i += step) {
+    const unsigned u = lo + (unsigned)i;
+    const float x = __uint_as_float(u);
+    const float ref = (float)(1.0 / sqrt((double)x));
+    if (__float_as_uint(__frsqrt_rn(x)) != __float_as_uint(ref)) {
+      atomicAdd(bad, 1ull);
+      atomicMin(first, u);
+    }
+  }
+}
+
+extern "C" int rd_rsqrt_check(unsigned lo, unsigned long long count,
+                              void* bad, void* first, void* stream) {
+  rsqrt_check<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(
+      lo, count, (unsigned long long*)bad, (unsigned*)first);
   return (int)cudaGetLastError();
 }
 """
+
+
+def rsqrt_mismatches(torch, build_mod):
+    """(floats checked, floats where __frsqrt_rn differs from the float64
+    form, the smallest such float or None): every float32 above 1e-10f,
+    +inf included, the inputs edge_front's `big` branch can meet."""
+    import ctypes
+    out_dir = os.path.join(ROOT, "build", "rsqrt_check")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "rsqrt_check.cu")
+    with open(src, "w") as f:
+        f.write(RSQRT_CHECK)
+    so = os.path.join(out_dir, "librsqrt_check.so")
+    res = subprocess.run([build_mod._nvcc(), *build_mod.COMPILE_FLAGS,
+                          "-shared", "-o", so, src], capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"the 1/sqrt check does not build: {res.stderr}")
+    lib = ctypes.CDLL(so)
+    P = ctypes.c_void_p
+    lib.rd_rsqrt_check.argtypes = [ctypes.c_uint, ctypes.c_ulonglong, P, P,
+                                   P]
+    lib.rd_rsqrt_check.restype = ctypes.c_int
+    lo = int(np.float32(1e-10).view(np.uint32)) + 1
+    count = 0x7F800000 - lo + 1
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    first = torch.full((1,), -1, dtype=torch.int32, device="cuda")
+    if lib.rd_rsqrt_check(lo, count, bad.data_ptr(), first.data_ptr(),
+                          stream_of(torch)):
+        fail("the 1/sqrt check did not launch")
+    n_bad = int(bad.item())
+    x = None
+    if n_bad:
+        x = float(np.uint32(first.item() & 0xFFFFFFFF).view(np.float32))
+    return count, n_bad, x
 
 
 def bind_thin(torch, lib):
@@ -321,79 +364,63 @@ def bind_seg_total(torch, lib):
     return seg_total_fn
 
 
-def parent_kernels(torch, build_mod):
-    """The merge_mask and seg_scan kernels of the parent commit, for timing
-    in turns with this tree's: built from build/parent/ (a git archive of
-    the parent, unpacked there by hand; absent from a plain checkout, and
-    then None) into one library with the parent's C signatures and its own
-    launch counter.  Returns (merge_mask_fn(strong), seg_total_fn(key, val,
-    cap), parts): seg_total_fn is the parent's rd_seg_total, or where it
-    has none its two three-launch scans (a forward satsum scan, then a
-    reverse max scan of its output, through the `rev` argument those
-    parents' rd_seg_scan took); parts(key, val, cap) maps the six kernels
-    of those two scans to calls of their own, and is None where the parent
-    has rd_seg_total."""
+def bind_distinct_bids(torch, lib):
+    """distinct_bids_fn(boundary) -> (4, H, W) slots through lib's
+    rd_distinct_bids."""
     import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rd_distinct_bids.argtypes = [P, P, I, I, P]
+    lib.rd_distinct_bids.restype = ctypes.c_int
+
+    def distinct_bids_fn(boundary):
+        h, w = boundary.shape
+        out = torch.empty((4, h, w), dtype=torch.int32,
+                          device=boundary.device)
+        err = lib.rd_distinct_bids(boundary.data_ptr(), out.data_ptr(), h, w,
+                                   stream_of(torch))
+        if err:
+            fail(f"rd_distinct_bids of {lib._name} did not launch (error "
+                 f"{err})")
+        return out
+
+    return distinct_bids_fn
+
+
+def bind_edge_front(torch, lib):
+    """edge_front_fn(labb) -> (em, vec) through lib's rd_edge_front."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rd_edge_front.argtypes = [P, P, P, I, I, P]
+    lib.rd_edge_front.restype = ctypes.c_int
+
+    def edge_front_fn(labb):
+        h, w = labb.shape[:2]
+        em = torch.empty((h, w), dtype=torch.float32, device=labb.device)
+        vec = torch.empty((h, w, 2), dtype=torch.float32, device=labb.device)
+        err = lib.rd_edge_front(labb.data_ptr(), em.data_ptr(),
+                                vec.data_ptr(), h, w, stream_of(torch))
+        if err:
+            fail(f"rd_edge_front of {lib._name} did not launch (error {err})")
+        return em, vec
+
+    return edge_front_fn
+
+
+def parent_kernels(torch, build_mod):
+    """The distinct_bids and edge_front kernels of the parent commit, for
+    timing in turns with this tree's: built from build/parent/ (a git
+    archive of the parent, unpacked there by hand; absent from a plain
+    checkout, and then None) into one library with its own launch
+    counter.  Returns {"distinct_bids": distinct_bids_fn(boundary),
+    "edge_front": edge_front_fn(labb)}."""
     src = os.path.join(ROOT, "build", "parent", "rectdetect_tpu_torch",
                        "csrc")
     if not os.path.isdir(src):
         return None
-    with open(os.path.join(src, "scan.cu")) as f:
-        one_launch = "rd_seg_total" in f.read()
-    if one_launch:
-        lib = build_kernels(build_mod, src,
-                            os.path.join(ROOT, "build", "parent"),
-                            ("merge_mask", "scan"))
-        return bind_merge_mask(torch, lib), bind_seg_total(torch, lib), None
-    with open(os.path.join(src, "scan_parts.cu"), "w") as f:
-        f.write(PARENT_SCAN_PARTS)
     lib = build_kernels(build_mod, src, os.path.join(ROOT, "build", "parent"),
-                        ("merge_mask", "scan_parts"))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rd_seg_scan.argtypes = [P, P, P, P, I, I, I, I, P]
-    lib.rd_parent_scan_part.argtypes = [I, P, P, P, P, I, I, I, I, P]
-    for name in ("rd_seg_scan", "rd_parent_scan_part"):
-        getattr(lib, name).restype = ctypes.c_int
-
-    def check(err, what):
-        if err:
-            fail(f"the parent's {what} did not launch (error {err})")
-
-    def scan_args(key, val, op, cap, rev):
-        """(arguments of one rd_seg_scan call, its output)"""
-        n = key.shape[0]
-        out = torch.empty_like(val)
-        scratch = torch.empty((4 * max(1, -(-n // 1024)),),
-                              dtype=torch.int32, device=key.device)
-        return (key.data_ptr(), val.data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), n, op, cap, rev, stream_of(torch)), out
-
-    def scan(key, val, op, cap, rev):
-        args, out = scan_args(key, val, op, cap, rev)
-        check(lib.rd_seg_scan(*args), "rd_seg_scan")
-        return out
-
-    def seg_total_fn(key, val, cap):
-        return scan(key, scan(key, val, 0, cap, 0), 1, cap, 1)
-
-    def parts(key, val, cap):
-        """The six kernels on the strength table: each scan's tile, carry
-        and fix on scratch that one whole scan filled first (the fix
-        re-applies the carries to that scan's output in place: the same
-        work each call)."""
-        calls = {}
-        fwd = scan(key, val, 0, cap, 0)
-        for name, op, inp, rev in (("forward satsum", 0, val, 0),
-                                   ("reverse max", 1, fwd, 1)):
-            args, _ = scan_args(key, inp, op, cap, rev)
-            check(lib.rd_seg_scan(*args), "rd_seg_scan")
-            for part, kernel in enumerate(("tile", "carry", "fix")):
-                calls[f"{name} {kernel}"] = (
-                    lambda part=part, args=args: check(
-                        lib.rd_parent_scan_part(part, *args), "scan part"))
-        return calls
-
-    return bind_merge_mask(torch, lib), seg_total_fn, parts
+                        ("distinct_bids", "edge_front"))
+    return {"distinct_bids": bind_distinct_bids(torch, lib),
+            "edge_front": bind_edge_front(torch, lib)}
 
 
 def main() -> int:
@@ -497,6 +524,34 @@ def main() -> int:
         return all(torch.equal(getattr(a, f), getattr(b, f))
                    for f in a._fields)
 
+    # the redesigned kernels (csrc/distinct_bids.cu, csrc/edge_front.cu,
+    # csrc/merge_mask.cu, csrc/scan.cu, csrc/thin.cu, csrc/despeckle2.cu,
+    # csrc/morph.cu, csrc/quant_despeckle.cu, csrc/mkpl.cu,
+    # csrc/links_ccl.cu, csrc/ccl.cu, csrc/hyp.cu): their registers and
+    # spills; distinct_bids and edge_front timed in turns with the parent
+    # commit's kernels where they were brought along (build/parent/)
+    parent = parent_kernels(torch, _build)
+    redesign = {"card": card, "ptxas": {
+        k: ptxas_lines(_build.ptxas_log.get(k, "not rebuilt in this run"))
+        for k in ("distinct_bids.cu", "edge_front.cu", "merge_mask.cu",
+                  "scan.cu", "thin.cu", "despeckle2.cu", "morph.cu",
+                  "quant_despeckle.cu", "mkpl.cu", "links_ccl.cu", "ccl.cu",
+                  "hyp.cu")}}
+    for k, lines in redesign["ptxas"].items():
+        for line in lines:
+            phase(f"phase 3 ptxas {k}: {line}")
+
+    def in_turns(this_call, parent_call):
+        """Device and wrapper ms of one turn each of parent, this, this,
+        parent."""
+        out = {"order": "parent, this, this, parent", "device_ms": [],
+               "wrapper_ms": []}
+        for call in (parent_call, this_call, this_call, parent_call):
+            out["device_ms"].append(
+                device_ms(torch, _build, call, turns=1)[0][0])
+            out["wrapper_ms"].append(cuda_ms(torch, call, 10))
+        return out
+
     em, vec = hopper_grad.edge_front(labb)
     em_p, vec_p = hopper_grad.edge_front_plain(labb)
     torch.cuda.synchronize()
@@ -512,6 +567,30 @@ def main() -> int:
            lambda: hopper_grad.edge_front(labb),
            cuda_ms(torch, lambda: hopper_grad.edge_front_plain(labb), 5),
            nb(labb, em, vec), 25 * H * W)
+
+    # edge_front in turns with the parent's kernel, bit-equal to it; and
+    # the 1/sqrt forms held equal on every float of ivlen > 1e-10
+    def ef_call():
+        return hopper_grad.edge_front(labb)
+    entry = {"bits_differ_from_plain": nbits}
+    if parent is not None:
+        def parent_call():
+            return parent["edge_front"](labb)
+        em_q, vec_q = parent_call()
+        if not (torch.equal(em_q, em) and torch.equal(vec_q, vec)):
+            fail("edge_front: the parent's kernel differs")
+        entry["parent_bit_equal"] = True
+        entry["parent_bits_differ_from_plain"] = int(
+            (em_q != em_p).sum() + (vec_q != vec_p).sum())
+        entry["parent_turns"] = in_turns(ef_call, parent_call)
+    checked, n_bad, first_bad = rsqrt_mismatches(torch, _build)
+    entry["rsqrt"] = {"floats_checked": checked, "differ": n_bad,
+                      "first_differing": first_bad}
+    redesign["edge_front"] = entry
+    phase(f"phase 3 edge_front: {json.dumps(entry)}")
+    if n_bad:
+        fail(f"edge_front's __frsqrt_rn differs from the float64 1/sqrt on "
+             f"{n_bad} floats above 1e-10 (first {first_bad!r})")
 
     thin = hopper_thin.thinthres(em, vec)
     thin_p = hopper_thin.thin_plain(em, vec)
@@ -608,34 +687,6 @@ def main() -> int:
            nb(comp.idx) + 8 * n_live + 2 * 13 * 4 * cap + nb(got[1]),
            20 * rounds * n_live)
 
-    # the redesigned kernels (csrc/merge_mask.cu, csrc/scan.cu,
-    # csrc/thin.cu, csrc/despeckle2.cu, csrc/morph.cu,
-    # csrc/quant_despeckle.cu, csrc/mkpl.cu, csrc/links_ccl.cu, csrc/ccl.cu,
-    # csrc/hyp.cu): their registers and spills; mkpl's device time at 0, 1
-    # and all rounds (the fixed cost and the cost per round); merge_mask and
-    # seg_scan timed in turns with the parent commit's kernels where they
-    # were brought along (build/parent/)
-    parent = parent_kernels(torch, _build)
-    redesign = {"card": card, "ptxas": {
-        k: ptxas_lines(_build.ptxas_log.get(k, "not rebuilt in this run"))
-        for k in ("merge_mask.cu", "scan.cu", "thin.cu", "despeckle2.cu",
-                  "morph.cu", "quant_despeckle.cu", "mkpl.cu",
-                  "links_ccl.cu", "ccl.cu", "hyp.cu")}}
-    for k, lines in redesign["ptxas"].items():
-        for line in lines:
-            phase(f"phase 3 ptxas {k}: {line}")
-
-    def in_turns(this_call, parent_call):
-        """Device and wrapper ms of one turn each of parent, this, this,
-        parent."""
-        out = {"order": "parent, this, this, parent", "device_ms": [],
-               "wrapper_ms": []}
-        for call in (parent_call, this_call, this_call, parent_call):
-            out["device_ms"].append(
-                device_ms(torch, _build, call, turns=1)[0][0])
-            out["wrapper_ms"].append(cuda_ms(torch, call, 10))
-        return out
-
     # K2 in both modes: within FLOAT_ATOL of the plain version with
     # edge_thin > 0 equal
     redesign["thin"] = {}
@@ -654,6 +705,8 @@ def main() -> int:
         redesign["thin"][mode] = entry
         phase(f"phase 3 thinthres[{mode}]: {json.dumps(entry)}")
 
+    # mkpl's device time at 0, 1 and all rounds (the fixed cost and the
+    # cost per round)
     split = {
         f"rounds {iters - 1}": device_ms(
             torch, _build, lambda: hopper_mkpl.mkpl_subdivide(
@@ -705,24 +758,9 @@ def main() -> int:
                skey, sval, thre), 5), nb(skey, sval, tot), 2 * sp,
            kernels=hopper_scan.TOTAL_KERNELS)
 
-    # seg_total in turns with the parent's, bit-equal to it, and the
-    # parent's six kernels (tile, carry, fix of each of its two scans) one
-    # by one
-    def seg_call():
-        return hopper_scan.seg_total_sorted(skey, sval, thre)
+    # the strength table's shape
     entry = {"rows": sp, "live_rows": int((skey < H * W).sum()),
              "runs": int((skey[1:] != skey[:-1]).sum()) + 1}
-    if parent is not None:
-        def parent_call():
-            return parent[1](skey, sval, thre)
-        if not torch.equal(parent_call(), tot):
-            fail("seg_scan: the parent's kernels differ")
-        entry["parent_bit_equal"] = True
-        entry["parent_turns"] = in_turns(seg_call, parent_call)
-        if parent[2] is not None:
-            entry["parent_parts_device_ms"] = {
-                name: device_ms(torch, _build, fn)[0]
-                for name, fn in parent[2](skey, sval, thre).items()}
     redesign["seg_scan"] = entry
     phase(f"phase 3 seg_scan: {json.dumps(entry)}")
 
@@ -812,18 +850,8 @@ def main() -> int:
            cuda_ms(torch, lambda: regions.junction_merge_mask(strong), 3),
            nb(strong, mask), H * W)
 
-    # merge_mask in turns with the parent's kernel, bit-equal to it
-    def mm_call():
-        return hopper_merge_mask.junction_merge_mask(strong)
     entry = {"edge_pixels": int((strong > 0).sum()),
              "mask_pixels": int(mask.sum())}
-    if parent is not None:
-        def parent_call():
-            return parent[0](strong)
-        if not torch.equal(parent_call(), mask):
-            fail("merge_mask: the parent's kernel differs")
-        entry["parent_bit_equal"] = True
-        entry["parent_turns"] = in_turns(mm_call, parent_call)
     redesign["merge_mask"] = entry
     phase(f"phase 3 merge_mask: {json.dumps(entry)}")
 
@@ -865,8 +893,13 @@ def main() -> int:
     bids = hopper_bids.distinct_bids(boundary)
     bids_p = hopper_bids.distinct_bids_plain(boundary)
     ndiff = sum(int((a != b).sum()) for a, b in zip(bids, bids_p))
+    # the pixels whose 7x7 window holds an id: the only ones that merge
+    # row lists (csrc/distinct_bids.cu)
+    held = torch.nn.functional.max_pool2d(
+        (boundary > 0).float()[None, None], 7, 1, 3)[0, 0] > 0
     phase(f"phase 3 distinct_bids: {ndiff} slot values differ "
-          f"({int((boundary >= 0).sum())} boundary pixels)")
+          f"({int((boundary >= 0).sum())} boundary pixels, "
+          f"{int(held.sum())} pixels whose window holds an id)")
     if ndiff:
         fail(f"distinct_bids: {ndiff} slot values differ from the plain "
              f"version")
@@ -877,6 +910,21 @@ def main() -> int:
            lambda: hopper_bids.distinct_bids(boundary),
            cuda_ms(torch, lambda: hopper_bids.distinct_bids_plain(boundary),
                    3), nb(boundary, *bids), H * W)
+
+    # distinct_bids in turns with the parent's kernel, bit-equal to it
+    def db_call():
+        return hopper_bids.distinct_bids(boundary)
+    entry = {"ids": int((boundary > 0).sum()),
+             "windows_holding_an_id": int(held.sum())}
+    if parent is not None:
+        def parent_call():
+            return parent["distinct_bids"](boundary)
+        if not torch.equal(parent_call(), torch.stack(bids)):
+            fail("distinct_bids: the parent's kernel differs")
+        entry["parent_bit_equal"] = True
+        entry["parent_turns"] = in_turns(db_call, parent_call)
+    redesign["distinct_bids"] = entry
+    phase(f"phase 3 distinct_bids: {json.dumps(entry)}")
 
     # K4 on each of its inputs on the main paths: the poly path's edge_bin
     # (the row above), the rect strings (weak_strong_labels) and the

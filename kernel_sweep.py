@@ -4,13 +4,17 @@ compile-time constants, in turns, on the 720p inputs of
 bench.synth_frame(720, 1280, seed=0).
 
     python3 kernel_sweep.py [hyp] [morph] [quant] [thin] [despeckle2]
-                            [merge_mask] [seg_scan] [thin-phases]
+                            [merge_mask] [seg_scan] [distinct_bids]
+                            [edge_front] [thin-phases]
                             [despeckle2-phases] [merge_mask-phases]
-                            [seg_scan-phases] [merge_mask-parent-phases]
+                            [seg_scan-phases] [distinct_bids-phases]
+                            [edge_front-phases]
+                            [distinct_bids-parent-phases]
+                            [edge_front-parent-phases]
 
-(all but the last without an argument).  hyp: hyp.cu at 1, 2, 4 and 8 threads
-per hull candidate (kLanes), on the 720p hypotheses and the seed-0
-384-group corpus.  morph: morph.cu's output tile (kTileRows rows x
+(all but the last two without an argument).  hyp: hyp.cu at 1, 2, 4 and
+8 threads per hull candidate (kLanes), on the 720p hypotheses and the
+seed-0 384-group corpus.  morph: morph.cu's output tile (kTileRows rows x
 kTileWords 32-pixel words), poly_branch on the poly path's
 strength-filtered edges and rect on the rect path's edge_bin.  quant:
 quant_despeckle.cu's tile rows and rows per pass, and its level-code
@@ -24,17 +28,22 @@ size (2^kSlotBits slots) on the rect path's 720p region labels.
 merge_mask: merge_mask.cu's output tile (kTileRows rows x kTileWords
 32-pixel words) on the rect path's 720p strong labels.  seg_scan:
 scan.cu's seg_total block size and items a thread (kTotalThreads x
-kTotalItems elements a tile) on the 720p strength table.
-thin-phases, despeckle2-phases, merge_mask-phases and seg_scan-phases:
-the shipped kernel beside copies that return at the end of each of its
-phases (CUTS; `if (h > 0) return;`, or `n` where the kernel has no `h`,
-before the phase's first line, so nothing before it is dead code), on
-the same inputs; a cut copy's output is not the function's and is not
-checked.  merge_mask-parent-phases: the same for the parent commit's
-merge_mask.cu, from build/parent/ (a git archive of the parent, see
-chip_smoke.py), with the cuts whose line that source holds: those of the
-one-thread-a-pixel kernel that merge_mask.cu replaced, or this tree's
-where the parent has its kernel.
+kTotalItems elements a tile) on the 720p strength table.  distinct_bids:
+distinct_bids.cu's tile (kTileRows x kTileCols pixels), block size
+(kThreads) and its stores as __stcs (kStreamStores = 1) on the rect
+path's 720p boundary ids.
+edge_front: edge_front.cu's tile (kTileCols columns of threads,
+kRowsPerThread rows each, kThreads a block) on the 720p blurred Lab
+planes, each build held bit-equal to the shipped kernel.  The -phases sweeps: the shipped kernel beside copies that
+return at the end of each of its phases (CUTS; `if (h > 0) return;`, or
+`n` where the kernel has no `h`, before the phase's first line, so
+nothing before it is dead code), on the same inputs; a cut copy's output
+is not the function's and is not checked.  distinct_bids-parent-phases
+and edge_front-parent-phases: the same for the parent commit's
+distinct_bids.cu and edge_front.cu (one thread a pixel), from
+build/parent/ (a git archive of the parent, see chip_smoke.py), with the
+cuts whose line that source holds; a cut that ends inside a pixel's work
+stores one value of it, so that the work stays.
 
 Run from the root of a checkout, on a machine with one CUDA card and nvcc.
 Each setting is a copy of csrc/ under build/kernel_sweep/<kernel>/<n>/
@@ -75,14 +84,47 @@ CUTS = {
     ("scan", "A, barrier"): "  // B: the totals, the tiles in reverse",
     ("scan", "A, barrier, looks"):
         "    __syncthreads();\n    const int base = t * kTotalTile",
-    # the merge_mask.cu this one replaced (one thread a pixel over byte
-    # windows), for merge_mask-parent-phases
-    ("merge_mask", "bytes: launch"):
-        "  for (int i = tid; i < kNW * kNW; i += nthreads) {",
-    ("merge_mask", "bytes: staging"):
-        "  for (int i = tid; i < kJW * kJW; i += nthreads) {",
-    ("merge_mask", "bytes: staging, junction code"):
-        "  const int gx = x0 + threadIdx.x;",
+    # a cut after a phase that only fills shared memory reads one of its
+    # arrays, as the rest of the kernel would: shared arrays that no code
+    # reads are dropped by the compiler, and the work that fills them
+    ("distinct_bids", "launch"): "  // stage: a warp a row",
+    ("distinct_bids", "staging"): (
+        "  // bits and row lists: a warp a",
+        "  if (h > 0) {\n    if (ids[warp][lane] < 0) out[0] = 1;\n"
+        "    return;\n  }\n"),
+    ("distinct_bids", "staging, bits, lists"): (
+        "  // merge and store: a warp an output word",
+        "  if (h > 0) {\n    if (bits[warp][0] == 1u && "
+        "lists[warp][lane].x < 0) out[0] = 1;\n    return;\n  }\n"),
+    ("edge_front", "launch"): "  // stage: staged pixel (r, c)",
+    ("edge_front", "staging"): (
+        "  // vec: edgevec on L, the 5x5 taps",
+        "  if (h > 0) {\n    if (raw[threadIdx.y][threadIdx.x] + "
+        "qnt[2][threadIdx.y][threadIdx.x] < -1.0f) em[0] = 0.0f;\n"
+        "    return;\n  }\n"),
+    ("edge_front", "staging, vec"): (
+        "  // em: edge_lab on the quantized",
+        "  if (h > 0) {\n    if (qnt[1][threadIdx.y][threadIdx.x] < -1.0f) "
+        "em[0] = 0.0f;\n    return;\n  }\n"),
+    # the kernels these replaced (one thread a pixel), for the
+    # -parent-phases sweeps; a cut that ends inside the pixel's work stores
+    # one value that depends on it, so the compiler keeps that work
+    ("distinct_bids", "parent: launch"):
+        "  for (int i = tid; i < kTW * kTW; i += rd::kBlockX * rd::kBlockY) {",
+    ("distinct_bids", "parent: staging"): (
+        "  const long long n = (long long)h * w;",
+        "  if (h > 0) {\n    if (tile[tid] < 0) out[0] = 1;\n    return;\n"
+        "  }\n"),
+    ("edge_front", "parent: launch"): "  // ---- edgevec on L",
+    ("edge_front", "parent: vec taps"): (
+        "  const float ivlen = __fmaf_rn(vx, vx, vy * vy);\n"
+        "  // correctly rounded 1/sqrt",
+        "  if (h > 0) { em[(size_t)y * w + x] = vx + vy; return; }\n"),
+    ("edge_front", "parent: vec taps, rs"): (
+        "  const bool big = ivlen > 1e-10f;\n  const size_t p",
+        "  if (h > 0) { em[(size_t)y * w + x] = rs; return; }\n"),
+    ("edge_front", "parent: vec taps, rs, vec stores"):
+        "  // ---- edge_lab on the quantized planes",
     ("thin", "launch"): "  const int x0 = blockIdx.x * kTileCols;",
     ("thin", "window"):
         "#pragma unroll\n  for (int i = tid; i < kWinRows * kCells",
@@ -94,6 +136,16 @@ CUTS = {
 }
 # the cut's guard variable, where the kernel has no `h`
 GUARD = {"scan": "n"}
+
+
+def cut_of(stem: str, name: str) -> tuple[str, str]:
+    """(the source line a cut returns before, the code it inserts there):
+    CUTS[stem, name], a line alone taking `if (<guard> > 0) return;`."""
+    cut = CUTS[stem, name]
+    if isinstance(cut, tuple):
+        return cut
+    return cut, f"  if ({GUARD.get(stem, 'h')} > 0) return;\n"
+
 
 SWEEPS = {
     "hyp": ("hyp", [{"kLanes": n} for n in (4, 1, 2, 8)]),
@@ -118,15 +170,31 @@ SWEEPS = {
     "seg_scan": ("scan", [
         {"kTotalThreads": t, "kTotalItems": i} for t, i in (
             (256, 4), (128, 4), (512, 4), (1024, 4), (128, 8), (256, 8))]),
+    "distinct_bids": ("distinct_bids", [
+        {"kTileRows": r, "kTileCols": c, "kThreads": t, "kStreamStores": z}
+        for r, c, t, z in (
+            (8, 32, 256, 0), (8, 32, 256, 1), (8, 32, 128, 0),
+            (8, 32, 128, 1), (4, 32, 128, 1), (16, 32, 256, 1),
+            (8, 64, 256, 1), (16, 64, 256, 1), (16, 32, 128, 1))]),
+    "edge_front": ("edge_front", [
+        {"kTileCols": c, "kRowsPerThread": r, "kThreads": t}
+        for c, r, t in (
+            (64, 4, 256), (32, 4, 128), (32, 4, 256), (32, 2, 128),
+            (32, 2, 256), (32, 8, 128), (64, 2, 128), (64, 4, 128),
+            (64, 2, 256))]
+),
 }
 for _kernel, _stem in (("thin", "thin"), ("despeckle2", "despeckle2"),
-                       ("merge_mask", "merge_mask"), ("seg_scan", "scan")):
+                       ("merge_mask", "merge_mask"), ("seg_scan", "scan"),
+                       ("distinct_bids", "distinct_bids"),
+                       ("edge_front", "edge_front")):
     SWEEPS[f"{_kernel}-phases"] = (_stem, [{}] + [
         {"cut": name} for (stem, name) in CUTS
-        if stem == _stem and not name.startswith("bytes")])
-SWEEPS["merge_mask-parent-phases"] = ("merge_mask", [{"src": "parent"}] + [
-    {"src": "parent", "cut": name} for (stem, name) in CUTS
-    if stem == "merge_mask"])
+        if stem == _stem and not name.startswith("parent")])
+for _kernel in ("distinct_bids", "edge_front"):
+    SWEEPS[f"{_kernel}-parent-phases"] = (_kernel, [{"src": "parent"}] + [
+        {"src": "parent", "cut": name} for (stem, name) in CUTS
+        if stem == _kernel and name.startswith("parent")])
 PARENT = os.path.join(ROOT, "build", "parent")
 
 
@@ -142,7 +210,7 @@ def settings_of(kernel: str) -> list:
     with open(path) as f:
         text = f.read()
     return [s for s in settings
-            if "cut" not in s or text.count(CUTS[stem, s["cut"]]) == 1]
+            if "cut" not in s or text.count(cut_of(stem, s["cut"])[0]) == 1]
 
 
 def label(setting: dict) -> str:
@@ -166,12 +234,11 @@ def build_at(build_mod, kernel, n, setting):
         if name == "src":
             continue
         if name == "cut":
-            marker = CUTS[stem, value]
+            marker, code = cut_of(stem, value)
             if text.count(marker) != 1:
                 fail(f"{stem}.cu does not hold the line of cut {value!r} "
                      f"once")
-            text = text.replace(
-                marker, f"  if ({GUARD.get(stem, 'h')} > 0) return;\n" + marker)
+            text = text.replace(marker, code + marker)
             continue
         text, count = re.subn(rf"constexpr int {name} = \d+;",
                               f"constexpr int {name} = {value};", text)
@@ -256,13 +323,16 @@ def main() -> int:
     from rectdetect_tpu_torch import parity
     from rectdetect_tpu_torch.config import DEFAULT_CONFIG as cfg
     from rectdetect_tpu_torch.geometry import quad
-    from rectdetect_tpu_torch.ops import (_build, ccl, fp, hopper_blblur,
-                                          hopper_ccl, hopper_grad,
-                                          hopper_links, hopper_merge_mask,
-                                          hopper_morph, hopper_scan,
-                                          hopper_thin, morphology, regions)
+    from rectdetect_tpu_torch.ops import (_build, ccl, fp, hopper_bids,
+                                          hopper_blblur, hopper_ccl,
+                                          hopper_grad, hopper_links,
+                                          hopper_merge_mask, hopper_morph,
+                                          hopper_scan, hopper_thin,
+                                          morphology, regions)
     from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
-    from rectdetect_tpu_torch.pipeline.rect import (rect_hypotheses,
+    from rectdetect_tpu_torch.pipeline.rect import (boundary_labels,
+                                                    rect_hypotheses,
+                                                    region_merge,
                                                     region_smoothing,
                                                     weak_strong_labels)
     dev = torch.device("cuda", 0)
@@ -353,6 +423,22 @@ def main() -> int:
                 lambda fn: fn(seg0, thre),
                 regions.sizes_despeckle2(seg0, thre))},
             lambda torch, a, b: torch.equal(a, b))
+
+    if any(k.startswith("distinct_bids") for k in kernels):
+        weak, strong = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
+        despeck = region_smoothing(fe.packed0, weak, fe.edge_thin, cfg)[1]
+        boundary = boundary_labels(region_merge(despeck, strong, cfg)[1],
+                                   cfg)[0]
+        inputs["distinct_bids"] = (chip_smoke.bind_distinct_bids, {
+            "720p boundary ids": (
+                lambda fn: fn(boundary),
+                torch.stack(hopper_bids.distinct_bids_plain(boundary)))},
+            lambda torch, a, b: torch.equal(a, b))
+    if any(k.startswith("edge_front") for k in kernels):
+        inputs["edge_front"] = (chip_smoke.bind_edge_front, {
+            "720p blurred Lab": (lambda fn: fn(fe.labb),
+                                 hopper_grad.edge_front(fe.labb))},
+            lambda torch, a, b: all(torch.equal(x, y) for x, y in zip(a, b)))
 
     result = {"card": smi.stdout.strip()}
     for kernel in kernels:

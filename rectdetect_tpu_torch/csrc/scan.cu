@@ -451,7 +451,13 @@ int total_resident_blocks() {
 
 }  // namespace
 
-// scratch: 4 * ceil(n / 1024) int32
+// scratch words (int32) of one rd_seg_scan call: four a tile (its start
+// flag, aggregate, first start and carry-in)
+extern "C" int rd_seg_scan_scratch_words(int n) {
+  return n > 0 ? 4 * ((n + kTile - 1) / kTile) : 0;
+}
+
+// scratch: rd_seg_scan_scratch_words(n) int32, any contents
 extern "C" int rd_seg_scan(const void* key, const void* val, void* out,
                            void* scratch, int n, int op, int cap,
                            void* stream) {

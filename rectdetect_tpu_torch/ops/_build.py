@@ -59,6 +59,7 @@ SIGNATURES = {
 QUERIES = {
     "rd_launch_count": ((), ctypes.c_longlong),
     "rd_mkpl_scratch_words": ((_I, _I), ctypes.c_int),
+    "rd_seg_scan_scratch_words": ((_I,), ctypes.c_int),
     "rd_seg_total_scratch_words": ((_I,), ctypes.c_int),
 }
 

@@ -4,9 +4,13 @@ oclrect.cl:441-447).
 
 Replaces the TPU kernel rectdetect_tpu/ops/pallas_morph.py:
 _distinct_bids_kernel (distinct_bids_pallas).  CUDA source:
-csrc/distinct_bids.cu, one thread per pixel over a shared-memory tile
-with a 3-pixel halo, the 4 slots in registers; bound by device memory
-(4 B read and 16 B written per pixel).
+csrc/distinct_bids.cu: 8 x 32 tiles staged with a 3-pixel halo; a tile
+whose window holds no id writes zeros; elsewhere each staged row's taps
+that hold an id are found from ballot bit words, the row lists (the
+first <= 4 distinct ids of a row's 7 taps) are made once per staged
+pixel, and each pixel whose window holds an id merges its rows' lists in
+dy order.  Bound by device memory (4 B read and 16 B written per
+pixel).
 
 `distinct_bids` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; there is no other path.

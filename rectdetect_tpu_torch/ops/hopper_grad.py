@@ -2,10 +2,10 @@
 magnitude of the re-quantized blurred planes.
 
 Replaces the TPU kernel rectdetect_tpu/ops/pallas_grad.py:_grad_kernel
-(edge_front_pallas).  CUDA source: csrc/edge_front.cu, one thread per
-pixel; the pass is bound by device memory (12 B read, 12 B written per
-pixel) and reads its stencil taps through reflect-101 index math instead
-of materializing padded or pre-shifted copies.
+(edge_front_pallas).  CUDA source: csrc/edge_front.cu: 16 x 64 tiles
+staged in shared memory with reflect-101 applied while staging, each
+staged pixel quantized once, each thread's rows read from registers; the
+pass is bound by device memory (12 B read, 12 B written per pixel).
 
 `edge_front` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; there is no other path.

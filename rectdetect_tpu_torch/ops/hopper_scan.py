@@ -30,7 +30,6 @@ import torch
 from rectdetect_tpu_torch.ops import _build
 
 _OPS = {"satsum": 0, "max": 1}
-_TILE = 1024          # csrc/scan.cu kTile
 # kernels launched per seg_total_sorted call (of a non-empty table)
 TOTAL_KERNELS = 1
 
@@ -97,8 +96,9 @@ def seg_scan_sorted(key: torch.Tensor, val: torch.Tensor, op: str = "satsum",
         return seg_scan_plain(key, val, op, cap)
     s = _check(key, val, cap)
     out = torch.empty_like(val)
-    scratch = torch.empty((4 * max(1, -(-s // _TILE)),), dtype=torch.int32,
-                          device=key.device)
+    # tile aggregates and carries, written before they are read
+    scratch = torch.empty((_build.lib().rd_seg_scan_scratch_words(s),),
+                          dtype=torch.int32, device=key.device)
     _build.launch("rd_seg_scan", key.device, key.data_ptr(), val.data_ptr(),
                   out.data_ptr(), scratch.data_ptr(), s, _OPS[op], cap,
                   kernels=3 if s else 0)

@@ -16,8 +16,13 @@ kernel's arena is held bit-equal to the plain subdivision on the card
 (the same float operations on both sides); seg_scan, blblur,
 quant_despeckle, merge_mask, label_merge, despeckle2 and distinct_bids
 are integer-valued and equal (merge_mask from 1x1 to 720x1280, frames all
-edge and with no edge; seg_total_sorted from 1 to 2 764 800 rows, more
-tiles than co-resident blocks; seg_scan_sorted in both directions); rect_hypotheses' maps, valid and status
+edge and with no edge; distinct_bids from 1x1 to 720x1280 on frames of
+no id, one id, sparse and dense ids; seg_total_sorted from 1 to 2 764 800
+rows, more tiles than co-resident blocks; seg_scan_sorted in both
+directions, its scratch sized by the library's rd_seg_scan_scratch_words);
+edge_front from 3x3 to 720x1280 within ATOL; where build/parent/ holds a
+git archive of the parent commit, distinct_bids and edge_front are also
+held bit-equal to its kernels; rect_hypotheses' maps, valid and status
 equal, segs within atol 2e-4.  The hyp and pose kernels run their plain
 versions' float operations, so `ok` and c2 are held equal and the other
 floats within rtol 1e-3 (bit-equal expected); rect_frame's valid and
@@ -242,6 +247,102 @@ def test_merge_mask_kernel_matches_plain_at_odd_sizes(h, w):
         torch.cuda.synchronize()
         assert _build.launch_count() == n0 + 1
         assert torch.equal(got.cpu(), regions.junction_merge_mask(strong)), i
+
+
+def _parent_lib():
+    """The parent commit's kernel library, built from build/parent/ (a git
+    archive of the parent, as for chip_smoke.py), or None without it."""
+    import os
+
+    import chip_smoke
+    src = os.path.join(chip_smoke.ROOT, "build", "parent",
+                       "rectdetect_tpu_torch", "csrc")
+    if not os.path.isdir(src):
+        return None
+    out = os.path.join(chip_smoke.ROOT, "build", "parent", "card_tests")
+    os.makedirs(out, exist_ok=True)
+    return chip_smoke.build_kernels(_build, src, out,
+                                    ("distinct_bids", "edge_front"))
+
+
+@pytest.fixture(scope="module")
+def parent_lib():
+    return _parent_lib() if torch.cuda.is_available() else None
+
+
+# edge_front's tiles are 16 x 64 pixels, staged by float4 where a row
+# starts on 16 bytes (widths that are multiples of 4) away from the
+# frame's sides: frames of 3x3 (the least it takes), inside one tile, on
+# whole tiles and one past, ragged, with tiles of both kinds, and 720p
+EF_CARD_SHAPES = [(3, 3), (5, 7), (16, 64), (17, 65), (37, 53), (70, 33),
+                  (37, 200), (16, 136), (64, 1281), (720, 1280)]
+
+
+def _blurred_lab(h, w, seed):
+    """(H,W,3) float32 Lab-like planes: ramps, noise, a flat block (the
+    zero-gradient branch) and values on the lattice's level edges."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    lab = np.stack([0.3 + 0.4 * np.sin(xx / 5.0 + c) * np.cos(yy / 7.0)
+                    for c in range(3)], -1) + r.normal(0, 0.02, (h, w, 3))
+    lab[h // 3:h // 3 + 6, w // 4:w // 4 + 9] = 0.5
+    edge = r.random((h, w)) < 0.1
+    lab[edge, 0] = r.integers(0, 4096, int(edge.sum())) / 4096.0
+    return torch.from_numpy(lab.astype(np.float32))
+
+
+@pytest.mark.parametrize("h,w", EF_CARD_SHAPES)
+def test_edge_front_kernel_matches_plain_and_parent(h, w, parent_lib):
+    """edge_front within ATOL of edge_front_plain, one kernel a call, and
+    bit-equal to the parent commit's kernel where build/parent/ holds
+    it."""
+    _need_card()
+    labb = _blurred_lab(h, w, seed=h * 13 + w).cuda()
+    n0 = _build.launch_count()
+    em, vec = hopper_grad.edge_front(labb)
+    torch.cuda.synchronize()
+    assert _build.launch_count() == n0 + 1
+    em_p, vec_p = hopper_grad.edge_front_plain(labb)
+    torch.testing.assert_close(em, em_p, rtol=0, atol=ATOL)
+    torch.testing.assert_close(vec, vec_p, rtol=0, atol=ATOL)
+    if parent_lib is not None:
+        import chip_smoke
+        em_q, vec_q = chip_smoke.bind_edge_front(torch, parent_lib)(labb)
+        assert torch.equal(em, em_q)
+        assert torch.equal(vec, vec_q)
+
+
+# distinct_bids' tiles are 8 x 32 pixels, its stores int4 where the width
+# is a multiple of 4
+DB_CARD_SHAPES = [(1, 1), (7, 7), (8, 32), (9, 33), (37, 53), (70, 33),
+                  (37, 200), (33, 1281), (720, 1280)]
+
+
+@pytest.mark.parametrize("h,w", DB_CARD_SHAPES)
+def test_distinct_bids_kernel_matches_plain_at_odd_sizes(h, w, parent_lib):
+    """distinct_bids equal to distinct_bids_plain on sparse ids, dense ids
+    with many repeats, dense ids all distinct, no id (all -1) and one id
+    throughout; one kernel a call; bit-equal to the parent commit's
+    kernel where build/parent/ holds it."""
+    _need_card()
+    r = np.random.default_rng(h * 5 + w)
+    maps = [np.full((h, w), -1), np.full((h, w), 7)]
+    for density, ids in ((0.02, 50), (0.6, 5), (0.8, 10 ** 6)):
+        maps.append(np.where(r.random((h, w)) < density,
+                             r.integers(1, ids + 1, (h, w)), -1))
+    for i, m in enumerate(maps):
+        boundary = torch.from_numpy(m.astype(np.int32))
+        n0 = _build.launch_count()
+        got = hopper_bids.distinct_bids(boundary.cuda())
+        torch.cuda.synchronize()
+        assert _build.launch_count() == n0 + 1
+        for a, b in zip(got, hopper_bids.distinct_bids_plain(boundary)):
+            assert torch.equal(a.cpu(), b), i
+        if parent_lib is not None:
+            import chip_smoke
+            want = chip_smoke.bind_distinct_bids(torch, parent_lib)(
+                boundary.cuda())
+            assert torch.equal(torch.stack(got), want), i
 
 
 def _despeckle2_maps(h, w, seed):
@@ -607,6 +708,19 @@ def test_seg_scan_kernel_both_ops_and_directions(s):
                     assert torch.equal(
                         hopper_scan.seg_scan_sorted(k, v, op, cap),
                         hopper_scan.seg_scan_plain(k, v, op, cap)), (op, cap)
+
+
+def test_seg_scan_scratch_words_follow_the_tile():
+    """rd_seg_scan_scratch_words(n) is 4 words a 1024-element tile of
+    csrc/scan.cu (kTile), and seg_scan_sorted is right at those sizes."""
+    _need_card()
+    for n in (0, 1, 1024, 1025, 307200):
+        assert _build.lib().rd_seg_scan_scratch_words(n) == 4 * (-(-n // 1024))
+        if n:
+            key = torch.arange(n, device="cuda", dtype=torch.int32) // 700
+            val = torch.ones(n, device="cuda", dtype=torch.int32)
+            assert torch.equal(hopper_scan.seg_scan_sorted(key, val),
+                               hopper_scan.seg_scan_plain(key, val)), n
 
 
 def test_blblur_and_quant_despeckle_kernels_match_plain():

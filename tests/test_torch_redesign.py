@@ -16,21 +16,29 @@ that shrink stage by stage, parity masks), quant_despeckle's window
 level-code table, integer squared distances, the sqrt only below the
 best square), K2 thin's tiles (csrc/thin.cu: a mirrored em window, the
 fraction-free part of bicubicSub once per window cell, taps at
-tile-local indices) and despeckle2's one launch (csrc/despeckle2.cu:
+tile-local indices), despeckle2's one launch (csrc/despeckle2.cu:
 per-tile tables of runs of equal labels with a spill path, sizes zeroed
-and added through them, the absorption from each run's slot).
+and added through them, the absorption from each run's slot), merge_mask's
+bit words and seg_total's tile descriptors (csrc/merge_mask.cu,
+csrc/scan.cu), distinct_bids' row lists (csrc/distinct_bids.cu: bit
+words of the taps that hold an id, the first 4 distinct ids of each
+row's 7 taps, merged in dy order) and edge_front's staged tiles
+(csrc/edge_front.cu: reflect-101 while staging, each staged pixel
+quantized once by the inverse scale).
 
 The plain versions (ops/regions.py:blblur, label_merge and
 quantize_despeckle, geometry/pose.py, ops/mkpl.py:mkpl_subdivide,
 ops/ccl.py, ops/morphology.py:strings_chain, geometry/quad.py,
-ops/thin.py, ops/regions.py:sizes_despeckle2) are held
+ops/thin.py, ops/regions.py:sizes_despeckle2, ops/hopper_bids.py,
+ops/hopper_grad.py) are held
 to the JAX package by tests/test_torch_regions.py,
 tests/test_torch_rect.py, tests/test_torch_hypotheses.py,
 tests/test_torch_morph_ccl.py, tests/test_torch_polyline.py and
 tests/test_torch_frontend.py; these tests compile no JAX.  Everything
-here must be bit-equal: blblur, the CCL, K3 and despeckle2 are integer
-arithmetic, and the pose, mkpl, quant_despeckle and thin schedules round
-the same float operations in the same order.
+here must be bit-equal: blblur, the CCL, K3, despeckle2 and
+distinct_bids are integer arithmetic, and the pose, mkpl,
+quant_despeckle, thin and edge_front schedules round the same float
+operations in the same order.
 """
 
 import math
@@ -42,8 +50,9 @@ import torch
 from rectdetect_tpu_torch import parity
 from rectdetect_tpu_torch.config import PipelineConfig
 from rectdetect_tpu_torch.geometry import pose, quad
-from rectdetect_tpu_torch.ops import (fp, hopper_scan, mkpl, morphology,
-                                      polyline, regions, thin)
+from rectdetect_tpu_torch.ops import (fp, gradient, hopper_bids,
+                                      hopper_grad, hopper_scan, mkpl,
+                                      morphology, polyline, regions, thin)
 from rectdetect_tpu_torch.ops.ccl import label_components_plain
 from rectdetect_tpu_torch.ops.regions import _coord_maps
 from rectdetect_tpu_torch.ops.shifts import pad2d, shifted
@@ -2131,3 +2140,282 @@ def test_seg_total_needs_the_tiles_between():
     assert torch.equal(seg_total_tiled(key, val, cap), want)
     assert not torch.equal(
         seg_total_tiled(key, val, cap, skip_between=True), want)
+
+
+# ---- distinct_bids (csrc/distinct_bids.cu): row lists, bit-word skip -----
+
+DB_HALO = 3
+DB_TAPS = 2 * DB_HALO + 1
+# the kernel's tile (kTileRows x kTileCols) and two larger ones
+DB_TILES = ((8, 32), (16, 64), (32, 32))
+
+
+def _insert(slots: list, b: torch.Tensor) -> None:
+    """b joins the first free slot (0) of `slots` where it is positive and
+    no slot holds it (oclrect.cl:441-447); in place."""
+    fresh = b > 0
+    for s in slots:
+        fresh = fresh & (s != b)
+    for i, s in enumerate(slots):
+        put = fresh & (s == 0)
+        slots[i] = torch.where(put, b, s)
+        fresh = fresh & ~put
+
+
+def distinct_bids_rows(boundary: torch.Tensor, th: int, tw: int,
+                       list_len: int = 4, dy_order=range(DB_TAPS),
+                       dilation: int = DB_HALO) -> torch.Tensor:
+    """csrc/distinct_bids.cu's schedule, tile by tile: each th x tw tile
+    staged with a 3-pixel halo (ids > 0, 0 elsewhere and outside the
+    frame); per staged row and 32-pixel word the bit word of "the row's
+    taps hold an id", the OR of the funnel shifts (A >> k | B << 32 - k)
+    for k in 3 - dilation .. 3 + dilation of the word A and the 6 columns
+    after it B; the row list (the first list_len distinct ids of the 7
+    taps) where that bit is set; per pixel the OR of its 7 rows' bits,
+    and where it is set the row lists of the rows whose bit is set merged
+    in dy_order.  Returns (4, H, W) int32."""
+    h, w = boundary.shape
+    nty, ntx = -(-h // th), -(-w // tw)
+    frame = torch.zeros((nty * th + 2 * DB_HALO, ntx * tw + 2 * DB_HALO),
+                        dtype=torch.int64)
+    frame[DB_HALO:DB_HALO + h, DB_HALO:DB_HALO + w] = boundary.clamp(min=0)
+    tiles = [(ty, tx) for ty in range(nty) for tx in range(ntx)]
+    win = torch.stack([frame[ty * th:ty * th + th + 2 * DB_HALO,
+                             tx * tw:tx * tw + tw + 2 * DB_HALO]
+                       for ty, tx in tiles])             # (T, R, tw + 6)
+    lane = torch.arange(32, dtype=torch.int64)
+    nz = (win > 0).to(torch.int64)
+    row_bits = []
+    for j in range(tw // 32):
+        a = (nz[..., 32 * j:32 * j + 32] << lane).sum(-1)
+        b = (nz[..., 32 * j + 32:32 * j + 32 + DB_TAPS - 1]
+             << lane[:DB_TAPS - 1]).sum(-1)
+        pair = (b << 32) | a
+        d = torch.zeros_like(a)
+        for k in range(DB_HALO - dilation, DB_HALO + dilation + 1):
+            d = d | ((pair >> k) & WORD_MASK)
+        row_bits.append((d[..., None] >> lane) & 1)
+    bits = torch.cat(row_bits, -1).bool()                # (T, R, tw)
+    lists = [torch.zeros_like(bits, dtype=torch.int64)
+             for _ in range(list_len)]
+    for k in range(DB_TAPS):
+        _insert(lists, torch.where(bits, win[..., k:k + tw], 0))
+    lists += [torch.zeros_like(lists[0])] * (4 - list_len)
+    held = torch.zeros_like(bits[:, :th])
+    for dy in range(DB_TAPS):
+        held = held | bits[:, dy:dy + th]
+    slots = [torch.zeros_like(held, dtype=torch.int64) for _ in range(4)]
+    for dy in dy_order:
+        take = held & bits[:, dy:dy + th]
+        for entry in lists:
+            _insert(slots, torch.where(take, entry[:, dy:dy + th], 0))
+    out = torch.zeros((4, nty * th, ntx * tw), dtype=torch.int64)
+    for t, (ty, tx) in enumerate(tiles):
+        for i, s in enumerate(slots):
+            out[i, ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw] = s[t]
+    return out[:, :h, :w].to(torch.int32)
+
+
+def id_map(shape, density, ids, seed):
+    """(H,W) int32 boundary ids: positive ids from 1..ids with probability
+    `density`, -1 (background) elsewhere."""
+    r = np.random.default_rng(seed)
+    b = np.where(r.random(shape) < density, r.integers(1, ids + 1, shape), -1)
+    return torch.from_numpy(b.astype(np.int32))
+
+
+def bid_windows(h, w):
+    """Hand-built windows: a row of 7 distinct ids, ids that repeat across
+    rows, a fifth id that first comes in a later row, lone ids 3 columns
+    from their neighbours, ids across the 32- and 64-pixel tile edges, ids
+    on the frame border, and -1 beside positive ids everywhere else."""
+    b = np.full((h, w), -1, np.int32)
+    b[5, 10:17] = np.arange(1, 8)               # more than 4 in one row
+    b[15:18, 10:13] = 8                         # repeats across rows
+    b[16, 12] = 9
+    b[25, 10:12] = (11, 12)                     # 11..14, then a fifth id
+    b[26, 10:12] = (13, 14)
+    b[27, 11:13] = (15, 11)
+    b[35, 40] = 16                              # alone: dx = 3 reaches it
+    b[35, 46] = 17
+    b[9:12, 30:34] = ((20, 21, 22, 23), (24, 20, 25, 21), (26, 27, 28, 29))
+    b[14:18, 62:67] = 30 + np.arange(20).reshape(4, 5)
+    b[0, 0], b[0, w - 1], b[h - 1, 0], b[h - 1, w - 1] = 40, 41, 42, 43
+    b[h - 1, w // 2:w // 2 + 5] = (44, 45, 44, 46, 47)
+    b[1:h - 1, w - 2] = np.where(np.arange(1, h - 1) % 3 == 0, 48, -1)
+    return torch.from_numpy(b)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 7), (37, 53), (70, 33)])
+def test_distinct_bids_row_lists_match_plain(shape):
+    """csrc/distinct_bids.cu's row-list schedule, at the kernel's 8 x 32
+    tile and at 16 x 64 and 32 x 32, equal to distinct_bids_plain element
+    for element on sparse ids, dense ids with many repeats and dense ids
+    all distinct, on sides that are not multiples of the tiles."""
+    for i, (density, ids) in enumerate(((0.03, 40), (0.6, 5),
+                                        (0.8, 10 ** 6))):
+        boundary = id_map(shape, density, ids, seed=90 + i + sum(shape))
+        want = torch.stack(hopper_bids.distinct_bids_plain(boundary))
+        for th, tw in DB_TILES:
+            got = distinct_bids_rows(boundary, th, tw)
+            assert torch.equal(got, want), (density, th, tw)
+
+
+@pytest.mark.parametrize("shape", [(40, 70), (45, 97)])
+def test_distinct_bids_row_lists_on_hand_built_windows(shape):
+    """Rows with more than 4 distinct ids, ids repeated across rows, a
+    fifth id first met in a later row, ids across tile edges and on the
+    frame border, -1 beside positive ids: the schedule equals the plain
+    version and fills all 4 slots somewhere."""
+    boundary = bid_windows(*shape)
+    want = torch.stack(hopper_bids.distinct_bids_plain(boundary))
+    assert int((want[3] > 0).sum()) > 0
+    for th, tw in DB_TILES:
+        assert torch.equal(distinct_bids_rows(boundary, th, tw), want), (th,
+                                                                         tw)
+
+
+@pytest.mark.parametrize("mutation", [
+    {"list_len": 3}, {"dy_order": range(DB_TAPS - 1, -1, -1)},
+    {"dilation": 2}])
+def test_distinct_bids_row_lists_mutations_fail(mutation):
+    """Mutation checks: a row list of 3 ids, the merge in reverse dy order
+    and the skip's bit words dilated by 2 columns in place of 3 each give
+    other slots than the plain version on the hand-built windows."""
+    boundary = bid_windows(40, 70)
+    want = torch.stack(hopper_bids.distinct_bids_plain(boundary))
+    assert torch.equal(distinct_bids_rows(boundary, 8, 32), want)
+    assert not torch.equal(distinct_bids_rows(boundary, 8, 32, **mutation),
+                           want)
+
+
+# ---- edge_front (csrc/edge_front.cu): staged tiles, quantized once --------
+
+EF_HALO = 2
+EF_PAD = 4
+# the kernel's tile (kTileRows x kTileCols: 4 rows of threads x 4 rows
+# each, 64 columns) and two others
+EF_TILES = ((16, 64), (32, 32), (8, 32))
+EF_LATTICE = ((4096.0, 4095.0), (1024.0, 1023.0), (1024.0, 1023.0))
+
+
+def quant_by_inverse(x: torch.Tensor, scale: float, hi: float):
+    """The kernel's quantize: (q + 0.5) times 1 / scale."""
+    q = torch.clamp(torch.floor(x * scale), min=0.0, max=hi)
+    return (q + 0.5) * (1.0 / scale)
+
+
+def edge_front_tiled(labb: torch.Tensor, th: int, tw: int,
+                     reflect: bool = True):
+    """csrc/edge_front.cu's schedule: each th x tw tile staged with 2 rows
+    above and below and 4 columns on each side (whole 4-pixel quads),
+    staged row r and column c being frame row mirror(min(y0 - 2 + r,
+    h + 1)) and column mirror(min(max(x0 - 4 + c, -2), w + 1))
+    (reflect-101; clamped to the frame where reflect is False), each
+    staged pixel quantized once and the L plane also kept raw; vec and em
+    from the staged planes in the plain version's operation order
+    (ops/fp.py's fused multiply-adds).  Returns (em, vec)."""
+    h, w, _ = labb.shape
+    nty, ntx = -(-h // th), -(-w // tw)
+
+    def staged(n, tile, count, pad):
+        i = (torch.arange(count)[:, None] * tile - pad
+             + torch.arange(tile + 2 * pad)[None, :]).clamp(-2, n + 1)
+        if not reflect:
+            return i.clamp(0, n - 1)
+        return torch.where(i < 0, -i, torch.where(i >= n, 2 * n - 2 - i, i))
+
+    gy = staged(h, th, nty, EF_HALO)
+    gx = staged(w, tw, ntx, EF_PAD)
+    win = labb[gy[:, None, :, None], gx[None, :, None, :]]
+    raw = win[..., 0]
+    qnt = [quant_by_inverse(win[..., c], *EF_LATTICE[c]) for c in range(3)]
+
+    def tap(plane, dy, dx):
+        return plane[..., EF_HALO + dy:EF_HALO + dy + th,
+                     EF_PAD + dx:EF_PAD + dx + tw]
+
+    tx, ty = [], []
+    for yy in range(-2, 3):
+        for xx in range(-2, 3):
+            cx, cy = gradient.V5C[yy + 2][xx + 2], gradient.V5C[xx + 2][yy + 2]
+            if cx != 0.0:
+                tx.append((cx, tap(raw, yy, xx)))
+            if cy != 0.0:
+                ty.append((cy, tap(raw, yy, xx)))
+    vx, vy = fp.dot_chain(tx), fp.dot_chain(ty)
+    ivlen = fp.fma(vx, vx, vy * vy)
+    rs = gradient._rsqrt(ivlen)
+    big = ivlen > 1e-10
+    half = torch.full_like(vx, gradient.SQRT_HALF)
+    vec = torch.stack([torch.where(big, vx * rs, half),
+                       torch.where(big, vy * rs, half)], -1)
+    total = None
+    for q in qnt:
+        def n(dy, dx, q=q):
+            return tap(q, dy, dx)
+        t0 = n(-1, 0) + n(0, -1) - n(1, 0) - n(0, 1)
+        t1 = n(-1, 0) - n(0, -1) + n(0, 1) - n(1, 0)
+        s1 = (n(-1, 1) - n(1, -1)) * t1
+        v = torch.clamp(fp.fma(n(-1, -1) - n(1, 1), t0, s1), min=0.0)
+        total = v if total is None else total + v
+    em = torch.where(total > 0, fp.sqrt(total), torch.zeros_like(total))
+    em = em.permute(0, 2, 1, 3).reshape(nty * th, ntx * tw)[:h, :w]
+    vec = vec.permute(0, 2, 1, 3, 4).reshape(nty * th, ntx * tw, 2)[:h, :w]
+    return em, vec
+
+
+def blurred_lab(shape, seed):
+    """(H,W,3) float32 planes like the blurred Lab: smooth ramps, flat
+    blocks (|v|^2 <= 1e-10 there), values on the lattice's level edges
+    and noise."""
+    h, w = shape
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    lab = np.stack([0.3 + 0.4 * np.sin(xx / 5.0 + c) * np.cos(yy / 7.0)
+                    for c in range(3)], -1)
+    lab += r.normal(0, 0.02, lab.shape)
+    lab[h // 3:h // 3 + 6, w // 4:w // 4 + 9] = 0.5
+    edge = r.random((h, w)) < 0.1
+    lab[edge, 0] = r.integers(0, 4096, int(edge.sum())) / 4096.0
+    lab[edge, 1] = r.integers(0, 1024, int(edge.sum())) / 1024.0
+    return torch.from_numpy(lab.astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(3, 3), (5, 7), (37, 53), (32, 64),
+                                   (33, 65)])
+def test_edge_front_staged_tiles_bit_equal_to_plain(shape):
+    """csrc/edge_front.cu's staged-tile schedule (reflect-101 while
+    staging, each staged pixel quantized once by the inverse scale) at the
+    kernel's 16 x 64 tile, 32 x 32 and 8 x 32, in the plain version's
+    operation order: bit-equal to edge_front_plain, on frames smaller
+    than the halo, with ragged tiles and on whole and one-past-whole
+    tiles."""
+    labb = blurred_lab(shape, seed=sum(shape))
+    em_p, vec_p = hopper_grad.edge_front_plain(labb)
+    for th, tw in EF_TILES:
+        em, vec = edge_front_tiled(labb, th, tw)
+        assert torch.equal(em, em_p), (th, tw)
+        assert torch.equal(vec, vec_p), (th, tw)
+
+
+def test_edge_front_staged_tiles_need_reflect_101():
+    """Mutation check: staging that clamps to the frame's edge in place
+    of reflecting gives other outputs at the border."""
+    labb = blurred_lab((37, 53), seed=5)
+    em_p, vec_p = hopper_grad.edge_front_plain(labb)
+    em, vec = edge_front_tiled(labb, 16, 64, reflect=False)
+    assert not (torch.equal(em, em_p) and torch.equal(vec, vec_p))
+    inner = (slice(2, -2), slice(2, -2))
+    assert torch.equal(em[inner], em_p[inner])
+
+
+def test_quantize_by_the_inverse_scale_is_exact():
+    """For every q in [0, 4095] and both of the lattice's scales, float32
+    (q + 0.5) / scale == (q + 0.5) * (1 / scale): q + 0.5 is exact and the
+    scale a power of two.  Mutation check: with a scale of 1000 the two
+    differ for some q."""
+    q = torch.arange(4096, dtype=torch.float32) + 0.5
+    for scale in (4096.0, 1024.0):
+        assert torch.equal(q / scale, q * (1.0 / scale)), scale
+    assert not torch.equal(q / 1000.0, q * (1.0 / 1000.0))
