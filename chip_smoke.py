@@ -57,7 +57,26 @@ the final line):
      launch its kernels, and a second run must be bit-identical;
   5. the DEFAULT_CONFIG frame time beside the mkpl_pallas=0 frame time,
      timed in turns, the rect stages' times and the rect_frame time and
-     frame rate (CUDA-event medians).
+     frame rate (CUDA-event medians);
+  6. the photograph corpus (docs/photo_corpus, 25 photos at 448x336):
+     each calibrated on itself (runtime/calibrate.calibrate, a temporary
+     plan), plan_fits, then rect_frame at its calibrated config, held
+     against tests/data/photo_corpus.npz (the JAX package's calibrate
+     and rect path): densities and kept capacities equal, the accepted
+     corner sets matched one to one within 2 px with none on one side
+     only; per photo the first stage whose digest differs, and
+     calibrate's and rect_frame's CUDA-event times; the first photo's
+     calibrate and rect_frame driven with the launch counts (32 kernels);
+     on the photo with the most boundary components (max_groups above
+     192), distinct_bids, mkpl and hyp held bit-equal to their plain
+     versions at its calibrated capacities.  Then the video detectors:
+     VideoRectDetector and VideoPolyDetector over 30 frames of
+     bench.synth_frame(720, 1280, seed 0..29), each poll bit-identical to
+     a direct rect_frame / poly_frame on the same frame, the library's
+     counter at 30 x 32 and 30 x 7 kernels, and the enqueue/poll loop's
+     frame rate beside 30 sequential direct calls.  Then
+     rect_stage_images of the 720p frame on the card against the CPU, and
+     StageDumper writing its nine PNGs.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -103,6 +122,8 @@ OPS_PER_S = 67e12
 # kernels per 720p frame of the smoke run by the library's counter
 POLY_FRAME_KERNELS = 7
 RECT_FRAME_KERNELS = 32
+# frames of the video phase
+VIDEO_FRAMES = 30
 
 
 def fail(msg: str):
@@ -421,6 +442,301 @@ def parent_kernels(torch, build_mod):
                         ("distinct_bids", "edge_front"))
     return {"distinct_bids": bind_distinct_bids(torch, lib),
             "edge_front": bind_edge_front(torch, lib)}
+
+
+def cuda_timed(torch, fn):
+    """(fn()'s result, its CUDA-event time in ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def photo_corpus(torch, dev, card, cfg0, drive, counters):
+    """Phase 6, the photographs: each photo of docs/photo_corpus
+    calibrated on itself (a temporary plan), plan_fits, then rect_frame at
+    the calibrated config, held against tests/data/photo_corpus.npz (the
+    JAX package's calibrate and rect path): kept capacities and densities
+    equal, the accepted corner sets matched one to one within 2 px, none
+    on one side only.  On the photo with the most boundary components,
+    distinct_bids, mkpl and hyp are held bit-equal to their plain versions
+    at its calibrated capacities."""
+    import tempfile
+
+    from rectdetect_tpu_torch import parity
+    from rectdetect_tpu_torch.apps.common import TAN_AOV, load_image_bgr
+    from rectdetect_tpu_torch.core import color
+    from rectdetect_tpu_torch.geometry import quad
+    from rectdetect_tpu_torch.ops import (hopper_bids, hopper_hyp,
+                                          hopper_mkpl, mkpl, polyline)
+    from rectdetect_tpu_torch.pipeline.rect import (rect_frame,
+                                                    rect_hypotheses,
+                                                    rect_stage_images)
+    from rectdetect_tpu_torch.runtime import calibrate as cal
+
+    px = np.load(os.path.join(ROOT, "tests", "data", "photo_corpus.npz"))
+    names = [str(n) for n in px["names"]]
+    dnames = [str(k) for k in px["density_names"]]
+    kept = [str(k) for k in px["kept"]]
+    if kept != list(cal.KEPT) or len(names) != 25:
+        fail(f"photo fixture: kept {kept}, {len(names)} photos")
+    stage_names = [str(k) for k in px["stage_names"]]
+    misses, dense_photo, rows = [], None, []
+    with tempfile.TemporaryDirectory() as td:
+        plan = os.path.join(td, "plan_torch.txt")
+        for i, name in enumerate(names):
+            p = name[:-4] + "/"
+            bgr = torch.from_numpy(load_image_bgr(
+                os.path.join(ROOT, "docs", "photo_corpus", name))).to(dev)
+            ih, iw = bgr.shape[:2]
+            dens = cal._densities([bgr], cfg0)
+            if i == 0:
+                cfg = drive("calibrate (photo)",
+                            [k for k in counters
+                             if k not in ("distinct_bids", "hyp", "pose")],
+                            lambda: cal.calibrate([bgr], cfg0, plan))
+            cfg, t_cal = cuda_timed(torch, lambda: cal.calibrate(
+                [bgr], cfg0, plan))
+            fits = cal.plan_fits(cfg, bgr)
+            caps = [getattr(cfg, k) for k in kept]
+            if i == 0:
+                drive("rect_frame (photo, calibrated)", list(counters),
+                      lambda: rect_frame(bgr, TAN_AOV, cfg),
+                      RECT_FRAME_KERNELS)
+            rect_frame(bgr, TAN_AOV, cfg)
+            torch.cuda.synchronize()
+            res, t_rf = cuda_timed(torch, lambda: rect_frame(bgr, TAN_AOV,
+                                                             cfg))
+            n_slots = int(px[p + "n_slots"])
+            valid_ref = np.zeros(n_slots, bool)
+            valid_ref[px[p + "rows"]] = True
+            c2_ref = np.zeros((n_slots, 4, 2), np.float32)
+            c2_ref[px[p + "rows"]] = px[p + "c2"]
+            st_ref = np.zeros(n_slots, np.int32)
+            st_ref[px[p + "rows"]] = px[p + "status"]
+            valid = res.valid.cpu().numpy()
+            c2 = res.c2.cpu().numpy()
+            mine = parity.accepted_corner_sets(c2, valid)
+            ref = parity.accepted_corner_sets(c2_ref, valid_ref)
+            matched, port_only, ref_only = parity.match_sets(mine, ref, 2.0)
+            st = rect_stage_images(bgr, cfg)
+            got_stages = {
+                "packed0": color.pack_lab(color.bgr_to_labf(bgr)),
+                "edge_bin": (st["edge_thin"] > 0).to(torch.int32),
+                "weak": st["weak_labels"], "strong": st["strong_labels"],
+                "mask": st["merge_mask"], "seg": st["regions"],
+                "boundary": st["boundary"], "lsid": st["lsid"]}
+            differ = [k for k, h in zip(stage_names, px[p + "stage_sha256"])
+                      if digest(got_stages[k]) != str(h)]
+            ref_bits = np.unpackbits(px[p + "edge_bin_bits"])[
+                :ih * iw].reshape(ih, iw)
+            n_edge = int((got_stages["edge_bin"].cpu().numpy()
+                          != ref_bits).sum())
+            row = {"photo": name, "capacities": dict(zip(kept, caps)),
+                   "capacities_equal": caps == px[p + "capacities"].tolist(),
+                   "densities_differ": {
+                       k: [dens[k], v] for k, v in
+                       zip(dnames, px[p + "densities"].tolist())
+                       if dens[k] != v},
+                   "groups": dens["groups"], "plan_fits": fits,
+                   "valid_equal": valid.shape == valid_ref.shape
+                   and bool((valid == valid_ref).all()),
+                   "status_equal": valid.shape == valid_ref.shape
+                   and bool((res.status.cpu().numpy() == st_ref)[
+                       valid_ref].all()),
+                   "corner_sets": len(mine), "corner_sets_ref": len(ref),
+                   "matched": matched, "port_only": port_only,
+                   "ref_only": ref_only,
+                   "first_stage_differing": differ[0] if differ else None,
+                   "stages_differing": differ,
+                   "edge_bin_pixels_differing": n_edge,
+                   "calibrate_ms": t_cal, "rect_frame_ms": t_rf}
+            rows.append(row)
+            phase(f"phase 6 photo {json.dumps(row)}; card {card}")
+            if not (row["capacities_equal"] and port_only == 0
+                    and ref_only == 0 and matched == len(ref)):
+                misses.append(name)
+            if cfg.max_groups > 192 and (
+                    dense_photo is None or dens["groups"] > dense_photo[2]):
+                dense_photo = (name, bgr, dens["groups"], cfg)
+    phase(f"phase 6 photos: {sum(r['matched'] for r in rows)} corner sets "
+          f"matched of {sum(r['corner_sets_ref'] for r in rows)}; "
+          f"calibrate median {statistics.median(r['calibrate_ms'] for r in rows):.3f} ms, "
+          f"rect_frame median {statistics.median(r['rect_frame_ms'] for r in rows):.3f} ms "
+          f"(CUDA events, 448x336, one call each); card {card}")
+    if misses:
+        fail(f"photos {misses} differ from the JAX fixture")
+    if dense_photo is None:
+        fail("no photo calibrated max_groups above 192")
+
+    # the kernels at the densest photo's calibrated capacities
+    name, bgr, groups, cfg = dense_photo
+    ih, iw = bgr.shape[:2]
+    hyp = rect_hypotheses(bgr, cfg)
+    bids = hopper_bids.distinct_bids(hyp.boundary)
+    bids_p = hopper_bids.distinct_bids_plain(hyp.boundary)
+    n_bids = sum(int((a != b).sum()) for a, b in zip(bids, bids_p))
+    st = rect_stage_images(bgr, cfg)
+    strong = (st["strong_labels"] > 0).to(torch.int32)
+    cap = cfg.ls_cap_for(iw, ih)
+    arena0, dense, number, comp = polyline.mkpl_inputs(
+        strong, cfg.size_thre_rect, cap, cfg)
+    args = (dense, number, cfg.minerror_rect, cfg.mkpl_iters, comp)
+    got = hopper_mkpl.mkpl_subdivide(arena0, *args)
+    want = mkpl.mkpl_subdivide(arena0, *args)
+    mk_equal = (all(torch.equal(getattr(got[0], f), getattr(want[0], f))
+                    for f in got[0]._fields) and torch.equal(got[1], want[1]))
+    hv = cfg.hull_max_vertices
+    q = hopper_hyp.reduce_groups(hyp.segs, hyp.valid, hv)
+    q_p = quad.reduce_groups(hyp.segs, hyp.valid, hv)
+    hyp_equal = (torch.equal(q[1], q_p[1])
+                 and torch.equal(q[0].isnan(), q_p[0].isnan())
+                 and torch.equal(q[0].nan_to_num(), q_p[0].nan_to_num()))
+    torch.cuda.synchronize()
+    entry = {"photo": name, "groups": groups, "max_groups": cfg.max_groups,
+             "G": int(hyp.segs.shape[0]),
+             "groups_with_members": int(hyp.valid.any(1).sum()),
+             "distinct_bids_values_differ": n_bids,
+             "mkpl_arena_cap": cap, "mkpl_count": int(got[0].count),
+             "mkpl_live_slots": int(comp.n), "mkpl_bit_equal": mk_equal,
+             "hyp_ok_groups": int(q[1].sum()), "hyp_bit_equal": hyp_equal}
+    phase(f"phase 6 kernels at a calibrated G: {json.dumps(entry)}")
+    if n_bids or not mk_equal or not hyp_equal:
+        fail(f"distinct_bids, mkpl or hyp at {name}'s calibrated "
+             f"capacities differ from the plain versions")
+
+
+def video(torch, dev, card, cfg, drive, counters):
+    """Phase 6, the video detectors: VideoRectDetector and VideoPolyDetector
+    over VIDEO_FRAMES 720p frames of bench.synth_frame (seeds 0..29), each
+    poll's result bit-identical to a direct call on the same frame, the
+    library's counter at the kernels per frame times the frames, and the
+    enqueue/poll loop's frame rate beside sequential direct calls."""
+    from bench import synth_frame
+    from rectdetect_tpu_torch.apps.common import TAN_AOV
+    from rectdetect_tpu_torch.pipeline.poly import live_segments, poly_frame
+    from rectdetect_tpu_torch.pipeline.rect import live_rects, rect_frame
+    from rectdetect_tpu_torch.pipeline.video import (VideoPolyDetector,
+                                                     VideoRectDetector)
+
+    frames = [synth_frame(H, W, seed=s) for s in range(VIDEO_FRAMES)]
+    paths = (
+        ("VideoRectDetector", RECT_FRAME_KERNELS,
+         lambda: VideoRectDetector(TAN_AOV, cfg, device=dev),
+         lambda f: live_rects(rect_frame(f, TAN_AOV, cfg)), list(counters)),
+        ("VideoPolyDetector", POLY_FRAME_KERNELS,
+         lambda: VideoPolyDetector(cfg, device=dev),
+         lambda f: live_segments(poly_frame(f, cfg, 1.0, 10, 2000)[0]),
+         ["edge_front", "thinthres", "strings_chain", "label_components",
+          "mkpl"]))
+    for name, per_frame, make, direct, names in paths:
+        def run_direct():
+            return [direct(torch.from_numpy(f).to(dev)) for f in frames]
+
+        def run_loop(det):
+            out, t_enq, t_poll = [], 0.0, 0.0
+            det.enqueue(frames[0])
+            for f in frames[1:] + [None]:
+                t0 = time.perf_counter()
+                if f is not None:
+                    det.enqueue(f)
+                t1 = time.perf_counter()
+                out.append(det.poll())
+                t_enq += t1 - t0
+                t_poll += time.perf_counter() - t1
+            return out, t_enq, t_poll
+
+        det = make()
+        run_loop(det)                            # warm-up
+        run_direct()
+        torch.cuda.synchronize()
+        n = VIDEO_FRAMES
+        rates = {"enqueue/poll loop": [], "direct calls": []}
+        runs = []
+        # in turns: direct, loop (driven with the launch counts), loop,
+        # direct
+        for turn in range(4):
+            t0 = time.perf_counter()
+            if turn in (0, 3):
+                runs.append(run_direct())
+                key = "direct calls"
+            elif turn == 1:
+                runs.append(drive(f"{name} ({n} frames)", names,
+                                  lambda: run_loop(det),
+                                  per_frame * n))
+                key = "enqueue/poll loop"
+            else:
+                runs.append(run_loop(det))
+                key = "enqueue/poll loop"
+            rates[key].append(n / (time.perf_counter() - t0))
+        want = runs[0]
+        same = all(len(r) == len(want) and all(
+            same_results(a, b) for a, b in zip(r, want))
+            for r in (runs[1][0], runs[2][0], runs[3]))
+        t_enq, t_poll = runs[1][1], runs[1][2]
+        phase(f"phase 6 {name}: {n} polls bit-identical to direct calls: "
+              f"{same}; host frames/s in turns (direct, loop, loop, "
+              f"direct): {json.dumps(rates)}; in the driven loop enqueue "
+              f"{t_enq * 1e3 / n:.2f} ms a frame, poll "
+              f"{t_poll * 1e3 / n:.2f} ms; card {card}")
+        if not same:
+            fail(f"{name}: a poll differs from the direct call")
+
+
+def same_results(a, b) -> bool:
+    """Two host lists of rectangles or segments, equal bit for bit."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x.keys() != y.keys():
+            return False
+        for k in x:
+            if not np.array_equal(np.asarray(x[k]), np.asarray(y[k])):
+                return False
+    return True
+
+
+def stage_images(torch, bgr, cfg):
+    """Phase 6, the stage images: rect_stage_images of the 720p frame on the
+    card against the same call on the CPU (integer maps equal, edge_thin
+    within FLOAT_ATOL with edge_thin > 0 equal), and StageDumper writing
+    all nine as PNGs."""
+    import tempfile
+
+    from rectdetect_tpu_torch.pipeline.rect import (STAGE_KINDS,
+                                                    rect_stage_images)
+    from rectdetect_tpu_torch.utils.debug import StageDumper
+
+    card_maps = rect_stage_images(bgr, cfg)
+    t0 = time.perf_counter()
+    cpu_maps = rect_stage_images(bgr.cpu(), cfg)
+    t_cpu = time.perf_counter() - t0
+    diff = {}
+    for k, v in card_maps.items():
+        a, b = v.cpu(), cpu_maps[k]
+        if k == "edge_thin":
+            diff[k] = [float((a - b).abs().max()),
+                       int(((a > 0) != (b > 0)).sum())]
+        else:
+            diff[k] = int((a != b).sum())
+    with tempfile.TemporaryDirectory() as td:
+        dumper = StageDumper(td)
+        for k, v in card_maps.items():
+            dumper.add(k, STAGE_KINDS[k], v)
+        written = [os.path.basename(p) for p in dumper.flush()
+                   if os.path.getsize(p) > 0]
+    phase(f"phase 6 rect_stage_images {bgr.shape[1]}x{bgr.shape[0]}, card "
+          f"against CPU ({t_cpu:.1f} "
+          f"s on the host): {json.dumps(diff)}; StageDumper wrote "
+          f"{written}")
+    if (any(v for k, v in diff.items() if k != "edge_thin")
+            or diff["edge_thin"][0] > FLOAT_ATOL or diff["edge_thin"][1]
+            or len(written) != len(STAGE_KINDS)):
+        fail("rect_stage_images on the card differs from the CPU, or the "
+             "dump is incomplete")
 
 
 def main() -> int:
@@ -1375,6 +1691,11 @@ def main() -> int:
           f"card {card}")
     phase(f"phase 5 peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; card {card}")
+
+    # ---- 6. photographs, video, stage images ----------------------------
+    photo_corpus(torch, dev, card, cfg, drive, counters)
+    video(torch, dev, card, cfg, drive, counters)
+    stage_images(torch, bgr, cfg)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,5 +5,8 @@ Pallas for the TPU becomes a hand-written CUDA kernel (csrc/), built with
 nvcc at first use and bound with ctypes (ops/_build.py).  The package
 imports neither jax nor rectdetect_tpu.
 
-Slice ported so far: the poly path, pipeline.poly.poly_frame.
+Ported so far: the poly path (pipeline.poly.poly_frame), the rect path
+(pipeline.rect.rect_frame), the capacity calibration and its plan file
+(runtime/), the stage dumps (utils/debug.py), the video detectors
+(pipeline/video.py) and the apps.
 """

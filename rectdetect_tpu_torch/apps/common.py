@@ -1,5 +1,10 @@
 """Shared CLI plumbing of the port's apps: device choice, image IO
-(through Pillow), drawing."""
+(through Pillow), video IO (through cv2, imported only by the video
+apps), drawing.
+
+CLI conventions mirror the reference tools (rect.cpp:48-58,
+vidrect.cpp:51-123): positional arguments, `cam:<id>,<w>,<h>` camera
+inputs, `-` for window output, the device list on missing arguments."""
 
 from __future__ import annotations
 
@@ -55,6 +60,42 @@ def save_image_bgr(path: str, bgr: np.ndarray) -> None:
     Image.fromarray(np.ascontiguousarray(bgr[..., ::-1])).save(path)
 
 
+# ---- video IO (cv2) ----------------------------------------------------
+
+def open_capture(spec: str | None):
+    """cv2.VideoCapture of a file path, of `cam:<id>,<w>,<h>`, or of camera
+    0 (vidrect.cpp:64-89)."""
+    import cv2
+    if spec is None:
+        cap = cv2.VideoCapture(0)
+    elif spec.startswith("cam:"):
+        parts = (spec[4:] + ",0,0").split(",")
+        n, w, h = int(parts[0]), int(parts[1]), int(parts[2])
+        cap = cv2.VideoCapture(n)
+        if cap.isOpened() and w and h:
+            cap.set(cv2.CAP_PROP_FRAME_WIDTH, w)
+            cap.set(cv2.CAP_PROP_FRAME_HEIGHT, h)
+    else:
+        cap = cv2.VideoCapture(spec)
+    if not cap.isOpened():
+        sys.exit(f"Cannot open {spec!r}")
+    return cap
+
+
+def open_writer(path: str, iw: int, ih: int, fps: float = 30.0):
+    """cv2.VideoWriter of iw x ih BGR frames: MPEG-1 (PIM1) as the
+    reference writes, else mp4v where the build lacks it."""
+    import cv2
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"PIM1"), fps,
+                             (iw, ih), True)
+    if not writer.isOpened():
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
+                                 fps, (iw, ih), True)
+    if not writer.isOpened():
+        sys.exit(f"Cannot open writer {path}")
+    return writer
+
+
 # ---- drawing -----------------------------------------------------------
 
 def draw_line(img: np.ndarray, p0, p1, color) -> None:
@@ -101,6 +142,9 @@ def draw_rect(img: np.ndarray, c2, color, thickness: int) -> None:
 # status -> (BGR colour, thickness) (rect.cpp:107-121): hypotheses in
 # blue, screens (status bit 0) in orange, polyline-sourced screens in red
 RECT_STYLE_STILL = {0: ((255, 0, 0), 1), 2: ((255, 0, 0), 1),
+                    1: ((0, 200, 255), 2), 3: ((0, 0, 255), 2)}
+# the video tools draw region hypotheses in green (vidrect.cpp:174-189)
+RECT_STYLE_VIDEO = {0: ((0, 255, 0), 1), 2: ((255, 0, 0), 1),
                     1: ((0, 200, 255), 2), 3: ((0, 0, 255), 2)}
 
 

@@ -1,0 +1,150 @@
+"""Realtime video rectangle detection on the port (the reference's
+`vidrect`, vidrect.cpp:51-227), one stream on one device.
+
+Usage: python -m rectdetect_tpu_torch.apps.vidrect [device] [input] [output] [AOV]
+  device: an index into the CUDA devices, or `cpu` given explicitly
+  input:  video file, or cam:<id>,<w>,<h>, default camera 0
+  output: file path, or `-` for a window
+  AOV:    horizontal angle of view in degrees (default 90; demo uses 72)
+  --trace=DIR: a torch.profiler trace of the steady loop, written to
+  DIR/vidrect_trace.json (chrome trace format).
+It applies the plan file's capacities (plan_torch.txt in the working
+directory, runtime/calibrate.py) and warns when the first frame does not
+fit them.  Not ported yet: --batch, --streams, --tiles and --extended.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import sys
+
+from rectdetect_tpu_torch.apps import common
+
+NOT_PORTED = ("--batch=", "--streams=", "--tiles=", "--extended")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv if argv is None else argv
+    for a in argv[1:]:
+        if a.startswith(NOT_PORTED):
+            sys.exit(f"{a.split('=')[0]} is not ported yet")
+    trace_dir = None
+    kept = []
+    for a in argv:
+        if a.startswith("--trace="):
+            trace_dir = a.split("=", 1)[1] or None
+        else:
+            kept.append(a)
+    argv = kept
+    if len(argv) < 2:
+        sys.stderr.write(
+            f"Usage : {argv[0]} [device number | cpu] [input video file] "
+            "[output video file] [AOV]\n"
+            "By specifying cam:<cam id>,<width>,<height> as an input, a "
+            "camera can be used.\n"
+            "Output is displayed on an window by specifying - to the "
+            "output.\n"
+            f"Example command line : {argv[0]} 0 cam:0,1280,720 - 72\n")
+        common.print_devices()
+        return -1
+
+    import cv2
+
+    dev = common.pick_device(argv[1])
+
+    from rectdetect_tpu_torch.runtime.native import FramePump
+    pump = FramePump(argv[2] if len(argv) >= 3 else None)
+    iw, ih = pump.width, pump.height
+    print(f"Resolution : {iw} x {ih}")
+
+    aov = float(argv[4]) if len(argv) >= 5 else 90.0   # vidrect.cpp:112-116
+    print(f"Horizontal angle of view : {aov:g} degrees")
+    tan_aov = math.tan(aov / 2 / 180.0 * math.pi)
+
+    writer = None
+    winname = "Rectangle Detection Demo"
+    if len(argv) < 4 or argv[3] == "-":
+        cv2.namedWindow(winname, cv2.WINDOW_AUTOSIZE)
+        print("\n>>>>> Press ENTER on the window to exit <<<<<")
+    else:
+        writer = common.open_writer(argv[3], iw, ih)
+
+    import torch
+
+    from rectdetect_tpu_torch.config import DEFAULT_CONFIG
+    from rectdetect_tpu_torch.pipeline.video import FpsMeter, VideoRectDetector
+    from rectdetect_tpu_torch.runtime.calibrate import (load_calibrated_config,
+                                                        plan_fits)
+
+    # loadPlan (rect.cpp:86 / vidrect.cpp:125): the plan's capacities for
+    # this device and resolution, if it has them
+    cfg = load_calibrated_config(ih, iw, dev, DEFAULT_CONFIG, verbose=True)
+    det = VideoRectDetector(tan_aov, cfg=cfg, device=dev)
+    meter = FpsMeter()
+
+    frame = pump.next(timeout_ms=5000)
+    if frame is None:
+        sys.exit("no frames")
+    if not plan_fits(cfg, torch.from_numpy(frame).to(dev)):
+        print("WARNING: the capacity plan does not fit this stream's "
+              "scene density; detections may be truncated. Run "
+              "rectdetect_tpu_torch.apps.rect on a sample frame to "
+              "recalibrate", file=sys.stderr)
+    det.enqueue(frame)
+
+    prof = None
+    if trace_dir:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        print(f"tracing to {trace_dir}")
+    try:
+        n = _steady_loop(pump, det, writer, winname, frame, meter)
+    finally:
+        if prof is not None:
+            prof.stop()
+            os.makedirs(trace_dir, exist_ok=True)
+            path = os.path.join(trace_dir, "vidrect_trace.json")
+            prof.export_chrome_trace(path)
+            print(f"trace written to {path}")
+    print(f"{n} frames")
+    return 0
+
+
+def _steady_loop(pump, det, writer, winname, first, meter) -> int:
+    """Enqueue frame n, then draw and show frame n-1's rectangles; at the
+    end of the stream drain the last frame.  Returns the frames shown."""
+    import cv2
+    shown, prev = 0, first
+    while prev is not None:
+        frame = pump.next(timeout_ms=5000)
+        if frame is not None:
+            det.enqueue(frame)
+        rects = det.poll()                 # frame n-1's results
+        common.draw_rects(prev, rects, common.RECT_STYLE_VIDEO)
+        shown += 1
+        if writer is not None:
+            writer.write(prev)
+            fps = meter.tick()
+            if fps is not None:
+                print(f"{fps:.3g} fps")
+        else:
+            cv2.imshow(winname, prev)
+            if (cv2.waitKey(1) & 0xFF) in (27, 13):
+                break
+        prev = frame
+
+    if writer is not None:
+        writer.release()
+    pump.close()
+    if writer is None:
+        cv2.destroyAllWindows()
+    return shown
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -34,11 +34,18 @@ _M_RGB2XYZ = (
     (0.212671, 0.715160, 0.072169),
     (0.019334, 0.119193, 0.950227),
 )
+# XYZ -> linear sRGB, the inverse's literals (oclimgutil.cl:160-162)
+_M_XYZ2RGB = (
+    (3.240479, -1.537150, -0.498535),
+    (-0.969256, 1.875991, 0.041556),
+    (0.055648, -0.204043, 1.057311),
+)
 _XN = 0.950456
 _ZN = 1.088754
 _LAB_EPS = 0.008856      # (6/29)^3
 _LAB_KAPPA = 903.3
 _THIRD = float(np.float32(1.0 / 3.0))
+_F_THRESH = 0.20689270648  # f-space threshold used by the reference
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,3 +137,41 @@ def unpack_labf(packed):
     af = (ca.to(torch.float32) + 0.5) * (1.0 / 1024.0)
     bf = (cb.to(torch.float32) + 0.5) * (1.0 / 1024.0)
     return torch.stack([lf, af, bf], dim=-1)
+
+
+def linear_to_srgb(lin: torch.Tensor) -> torch.Tensor:
+    """Linear light -> sRGB byte value in [0,255], float (closed form)."""
+    lin = torch.clamp(lin, 0.0, 1.0)
+    s = torch.where(lin <= 0.0031308, lin * 12.92,
+                    1.055 * lin ** (1.0 / 2.4) - 0.055)
+    return torch.clamp(torch.round(s * 255.0), 0, 255)
+
+
+def labf_to_bgr(labf: torch.Tensor) -> torch.Tensor:
+    """(H,W,3) normalized Lab -> (H,W,3) uint8 BGR, the inverse conversion
+    for rendering (lab2srgb, oclimgutil.cl:146-178, with the closed-form
+    gamma encoding): back to L*/a*/b*, the inverse f() transfer, the
+    XYZ -> sRGB matrix, gamma.  Plain float32 arithmetic: it draws the
+    debug images and feeds no stage."""
+    lstar = labf[..., 0] * 256.0
+    astar = labf[..., 1] * 256.0 - 128.0
+    bstar = labf[..., 2] * 256.0 - 128.0
+    y = torch.where(lstar > 8.0, ((lstar + 16.0) / 116.0) ** 3,
+                    lstar * (1.0 / _LAB_KAPPA))
+    fy = torch.where(y > _LAB_EPS, _cbrt(y), 7.787 * y + 16.0 / 116.0)
+    fx = fy + astar * (1.0 / 500.0)
+    fz = fy - bstar * (1.0 / 200.0)
+
+    def inv_f(ft):
+        return torch.where(ft > _F_THRESH, ft ** 3,
+                           (ft - 16.0 / 116.0) * (1.0 / 7.787))
+
+    x = inv_f(fx) * _XN
+    z = inv_f(fz) * _ZN
+    m = _M_XYZ2RGB
+    r = m[0][0] * x + m[0][1] * y + m[0][2] * z
+    g = m[1][0] * x + m[1][1] * y + m[1][2] * z
+    b = m[2][0] * x + m[2][1] * y + m[2][2] * z
+    bgr = torch.stack([linear_to_srgb(b), linear_to_srgb(g),
+                       linear_to_srgb(r)], dim=-1)
+    return bgr.to(torch.uint8)

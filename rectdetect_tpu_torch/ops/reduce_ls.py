@@ -146,8 +146,12 @@ def first_k_members(g: torch.Tensor, lsid: torch.Tensor, n_groups: int,
     ok = (g > 0) & (g <= n_groups) & (lsid > 0) & (lsid < cap)
     gl = g.long()
     if weight is not None:
-        if n_groups >= 1 << 11:
-            raise ValueError(f"n_groups {n_groups} does not fit 11 bits")
+        # g << 20 | inverted weight must stay below the all-ones sentinel
+        # of 32 bits.  The JAX package asserts n_groups < 2**11
+        # (reduce_ls.py:286), which refuses the 2048 groups its own
+        # calibrate may choose (calibrate.py:173-174); the key holds them
+        if n_groups >= (1 << 12) - 1:
+            raise ValueError(f"n_groups {n_groups} does not fit 12 bits")
         # the float's bits are monotone in its value for non-negative
         # floats; the top 20 of them, inverted, order by weight descending
         wq = torch.clamp(weight.float(), min=0.0).view(_I32).long() >> 12

@@ -61,11 +61,14 @@ class RectHypotheses(NamedTuple):
 
 
 def weak_strong_labels(edge_bin: torch.Tensor, edge_thin: torch.Tensor,
-                       cfg: PipelineConfig = DEFAULT_CONFIG):
+                       cfg: PipelineConfig = DEFAULT_CONFIG,
+                       return_strings: bool = False):
     """Weak/strong edge labeling (oclrect.c:262-312): stringify, label,
     strength-filter at both thresholds.  Returns (weak_lbl, strong_lbl),
     (H,W) int32 each: a surviving pixel keeps its component label (the
     component's minimum flat index), a filtered interior pixel is -1.
+    With return_strings also the stringified ("rect" variant) map that
+    was labelled.
 
     Only the JAX package's `rect_strength_dense` branch is ported.  Its
     labels come from the exact K4; the JAX package's CPU path labels with a
@@ -83,10 +86,13 @@ def weak_strong_labels(edge_bin: torch.Tensor, edge_thin: torch.Tensor,
     sp = max(4096, ih * iw // cfg.sparse_factor)
     s = strings_chain(edge_bin, "rect")
     lbl = label_components(s, 0)
-    return ccl.strength_filter_pair_dense(edge_thin, lbl, sp,
-                                          cfg.strength_weak,
-                                          cfg.strength_strong,
-                                          cfg.strength_scale)
+    weak, strong = ccl.strength_filter_pair_dense(edge_thin, lbl, sp,
+                                                  cfg.strength_weak,
+                                                  cfg.strength_strong,
+                                                  cfg.strength_scale)
+    if return_strings:
+        return weak, strong, s
+    return weak, strong
 
 
 def region_smoothing(packed0: torch.Tensor, weak_lbl: torch.Tensor,
@@ -253,6 +259,57 @@ def rect_frame(bgr: torch.Tensor, tan_aov: float,
     ih, iw = bgr.shape[:2]
     return rect_geometry(hyp.segs, hyp.valid, hyp.status, iw, ih, tan_aov,
                          cfg)
+
+
+def stage_maps(bgr: torch.Tensor, cfg: PipelineConfig = DEFAULT_CONFIG):
+    """The stages of rect_hypotheses up to the polylines of the strong
+    edges, kept: returns (images, rect_strings), where `images` is
+    rect_stage_images' dict and rect_strings the stringified map that the
+    weak/strong labels come from (the calibration measures it)."""
+    fe = edge_frontend(bgr, cfg)
+    weak_lbl, strong_lbl, s = weak_strong_labels(fe.edge_bin, fe.edge_thin,
+                                                 cfg, return_strings=True)
+    blurred, despeck = region_smoothing(fe.packed0, weak_lbl, fe.edge_thin,
+                                        cfg)
+    mask, seg = region_merge(despeck, strong_lbl, cfg)
+    boundary, _ = boundary_labels(seg, cfg)
+    ih, iw = seg.shape
+    _, lsid = polyline_execute(
+        (strong_lbl > 0).to(torch.int32), cfg.minerror_rect,
+        cfg.size_thre_rect, cfg.ls_cap_for(iw, ih), cfg)
+    images = {
+        "edge_thin": fe.edge_thin,          # oclrect.c:260
+        "weak_labels": weak_lbl,            # oclrect.c:280
+        "blblur": blurred,                  # oclrect.c:298
+        "despeckled": despeck,              # oclrect.c:305
+        "strong_labels": strong_lbl,        # oclrect.c:310
+        "merge_mask": mask,                 # oclrect.c:323
+        "regions": seg,                     # oclrect.c:338
+        "boundary": boundary,               # oclrect.c:344
+        "lsid": lsid,                       # oclrect.c:363
+    }
+    return images, s
+
+
+def rect_stage_images(bgr: torch.Tensor,
+                      cfg: PipelineConfig = DEFAULT_CONFIG) -> dict:
+    """The intermediate stage images of the rect path, by name, for the
+    debug dumps (utils.debug.StageDumper): the observability points the
+    reference left as commented-out visualization hooks
+    (oclrect.c:255-363).  The same nine maps as the JAX package's
+    rect_stage_images, from the port's own stages: exact labels where the
+    JAX CPU path runs a fixed-pass CCL, and the boundary pixels past the
+    boundary compaction dropped to -1, as rect_hypotheses sees them."""
+    return stage_maps(bgr, cfg)[0]
+
+
+# renderer kind per stage, for utils.debug.StageDumper
+STAGE_KINDS = {
+    "edge_thin": "gray", "weak_labels": "labels", "blblur": "packed",
+    "despeckled": "packed", "strong_labels": "labels",
+    "merge_mask": "binary", "regions": "labels", "boundary": "labels",
+    "lsid": "labels",
+}
 
 
 def live_rects(res: RectResult) -> list[dict]:

@@ -1014,3 +1014,77 @@ def test_failed_launch_raises_without_fallback():
         _build.launch("rd_hyp", segs.device, segs.data_ptr(),
                       valid.data_ptr(), corners.data_ptr(), ok.data_ptr(),
                       3, 65, 24, 0.0025)
+
+
+def _same_lists(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.keys() == y.keys()
+        for k in x:
+            np.testing.assert_array_equal(np.asarray(x[k]), np.asarray(y[k]))
+
+
+@pytest.mark.parametrize("which", ["rect", "poly"])
+def test_video_detectors_on_card_equal_direct_calls(which):
+    """Three frames through the pipelined detector on the card: each poll
+    equals the direct call on the same frame, bit for bit, and the
+    library counts the path's kernels per frame."""
+    _need_card()
+    from rectdetect_tpu_torch.pipeline.poly import live_segments
+    from rectdetect_tpu_torch.pipeline.rect import live_rects
+    from rectdetect_tpu_torch.pipeline.video import (VideoPolyDetector,
+                                                     VideoRectDetector)
+    frames = [_scene(seed=s).numpy() for s in range(3)]
+    if which == "rect":
+        det = VideoRectDetector(TAN_AOV, device="cuda")
+        per_frame = 32
+
+        def direct(f):
+            return live_rects(rect_frame(f, TAN_AOV))
+    else:
+        det = VideoPolyDetector(device="cuda")
+        per_frame = 7
+
+        def direct(f):
+            return live_segments(poly_frame(f, PipelineConfig(), 1.0, 10,
+                                            2000)[0])
+    want = [direct(torch.from_numpy(f).cuda()) for f in frames]
+    torch.cuda.synchronize()
+    n0 = _build.launch_count()
+    for f in frames:
+        det.enqueue(f)
+    got = [det.poll() for _ in frames]
+    torch.cuda.synchronize()
+    assert _build.launch_count() - n0 == per_frame * len(frames)
+    assert det.poll() is None
+    for a, b in zip(got, want):
+        _same_lists(a, b)
+
+
+def test_stage_images_and_calibration_on_card_equal_cpu(tmp_path):
+    """rect_stage_images and calibrate on the card against the same calls
+    on the CPU: integer maps, densities and capacities equal, edge_thin
+    within ATOL; the plan key names the card."""
+    _need_card()
+    from rectdetect_tpu_torch.pipeline.rect import rect_stage_images
+    from rectdetect_tpu_torch.runtime import calibrate as cal
+    from rectdetect_tpu_torch.runtime import native
+    bgr = _scene()
+    got = rect_stage_images(bgr.cuda())
+    want = rect_stage_images(bgr)
+    for k, v in want.items():
+        if k == "edge_thin":
+            torch.testing.assert_close(got[k].cpu(), v, rtol=0, atol=ATOL)
+            assert torch.equal(got[k].cpu() > 0, v > 0)
+        else:
+            assert torch.equal(got[k].cpu(), v), k
+    assert cal._densities([bgr.cuda()]) == cal._densities([bgr])
+    plan = str(tmp_path / "plan_torch.txt")
+    c_card = cal.calibrate([bgr.cuda()], plan_path=plan)
+    c_cpu = cal.calibrate([bgr], plan_path=plan)
+    assert c_card == c_cpu
+    key = cal._key(torch.cuda.get_device_name(0), 96, 128)
+    assert native.plan_load(plan, key) == native.plan_load(plan, "cpu|96x128")
+    assert cal.load_calibrated_config(96, 128, "cuda:0",
+                                      plan_path=plan) == c_card
+    assert cal.plan_fits(c_card, bgr.cuda()) == cal.plan_fits(c_cpu, bgr)

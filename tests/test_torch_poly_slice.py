@@ -102,7 +102,12 @@ def test_port_imports_no_jax():
         "import sys, numpy as np, torch\n"
         "from rectdetect_tpu_torch.pipeline.poly import poly_frame\n"
         "from rectdetect_tpu_torch import convert, parity\n"
-        "from rectdetect_tpu_torch.apps import poly, profile_poly, rect\n"
+        "from rectdetect_tpu_torch.apps import (common, poly, profile_poly,"
+        " rect, videotest, vidpoly, vidrect)\n"
+        "from rectdetect_tpu_torch.runtime import calibrate, native\n"
+        "from rectdetect_tpu_torch.utils import debug\n"
+        "from rectdetect_tpu_torch.pipeline.video import ("
+        "FpsMeter, VideoPolyDetector, VideoRectDetector)\n"
         "from rectdetect_tpu_torch.ops import (hopper_bids, hopper_blblur,"
         " hopper_despeckle2, hopper_hyp, hopper_links, hopper_merge_mask,"
         " hopper_mkpl, hopper_pose, hopper_quant, hopper_scan, mkpl,"
@@ -119,6 +124,10 @@ def test_port_imports_no_jax():
         "weak, _ = weak_strong_labels(fe.edge_bin, fe.edge_thin)\n"
         "region_smoothing(fe.packed0, weak, fe.edge_thin)\n"
         "rect_frame(img, 0.7)\n"
+        "calibrate._densities([img])\n"
+        "calibrate.plan_fits(calibrate.DEFAULT_CONFIG, img)\n"
+        "from rectdetect_tpu_torch.pipeline.rect import rect_stage_images\n"
+        "debug.render_packed_lab(rect_stage_images(img)['blblur'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'rectdetect_tpu' or "
         "m.startswith('rectdetect_tpu.'))\n"

@@ -2,9 +2,10 @@
 port against, from the JAX package run on the CPU on
 bench.synth_frame(720, 1280, seed=0).
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [poly|rect|hyp|frame] [out.npz]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [poly|rect|hyp|frame|calib|gaps] [out.npz]
+    JAX_PLATFORMS=cpu python -O tools/make_torch_fixture.py photos [out.npz]
 
-Without arguments it writes all of them.
+Without arguments it writes all of them (under -O, for `photos`).
 
 `poly`: the poly path with PipelineConfig(mkpl_pallas=0), into
 tests/data/poly_720p_synth.npz, holding
@@ -54,6 +55,25 @@ two-quad 192x144 scene of tests/test_rect_pipeline.py (draw_scene) through
 the `hyp` chain and the same tail, with the frame itself and its
 hypotheses, so that a test can run the whole rect_frame on it without
 compiling the JAX rect_frame.
+
+`calib`: the capacity calibration of that 192x144 scene, into
+tests/data/calib_small.npz: runtime.calibrate._densities (the densities
+the port measures), calibrate's kept capacities (plan in a temporary
+directory), plan_fits for the default and the calibrated config, and the
+SHA-256 of rect_stage_images' nine maps (edge_thin also as an array).
+
+`photos`: the 25 photographs of docs/photo_corpus, each calibrated on
+itself, then the rect path at the calibrated config through `_hyp_chain`
+and `_geometry_tail`, into tests/data/photo_corpus.npz (make_photos).
+The calibration's densities come from the JAX package's dense path,
+whose weak labels, boundary labels and arcs come from fixed-pass CCLs;
+each is checked against its converged form (`_label_checks`), and where
+the boundary labels differ, the group count comes from the converged
+labels, the substitution the other fixtures make.
+
+`gaps`: the windows around each pixel where the port's edge_bin differs
+from the JAX package's on the photographs (make_gaps), so that a test can
+trace each one to an XLA:CPU ulp gap without JAX.
 """
 
 from __future__ import annotations
@@ -86,7 +106,8 @@ def bits(a) -> np.ndarray:
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
     makers = {"poly": make_poly, "rect": make_rect, "hyp": make_hyp,
-              "frame": make_frame}
+              "frame": make_frame, "calib": make_calib,
+              "photos": make_photos, "gaps": make_gaps}
     which = argv[1:2] or list(makers)
     if which[0] not in makers:
         sys.exit(f"unknown fixture {which[0]!r}: one of {sorted(makers)}")
@@ -101,7 +122,10 @@ FIXTURES = {"poly": "poly_720p_synth.npz",
             "rect": "rect_regions_720p_synth.npz",
             "hyp": "rect_hyp_720p_synth.npz",
             "frame": "rect_frame_720p_synth.npz",
-            "frame_small": "rect_frame_small.npz"}
+            "frame_small": "rect_frame_small.npz",
+            "calib": "calib_small.npz",
+            "photos": "photo_corpus.npz",
+            "gaps": "photo_gaps.npz"}
 
 
 def make_poly(out: str) -> None:
@@ -330,7 +354,8 @@ def _hyp_chain(bgr_np, cfg):
            f"boundary labels from label_components_converged (the "
            f"fixed-pass CCL differs at {n_bnd} pixels)")
     n_fg = int((np.asarray(regions.mark_boundary(seg)) != -1).sum())
-    return {"packed0": fe.packed0, "mask": mask, "seg": seg,
+    return {"packed0": fe.packed0, "edge_bin": fe.edge_bin, "weak": weak,
+            "strong": strong, "mask": mask, "seg": seg,
             "boundary": boundary, "lsid": lsid,
             "segs": np.asarray(segs).astype(np.float32),
             "valid": np.asarray(valid),
@@ -505,6 +530,353 @@ def make_frame(out: str) -> None:
     print(f"{small}: {int(data['valid'].sum())} valid, "
           f"{int((data['status'] & 1).sum())} screens, "
           f"{os.path.getsize(small)} bytes; {c['reference']}")
+
+
+# the densities the port measures, in the order the fixtures keep them,
+# and the capacities it keeps (rectdetect_tpu_torch/runtime/calibrate.py)
+DENSITY_NAMES = ("rect_d", "strings_d", "boundary_d", "arcs_d", "n_arcs",
+                 "cyc_d", "groups")
+KEPT = ("sparse_factor", "strings_sparse_factor", "boundary_sparse_factor",
+        "arc_sparse_factor", "cycle_sparse_factor", "ls_capacity",
+        "max_groups")
+STAGE_NAMES = ("edge_thin", "weak_labels", "blblur", "despeckled",
+               "strong_labels", "merge_mask", "regions", "boundary", "lsid")
+PHOTO_STAGES = ("packed0", "edge_bin", "weak", "strong", "mask", "seg",
+                "boundary", "lsid")
+
+
+def _label_checks(bgr, cfg):
+    """On the JAX package's dense calibration path (rect_stage_images with
+    sparse_factor=0, what calibrate._densities measures): the pixels where
+    the fixed-pass weak labels and boundary labels differ from
+    label_components_converged, the pixels where the dense polyline's
+    lsid differs from the slot-space polyline's with every slot list at
+    one slot a pixel (whose arc walk needs no CCL), and the boundary
+    components of the converged boundary labels."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from rectdetect_tpu.ops import ccl, morphology, polyline, regions
+    from rectdetect_tpu.pipeline import rect as prect
+    from rectdetect_tpu.pipeline.frontend import edge_frontend
+
+    h, w = bgr.shape[:2]
+    dense = dataclasses.replace(cfg, sparse_factor=0)
+    one = dataclasses.replace(
+        cfg, sparse_factor=1, strings_sparse_factor=1,
+        boundary_sparse_factor=1, arc_sparse_factor=1,
+        cycle_sparse_factor=1, strings_small_factor=1, arc_small_factor=1)
+
+    @jax.jit
+    def f(b):
+        st = prect.rect_stage_images(b, dense)
+        fe = edge_frontend(b, dense)
+        s = morphology.strings_chain(fe.edge_bin, "rect")
+        fixed = ccl.label_components(s, 0, cfg.ccl_passes, cfg.ccl_jumps)
+        conv = ccl.label_components_converged(s, 0)
+        bconv = ccl.label_components_converged(
+            regions.mark_boundary(st["regions"]), -1)
+        strong_bin = (st["strong_labels"] > 0).astype(jnp.int32)
+        _, lsid1 = polyline.polyline_execute(
+            strong_bin, cfg.minerror_rect, cfg.size_thre_rect,
+            cfg.ls_cap_for(w, h), one)
+        flat = bconv.reshape(-1)
+        roots = (flat == jnp.arange(h * w, dtype=flat.dtype)) & (flat >= 0)
+        return (jnp.sum(fixed != conv), jnp.sum(st["boundary"] != bconv),
+                jnp.sum(st["lsid"] != lsid1), jnp.sum(roots))
+
+    n_weak, n_bnd, n_lsid, groups = (int(v) for v in f(jnp.asarray(bgr)))
+    if n_weak or n_lsid:
+        sys.exit(f"the dense calibration path's weak labels ({n_weak} px) or "
+                 f"lsid ({n_lsid} px) differ from their converged forms: "
+                 f"this generator substitutes only the boundary labels")
+    return {"weak_fixed_vs_converged": n_weak,
+            "boundary_fixed_vs_converged": n_bnd,
+            "lsid_dense_vs_slot_space": n_lsid, "groups_converged": groups}
+
+
+def _jax_calibrate(bgr, cfg, checks):
+    """The JAX package's calibrate on one frame, with the plan in a
+    temporary directory; returns (calibrated config, the 7 densities the
+    port measures).  Where the dense path's fixed-pass boundary labels
+    differ from the converged ones, calibrate's own arithmetic runs again
+    on its densities with the group count of the converged labels."""
+    import tempfile
+
+    import jax.numpy as jnp
+
+    from rectdetect_tpu.runtime import calibrate as cal
+
+    orig = cal._densities
+    seen = {}
+
+    def spy(frames, c):
+        seen["d"] = orig(frames, c)
+        return seen["d"]
+
+    def fixed(frames, c):
+        d = seen["d"]
+        return d[:8] + (checks["groups_converged"],) + d[9:]
+
+    with tempfile.TemporaryDirectory() as td:
+        cal._densities = spy
+        try:
+            new = cal.calibrate([jnp.asarray(bgr)], cfg,
+                                plan_path=os.path.join(td, "plan.txt"))
+            if checks["boundary_fixed_vs_converged"]:
+                cal._densities = fixed
+                new = cal.calibrate([jnp.asarray(bgr)], cfg,
+                                    plan_path=os.path.join(td, "plan.txt"))
+        finally:
+            cal._densities = orig
+    d = seen["d"]
+    groups = (checks["groups_converged"]
+              if checks["boundary_fixed_vs_converged"] else d[8])
+    return new, (d[1], d[2], d[3], d[4], d[5], d[6], groups)
+
+
+def make_calib(out: str) -> None:
+    """The calibration of the 192x144 scene of rect_frame_small.npz on the
+    JAX package: calibrate._densities, calibrate's capacities (plan in a
+    temporary directory), plan_fits for DEFAULT_CONFIG and for the
+    calibrated config, and the SHA-256 of rect_stage_images' nine maps
+    with DEFAULT_CONFIG."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from rectdetect_tpu.config import PipelineConfig
+    from rectdetect_tpu.ops import ccl, regions
+    from rectdetect_tpu.ops.compact import compact_mask
+    from rectdetect_tpu.pipeline.rect import rect_stage_images
+    from rectdetect_tpu.runtime.calibrate import plan_fits
+
+    cfg = PipelineConfig()
+    bgr = np.load(os.path.join(ROOT, "tests", "data",
+                               FIXTURES["frame_small"]))["bgr"]
+    h, w = bgr.shape[:2]
+    checks = _label_checks(bgr, cfg)
+    new, dens = _jax_calibrate(bgr, cfg, checks)
+    fits = [bool(plan_fits(c, bgr)) for c in (cfg, new)]
+    st = {k: np.asarray(v) for k, v in
+          rect_stage_images(jnp.asarray(bgr), cfg).items()}
+    # the stage images' own fixed-pass labels against the converged ones,
+    # the boundary with the boundary compaction's drop applied
+    spb = max(4096, h * w // cfg.boundary_sparse_factor)
+    bmark = regions.mark_boundary(jnp.asarray(st["regions"]))
+    bcomp = compact_mask((bmark != -1).reshape(-1), spb)
+    kept = np.asarray(bcomp.slot_of[:h * w] < spb).reshape(h, w)
+    bconv = np.where(kept, np.asarray(
+        ccl.label_components_converged(bmark, -1)), -1)
+    n_bnd = int((bconv != st["boundary"]).sum())
+    if checks["weak_fixed_vs_converged"] or n_bnd:
+        sys.exit("the 192x144 scene's stage images differ from their "
+                 "converged forms")
+    meta = {
+        "frame": "rect_frame_small.npz bgr, 192x144",
+        "config": "PipelineConfig()",
+        "densities": "rectdetect_tpu.runtime.calibrate._densities, as "
+                     "calibrate measured them, in the order of "
+                     "`density_names`",
+        "capacities": "calibrate([frame]) with the plan in a temporary "
+                      "directory: the fields of `kept`",
+        "plan_fits": "plan_fits(PipelineConfig(), frame), plan_fits("
+                     "calibrated, frame)",
+        "stages": "rect_stage_images(frame, PipelineConfig()): SHA-256 of "
+                  "each map's little-endian int32 (edge_thin and blblur: "
+                  "float32 bits and packed Lab, as int32); edge_thin "
+                  "itself too",
+        "labels": checks,
+        "stage_labels": "the stage images' fixed-pass weak and boundary "
+                        "labels equal label_components_converged (the "
+                        "boundary after the boundary compaction's drop)",
+        "jax": jax.__version__, "backend": jax.default_backend(),
+    }
+    data = {
+        "meta": np.asarray(json.dumps(meta)),
+        "shape": np.asarray([h, w], np.int32),
+        "density_names": np.asarray(DENSITY_NAMES),
+        "densities": np.asarray(dens, np.float64),
+        "kept": np.asarray(KEPT),
+        "capacities": np.asarray([getattr(new, k) for k in KEPT], np.int64),
+        "plan_fits": np.asarray(fits),
+        "stage_names": np.asarray(STAGE_NAMES),
+        "stage_sha256": np.asarray([
+            digest(st[k].view(np.int32) if st[k].dtype == np.float32
+                   else st[k]) for k in STAGE_NAMES]),
+        # the one float map, for a comparison within a tolerance where its
+        # bits differ (the XLA:CPU rsqrt of the edge vector)
+        "edge_thin": st["edge_thin"].astype(np.float32),
+    }
+    np.savez_compressed(out, **data)
+    print(f"{out}: densities {dict(zip(DENSITY_NAMES, dens))}, capacities "
+          f"{dict(zip(KEPT, data['capacities'].tolist()))}, plan_fits "
+          f"{fits}, {os.path.getsize(out)} bytes")
+
+
+PHOTO_DIR = os.path.join("docs", "photo_corpus")
+
+
+def _photo_row(path):
+    """One photo of the corpus: the JAX package's calibrate, then the rect
+    path at the calibrated config through _hyp_chain and _geometry_tail."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from PIL import Image
+
+    from rectdetect_tpu.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    bgr = np.ascontiguousarray(
+        np.asarray(Image.open(path).convert("RGB"))[..., ::-1])
+    h, w = bgr.shape[:2]
+    checks = _label_checks(bgr, cfg)
+    new, dens = _jax_calibrate(bgr, cfg, checks)
+    c = _hyp_chain(bgr, new)
+    res = _geometry_tail(c["segs"], c["valid"], c["status"], w, h, new)
+    rows = np.nonzero(res["valid"])[0].astype(np.int32)
+    return {"name": os.path.basename(path), "shape": (h, w),
+            "densities": dens,
+            "capacities": [getattr(new, k) for k in KEPT],
+            "labels": checks, "reference": c["reference"],
+            "groups_filled": int(c["valid"].any(1).sum()),
+            "rows": rows, "c2": res["c2"][rows].astype(np.float32),
+            "status": res["status"][rows].astype(np.int32),
+            "n_slots": int(res["valid"].shape[0]),
+            "stage_sha256": [digest(c[k]) for k in PHOTO_STAGES],
+            "edge_bin_bits": bits(c["edge_bin"])}
+
+
+def make_photos(out: str) -> None:
+    """The 25 photographs of docs/photo_corpus at 448x336, each calibrated
+    on itself by the JAX package, into tests/data/photo_corpus.npz: per
+    photo (key prefix `<stem>/`) the densities and kept capacities, the
+    valid rows of rect_frame's RectResult under the calibrated config (c2
+    and status at them, `rows` their slots out of `n_slots`), the SHA-256
+    of its stage maps (`stage_names`) and its bit-packed edge_bin.  The
+    photos are read in parallel (PHOTO_PROCS processes, default 4).
+
+    The JAX package's first_k_members asserts n_groups < 2**11
+    (reduce_ls.py:286), though its calibrate may choose max_groups = 2048
+    (calibrate.py:173-174) and the u32 key it packs (g << 20 | 20 weight
+    bits, all ones the sentinel) holds group ids up to 4094.  So a photo
+    that calibrates to 2048 groups fails in the JAX rect path unless
+    Python runs with assert statements off: run this maker as
+    `python -O`, which the worker processes inherit; it refuses to run
+    otherwise."""
+    if __debug__:
+        sys.exit("run the photos fixture with python -O (see make_photos)")
+    import multiprocessing as mp
+
+    import jax
+
+    paths = sorted(os.path.join(ROOT, PHOTO_DIR, f)
+                   for f in os.listdir(os.path.join(ROOT, PHOTO_DIR))
+                   if f.endswith(".png"))
+    procs = int(os.environ.get("PHOTO_PROCS", "4"))
+    with mp.get_context("spawn").Pool(procs) as pool:
+        rows = pool.map(_photo_row, paths, chunksize=1)
+    meta = {
+        "photos": f"{PHOTO_DIR}/*.png, read with Pillow, RGB -> BGR",
+        "config": "PipelineConfig(), then calibrate([photo]) on each photo "
+                  "(plan in a temporary directory)",
+        "densities": "rectdetect_tpu.runtime.calibrate._densities, as "
+                     "calibrate measured them (`density_names`); where the "
+                     "dense path's fixed-pass boundary labels differ from "
+                     "label_components_converged, the group count comes "
+                     "from the converged labels and calibrate's arithmetic "
+                     "runs again on it",
+        "rect_frame": HYP_STAGES + " -> quad.reduce_groups -> "
+                      "pose.pose_estimate -> looks_like_a_screen -> "
+                      "sanitising, at the calibrated config, tan_aov = "
+                      "tan(radians(72) / 2)",
+        "labels": {r["name"]: r["labels"] for r in rows},
+        "reference": {r["name"]: r["reference"] for r in rows},
+        "asserts": "off (python -O): the JAX rect path's "
+                   "reduce_ls.py:286 assert refuses the max_groups = 2048 "
+                   "its calibrate chooses; no other assert on the path "
+                   "fails",
+        "jax": jax.__version__,
+    }
+    data = {"meta": np.asarray(json.dumps(meta)),
+            "names": np.asarray([r["name"] for r in rows]),
+            "density_names": np.asarray(DENSITY_NAMES),
+            "kept": np.asarray(KEPT),
+            "stage_names": np.asarray(PHOTO_STAGES)}
+    for r in rows:
+        p = r["name"][:-4] + "/"
+        data[p + "shape"] = np.asarray(r["shape"], np.int32)
+        data[p + "densities"] = np.asarray(r["densities"], np.float64)
+        data[p + "capacities"] = np.asarray(r["capacities"], np.int64)
+        data[p + "n_slots"] = np.asarray(r["n_slots"], np.int32)
+        data[p + "groups_filled"] = np.asarray(r["groups_filled"], np.int32)
+        for k in ("rows", "c2", "status", "edge_bin_bits"):
+            data[p + k] = r[k]
+        data[p + "stage_sha256"] = np.asarray(r["stage_sha256"])
+    np.savez_compressed(out, **data)
+    for r in rows:
+        print(f"{r['name']}: capacities "
+              f"{dict(zip(KEPT, r['capacities']))}, groups "
+              f"{r['densities'][-1]}, {len(r['rows'])} valid; "
+              f"{r['labels']}")
+    print(f"{out}: {len(rows)} photos, {os.path.getsize(out)} bytes")
+
+
+GAP_HALF = 16
+
+
+def make_gaps(out: str) -> None:
+    """Where the port's edge_bin differs from the JAX package's on the
+    photographs, the windows that show why, into
+    tests/data/photo_gaps.npz: for each differing pixel, a window of up
+    to 33x33 pixels around it (clipped to the image; `corner` holds its
+    top-left corner and the image's height and width) of the JAX front
+    end's packed0, blurred Lab (labb) and edge_thin, and the port's own
+    packed0 there."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import torch
+    from PIL import Image
+
+    from rectdetect_tpu.config import PipelineConfig
+    from rectdetect_tpu.pipeline.frontend import edge_frontend
+    from rectdetect_tpu_torch.pipeline.frontend import (
+        edge_frontend as port_frontend)
+
+    cfg = PipelineConfig()
+    front = jax.jit(lambda b: edge_frontend(b, cfg))
+    data, rows = {}, []
+    names = sorted(f[:-4] for f in os.listdir(os.path.join(ROOT, PHOTO_DIR))
+                   if f.endswith(".png"))
+    for name in names:
+        bgr = np.ascontiguousarray(np.asarray(Image.open(os.path.join(
+            ROOT, PHOTO_DIR, name + ".png")).convert("RGB"))[..., ::-1])
+        h, w = bgr.shape[:2]
+        fe = front(jnp.asarray(bgr))
+        pe = port_frontend(torch.from_numpy(bgr))
+        eb = np.asarray(fe.edge_bin)
+        for y, x in np.argwhere(eb != pe.edge_bin.numpy()):
+            y0, x0 = max(0, y - GAP_HALF), max(0, x - GAP_HALF)
+            y1, x1 = min(h, y + GAP_HALF + 1), min(w, x + GAP_HALF + 1)
+            k = f"{name}/{y}_{x}/"
+            win = (slice(y0, y1), slice(x0, x1))
+            data[k + "corner"] = np.asarray([y0, x0, h, w], np.int32)
+            data[k + "packed0"] = np.asarray(fe.packed0)[win]
+            data[k + "port_packed0"] = pe.packed0.numpy()[win]
+            data[k + "labb"] = np.asarray(fe.labb)[win]
+            data[k + "edge_thin"] = np.asarray(fe.edge_thin)[win]
+            rows.append(f"{name} ({y}, {x})")
+    meta = {"photos": f"{PHOTO_DIR}/*.png", "pixels": rows,
+            "reference": "jax.jit(edge_frontend) with PipelineConfig()",
+            "port": "rectdetect_tpu_torch.pipeline.frontend.edge_frontend "
+                    "on the CPU",
+            "jax": jax.__version__}
+    data["meta"] = np.asarray(json.dumps(meta))
+    np.savez_compressed(out, **data)
+    print(f"{out}: {len(rows)} pixels {rows}, {os.path.getsize(out)} bytes")
 
 
 if __name__ == "__main__":
