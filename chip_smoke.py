@@ -76,7 +76,26 @@ the final line):
      counter at 30 x 32 and 30 x 7 kernels, and the enqueue/poll loop's
      frame rate beside 30 sequential direct calls.  Then
      rect_stage_images of the 720p frame on the card against the CPU, and
-     StageDumper writing its nine PNGs.
+     StageDumper writing its nine PNGs;
+  7. EXTENDED_CONFIG (bridge_gap2, strength_rescue_rounds=3) and the other
+     off-default capabilities: K3's bridge2 variant, both variants,
+     bit-equal to its plain version on the 720p inputs and the staircase
+     map of tests/data/extended.npz, one kernel a call, its device time
+     in turns with bridge2 off and its nvcc -Xptxas -v lines (its own
+     record on the kernels line); the 720p rect_frame and poly_frame
+     under EXTENDED_CONFIG held against tests/data/extended.npz (valid and
+     status equal, corners within 2 px, weak/strong maps and the arena
+     equal), each driven with the launch counts (31 kernels for
+     rect_frame: the staged strength filters have no seg_scan; 7 for
+     poly_frame), a bit-identical rerun, and both frames' times in turns
+     with DEFAULT_CONFIG's (default, extended, extended, default); the
+     seed-66 shallow-slope scene of tests/test_accuracy_fixes.py, each
+     quad within 3 px of its ground truth; the 25 photographs calibrated
+     from EXTENDED_CONFIG against tests/data/photo_corpus_ext.npz, and
+     how many more corner sets than DEFAULT_CONFIG's they give; the exact
+     LUT colour path, the front end at color_exact and blur radius 5, the
+     blur at radii 0-40, the recursive blur, rescue_filtered,
+     color_reassign and rand_field on the card against the CPU.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -124,6 +143,9 @@ POLY_FRAME_KERNELS = 7
 RECT_FRAME_KERNELS = 32
 # frames of the video phase
 VIDEO_FRAMES = 30
+# frames a turn of phase 7's frame times (default, extended, extended,
+# default)
+EXT_TURN_FRAMES = 10
 
 
 def fail(msg: str):
@@ -455,15 +477,21 @@ def cuda_timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def photo_corpus(torch, dev, card, cfg0, drive, counters):
-    """Phase 6, the photographs: each photo of docs/photo_corpus
-    calibrated on itself (a temporary plan), plan_fits, then rect_frame at
-    the calibrated config, held against tests/data/photo_corpus.npz (the
-    JAX package's calibrate and rect path): kept capacities and densities
+def photo_corpus(torch, dev, card, cfg0, drive, counters,
+                 fixture="photo_corpus.npz", label="phase 6",
+                 kernels=RECT_FRAME_KERNELS, absent=(), dense_kernels=True):
+    """Phase 6, the photographs (phase 7 from EXTENDED_CONFIG, against
+    photo_corpus_ext.npz): each photo of docs/photo_corpus calibrated on
+    itself from cfg0 (a temporary plan), plan_fits, then rect_frame at
+    the calibrated config, held against tests/data/<fixture> (the JAX
+    package's calibrate and rect path): kept capacities and densities
     equal, the accepted corner sets matched one to one within 2 px, none
-    on one side only.  On the photo with the most boundary components,
-    distinct_bids, mkpl and hyp are held bit-equal to their plain versions
-    at its calibrated capacities."""
+    on one side only; the first photo's calibrate and rect_frame driven
+    with the launch counts (`kernels` a rect_frame, the kernels `absent`
+    launched by neither).  With dense_kernels,
+    on the photo with the most boundary components, distinct_bids, mkpl
+    and hyp are held bit-equal to their plain versions at its calibrated
+    capacities.  Returns the rows, one a photo."""
     import tempfile
 
     from rectdetect_tpu_torch import parity
@@ -477,7 +505,7 @@ def photo_corpus(torch, dev, card, cfg0, drive, counters):
                                                     rect_stage_images)
     from rectdetect_tpu_torch.runtime import calibrate as cal
 
-    px = np.load(os.path.join(ROOT, "tests", "data", "photo_corpus.npz"))
+    px = np.load(os.path.join(ROOT, "tests", "data", fixture))
     names = [str(n) for n in px["names"]]
     dnames = [str(k) for k in px["density_names"]]
     kept = [str(k) for k in px["kept"]]
@@ -494,34 +522,24 @@ def photo_corpus(torch, dev, card, cfg0, drive, counters):
             ih, iw = bgr.shape[:2]
             dens = cal._densities([bgr], cfg0)
             if i == 0:
-                cfg = drive("calibrate (photo)",
+                cfg = drive(f"calibrate (photo, {label})",
                             [k for k in counters
-                             if k not in ("distinct_bids", "hyp", "pose")],
+                             if k not in ("distinct_bids", "hyp", "pose",
+                                          *absent)],
                             lambda: cal.calibrate([bgr], cfg0, plan))
             cfg, t_cal = cuda_timed(torch, lambda: cal.calibrate(
                 [bgr], cfg0, plan))
             fits = cal.plan_fits(cfg, bgr)
             caps = [getattr(cfg, k) for k in kept]
             if i == 0:
-                drive("rect_frame (photo, calibrated)", list(counters),
-                      lambda: rect_frame(bgr, TAN_AOV, cfg),
-                      RECT_FRAME_KERNELS)
+                drive(f"rect_frame (photo, calibrated, {label})",
+                      [k for k in counters if k not in absent],
+                      lambda: rect_frame(bgr, TAN_AOV, cfg), kernels)
             rect_frame(bgr, TAN_AOV, cfg)
             torch.cuda.synchronize()
             res, t_rf = cuda_timed(torch, lambda: rect_frame(bgr, TAN_AOV,
                                                              cfg))
-            n_slots = int(px[p + "n_slots"])
-            valid_ref = np.zeros(n_slots, bool)
-            valid_ref[px[p + "rows"]] = True
-            c2_ref = np.zeros((n_slots, 4, 2), np.float32)
-            c2_ref[px[p + "rows"]] = px[p + "c2"]
-            st_ref = np.zeros(n_slots, np.int32)
-            st_ref[px[p + "rows"]] = px[p + "status"]
-            valid = res.valid.cpu().numpy()
-            c2 = res.c2.cpu().numpy()
-            mine = parity.accepted_corner_sets(c2, valid)
-            ref = parity.accepted_corner_sets(c2_ref, valid_ref)
-            matched, port_only, ref_only = parity.match_sets(mine, ref, 2.0)
+            ok, match = fixture_rows_match(parity, res, px, p)
             st = rect_stage_images(bgr, cfg)
             got_stages = {
                 "packed0": color.pack_lab(color.bgr_to_labf(bgr)),
@@ -542,33 +560,30 @@ def photo_corpus(torch, dev, card, cfg0, drive, counters):
                        zip(dnames, px[p + "densities"].tolist())
                        if dens[k] != v},
                    "groups": dens["groups"], "plan_fits": fits,
-                   "valid_equal": valid.shape == valid_ref.shape
-                   and bool((valid == valid_ref).all()),
-                   "status_equal": valid.shape == valid_ref.shape
-                   and bool((res.status.cpu().numpy() == st_ref)[
-                       valid_ref].all()),
-                   "corner_sets": len(mine), "corner_sets_ref": len(ref),
-                   "matched": matched, "port_only": port_only,
-                   "ref_only": ref_only,
+                   **{k: match[k] for k in (
+                       "valid_equal", "status_equal", "corner_sets",
+                       "corner_sets_ref", "matched", "port_only",
+                       "ref_only")},
                    "first_stage_differing": differ[0] if differ else None,
                    "stages_differing": differ,
                    "edge_bin_pixels_differing": n_edge,
                    "calibrate_ms": t_cal, "rect_frame_ms": t_rf}
             rows.append(row)
-            phase(f"phase 6 photo {json.dumps(row)}; card {card}")
-            if not (row["capacities_equal"] and port_only == 0
-                    and ref_only == 0 and matched == len(ref)):
+            phase(f"{label} photo {json.dumps(row)}; card {card}")
+            if not (row["capacities_equal"] and ok):
                 misses.append(name)
             if cfg.max_groups > 192 and (
                     dense_photo is None or dens["groups"] > dense_photo[2]):
                 dense_photo = (name, bgr, dens["groups"], cfg)
-    phase(f"phase 6 photos: {sum(r['matched'] for r in rows)} corner sets "
+    phase(f"{label} photos: {sum(r['matched'] for r in rows)} corner sets "
           f"matched of {sum(r['corner_sets_ref'] for r in rows)}; "
           f"calibrate median {statistics.median(r['calibrate_ms'] for r in rows):.3f} ms, "
           f"rect_frame median {statistics.median(r['rect_frame_ms'] for r in rows):.3f} ms "
           f"(CUDA events, 448x336, one call each); card {card}")
     if misses:
-        fail(f"photos {misses} differ from the JAX fixture")
+        fail(f"photos {misses} differ from the JAX fixture {fixture}")
+    if not dense_kernels:
+        return rows
     if dense_photo is None:
         fail("no photo calibrated max_groups above 192")
 
@@ -607,6 +622,7 @@ def photo_corpus(torch, dev, card, cfg0, drive, counters):
     if n_bids or not mk_equal or not hyp_equal:
         fail(f"distinct_bids, mkpl or hyp at {name}'s calibrated "
              f"capacities differ from the plain versions")
+    return rows
 
 
 def video(torch, dev, card, cfg, drive, counters):
@@ -739,6 +755,268 @@ def stage_images(torch, bgr, cfg):
              "dump is incomplete")
 
 
+# kernels per 720p EXTENDED_CONFIG rect_frame: the staged strength filters
+# (rescue rounds) have no kernel, so seg_scan (#10) does not run
+RECT_FRAME_KERNELS_EXT = RECT_FRAME_KERNELS - 1
+# the seed-66 scene's quads against their ground truth
+# (tests/test_accuracy_fixes.py::test_shallow_slope_quad_detected_end_to_end)
+GT_TOL = 3.0
+
+
+def fixture_rows_match(parity, res, fx, p):
+    """rect_frame's RectResult against a fixture's valid rows under key
+    prefix p: valid and status equal, the accepted corner sets matched one
+    to one within 2 px.  Returns (ok, the record)."""
+    n = int(fx[p + "n_slots"])
+    rows = fx[p + "rows"]
+    valid_ref = np.zeros(n, bool)
+    valid_ref[rows] = True
+    c2_ref = np.zeros((n, 4, 2), np.float32)
+    c2_ref[rows] = fx[p + "c2"]
+    valid = res.valid.cpu().numpy()
+    mine = parity.accepted_corner_sets(res.c2.cpu().numpy(), valid)
+    ref = parity.accepted_corner_sets(c2_ref, valid_ref)
+    matched, port_only, ref_only = parity.match_sets(mine, ref, 2.0)
+    rec = {"valid_equal": valid.shape == valid_ref.shape
+           and bool((valid == valid_ref).all()),
+           "status_equal": valid.shape == valid_ref.shape
+           and bool((res.status.cpu().numpy()[rows] == fx[p + "status"])
+                    .all()),
+           "valid": int(valid.sum()), "corner_sets": len(mine),
+           "corner_sets_ref": len(ref), "matched": matched,
+           "port_only": port_only, "ref_only": ref_only}
+    return (rec["valid_equal"] and rec["status_equal"] and port_only == 0
+            and ref_only == 0 and matched == len(ref)), rec
+
+
+def arena_matches(arena, lsid, fx, p):
+    """poly_frame's arena and lsid against a fixture's live segments under
+    key prefix p, bit for bit."""
+    a = {k: v.cpu().numpy() for k, v in arena._asdict().items()}
+    live = np.nonzero(a["polyid"][:int(a["count"]) + 1])[0]
+    ok = (digest(lsid) == str(fx[p + "lsid_sha256"])
+          and int(a["count"]) == int(fx[p + "count"])
+          and np.array_equal(live, fx[p + "seg_id"])
+          and all(np.array_equal(a[f][live], fx[p + f]) for f in (
+              "start_index", "end_index", "left_ptr", "right_ptr",
+              "start_count", "end_count", "polyid", "npix", "level", "sx",
+              "sy", "ex", "ey")))
+    return ok, {"count": int(a["count"]), "live_segments": len(live),
+                "live_segments_ref": len(fx[p + "seg_id"])}
+
+
+def extended(torch, dev, card, bgr, k3_inputs, drive, counters, record,
+             records, rows_default):
+    """Phase 7, EXTENDED_CONFIG and the other off-default capabilities:
+    K3's bridge2 variant against its plain version (720p inputs and the
+    staircase map), timed in turns with the plain variant; the 720p
+    EXTENDED_CONFIG rect_frame and poly_frame against
+    tests/data/extended.npz, with their launch counts, a bit-identical
+    rerun and their times in turns with DEFAULT_CONFIG's; the seed-66
+    scene; the photographs from EXTENDED_CONFIG against
+    tests/data/photo_corpus_ext.npz; the exact colour path, the front end
+    at color_exact and blur radius 5, the blur at radii 0-40 and the other
+    plain off-default operations on the card against the CPU."""
+    from rectdetect_tpu_torch import parity
+    from rectdetect_tpu_torch.apps.common import TAN_AOV
+    from rectdetect_tpu_torch.config import (DEFAULT_CONFIG, EXTENDED_CONFIG,
+                                             PipelineConfig)
+    from rectdetect_tpu_torch.core import color
+    from rectdetect_tpu_torch.ops import (_build, blur, ccl, hopper_morph,
+                                          rand, regions)
+    from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
+    from rectdetect_tpu_torch.pipeline.poly import poly_frame
+    from rectdetect_tpu_torch.pipeline.rect import (rect_frame,
+                                                    weak_strong_labels)
+
+    ext = EXTENDED_CONFIG
+    fx = np.load(os.path.join(ROOT, "tests", "data", "extended.npz"))
+    meta = json.loads(str(fx["meta"]))
+    h, w = bgr.shape[:2]
+
+    # K3 bridge2: bit-equal to the plain version on the 720p inputs and the
+    # staircase, one kernel a call; device ms in turns with bridge2 off
+    stair = torch.from_numpy(fx["k3/staircase/in"]).to(dev)
+    k3 = {"card": card, "ptxas": [
+        line for line in ptxas_lines(_build.ptxas_log.get(
+            "morph.cu", "not rebuilt in this run"))]}
+    for name, pix in (*k3_inputs.items(), ("staircase", stair)):
+        for variant in (("rect", "poly_branch") if name == "staircase"
+                        else (name,)):
+            got = hopper_morph.strings_chain(pix, variant, True)
+            want = hopper_morph.strings_chain_plain(pix, variant, True)
+            torch.cuda.synchronize()
+            nd = int((got != want).sum())
+            k3[f"{variant} on {name}: pixels differing"] = nd
+            k3[f"{variant} on {name}: string pixels"] = [
+                int(want.sum()), int(hopper_morph.strings_chain_plain(
+                    pix, variant).sum())]
+            if nd:
+                fail(f"strings_chain[{variant}, bridge2] differs from the "
+                     f"plain version on {name} at {nd} pixels")
+    for variant, pix in k3_inputs.items():
+        turns = []
+        for b2 in (False, True, True, False):
+            times, per_call = device_ms(
+                torch, _build,
+                lambda b2=b2: hopper_morph.strings_chain(pix, variant, b2),
+                turns=1)
+            if per_call != hopper_morph.KERNELS:
+                fail(f"strings_chain[{variant}, bridge2={b2}]: {per_call} "
+                     f"kernels per call")
+            turns.append(times[0])
+        k3[f"{variant} device ms (bridge2 off, on, on, off)"] = turns
+        k3[f"{variant} bound_ms"] = 2 * pix.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    phase(f"phase 7 strings_chain bridge2: {json.dumps(k3)}")
+    edge = k3_inputs["poly_branch"]
+    # replaces _morph_kernel (pallas_morph.py:40) in its bridge2 branch
+    record("strings_chain_bridge2", "morph.cu",
+           "rectdetect_tpu/ops/pallas_morph.py:118", 0.0,
+           lambda: hopper_morph.strings_chain(edge, "poly_branch", True),
+           cuda_ms(torch, lambda: hopper_morph.strings_chain_plain(
+               edge, "poly_branch", True), 5),
+           2 * edge.numel() * 4, h * w, kernels=hopper_morph.KERNELS,
+           label="phase 7")
+    b2_record = records[-1]
+
+    # the 720p EXTENDED_CONFIG frames against the fixture
+    phase(f"phase 7 fixture: {json.dumps(meta['s720'])}")
+    no_scan = [k for k in counters if k != "seg_scan"]
+    res = drive("rect_frame (EXTENDED_CONFIG)", no_scan,
+                lambda: rect_frame(bgr, TAN_AOV, ext), RECT_FRAME_KERNELS_EXT)
+    if counters["seg_scan"].launches:
+        fail("the EXTENDED_CONFIG rect_frame launched seg_scan")
+    k3_launches = counters["strings_chain"].launches
+    b2_record["launches"] = k3_launches
+    res2 = rect_frame(bgr, TAN_AOV, ext)
+    fe = edge_frontend(bgr, ext)
+    weak, strong = weak_strong_labels(fe.edge_bin, fe.edge_thin, ext)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(res, res2))
+    ok, rec = fixture_rows_match(parity, res, fx, "s720/")
+    rec.update(second_run_bit_identical=same,
+               strings_chain_launches=k3_launches,
+               weak_equal=digest(weak) == str(fx["s720/weak_sha256"]),
+               strong_equal=digest(strong) == str(fx["s720/strong_sha256"]))
+    for k, m in (("weak", weak), ("strong", strong)):
+        ref = np.unpackbits(fx[f"s720/{k}_bits"])[:h * w].reshape(h, w)
+        rec[f"{k}_gt0_mismatch"] = int(((m > 0).cpu().numpy()
+                                        != ref.astype(bool)).sum())
+    phase(f"phase 7 rect_frame 720p EXTENDED_CONFIG vs fixture: "
+          f"{json.dumps(rec)}")
+    if not (ok and same and k3_launches == 2):
+        fail("the EXTENDED_CONFIG rect_frame differs from the JAX fixture, "
+             "from its rerun, or did not run K3 twice")
+    arena, lsid = drive("poly_frame (EXTENDED_CONFIG)",
+                        ["edge_front", "thinthres", "strings_chain",
+                         "label_components", "mkpl"],
+                        lambda: poly_frame(bgr, ext), POLY_FRAME_KERNELS)
+    arena2, lsid2 = poly_frame(bgr, ext)
+    torch.cuda.synchronize()
+    same = torch.equal(lsid, lsid2) and all(
+        torch.equal(getattr(arena, f), getattr(arena2, f))
+        for f in arena._fields)
+    ok, rec = arena_matches(arena, lsid, fx, "s720/poly/")
+    rec["second_run_bit_identical"] = same
+    phase(f"phase 7 poly_frame 720p EXTENDED_CONFIG vs fixture: "
+          f"{json.dumps(rec)}")
+    if not (ok and same):
+        fail("the EXTENDED_CONFIG poly_frame differs from the JAX fixture or "
+             "from its rerun")
+
+    # frame times in turns: default, extended, extended, default
+    for c in (DEFAULT_CONFIG, ext):
+        for _ in range(2):
+            rect_frame(bgr, TAN_AOV, c)
+            poly_frame(bgr, c)
+    torch.cuda.synchronize()
+    times = {f"{p} {n}": [] for p in ("rect_frame", "poly_frame")
+             for n in ("DEFAULT_CONFIG", "EXTENDED_CONFIG")}
+    for n, c in (("DEFAULT_CONFIG", DEFAULT_CONFIG), ("EXTENDED_CONFIG", ext),
+                 ("EXTENDED_CONFIG", ext), ("DEFAULT_CONFIG", DEFAULT_CONFIG)):
+        for _ in range(EXT_TURN_FRAMES):
+            times[f"rect_frame {n}"].append(cuda_timed(
+                torch, lambda: rect_frame(bgr, TAN_AOV, c))[1])
+            times[f"poly_frame {n}"].append(cuda_timed(
+                torch, lambda: poly_frame(bgr, c))[1])
+    for k, ts in times.items():
+        phase(f"phase 7 {k} 720p: median {statistics.median(ts):.3f} ms "
+              f"(CUDA events, {len(ts)} frames in turns default, extended, "
+              f"extended, default; min {min(ts):.3f}, max {max(ts):.3f}); "
+              f"card {card}")
+
+    # the seed-66 scene
+    s66 = torch.from_numpy(fx["s66/bgr"]).to(dev)
+    res = rect_frame(s66, TAN_AOV, ext)
+    ok, rec = fixture_rows_match(parity, res, fx, "s66/")
+    c2 = res.c2.cpu().numpy()[res.valid.cpu().numpy()]
+    rec["best_err_per_quad"] = [min((parity.corner_err(c, g) for c in c2),
+                                    default=None) for g in fx["s66/quads"]]
+    arena, lsid = poly_frame(s66, ext)
+    rec["poly_arena_equal"] = arena_matches(arena, lsid, fx, "s66/poly/")[0]
+    phase(f"phase 7 seed-66 scene EXTENDED_CONFIG: {json.dumps(rec)}; the "
+          f"JAX package: {json.dumps(meta['s66']['rect_frame'])}")
+    if not (ok and rec["poly_arena_equal"] and all(
+            e is not None and e <= GT_TOL for e in rec["best_err_per_quad"])):
+        fail("the seed-66 scene differs from the JAX fixture or misses a quad")
+
+    # the photographs from EXTENDED_CONFIG
+    rows = photo_corpus(torch, dev, card, ext, drive, counters,
+                        fixture="photo_corpus_ext.npz", label="phase 7",
+                        kernels=RECT_FRAME_KERNELS_EXT, absent=("seg_scan",),
+                        dense_kernels=False)
+    n_ext = sum(r["corner_sets"] for r in rows)
+    n_def = sum(r["corner_sets"] for r in rows_default)
+    per = {r["photo"]: r["corner_sets"] - d["corner_sets"]
+           for r, d in zip(rows, rows_default)
+           if r["corner_sets"] != d["corner_sets"]}
+    phase(f"phase 7 photos: EXTENDED_CONFIG {n_ext} corner sets, "
+          f"DEFAULT_CONFIG {n_def}, {n_ext - n_def} more; by photo "
+          f"{json.dumps(per)}")
+
+    # the plain off-default operations on the card against the CPU
+    host = bgr.cpu()
+    out = {"packed_exact_equal": torch.equal(
+        color.bgr_to_packed_exact(bgr).cpu(), color.bgr_to_packed_exact(host))}
+    cfg5 = PipelineConfig(color_exact=True, blur_radius=5)
+    fc, fh = edge_frontend(bgr, cfg5), edge_frontend(host, cfg5)
+    out["front_end_color_exact_r5"] = {
+        "packed0_equal": torch.equal(fc.packed0.cpu(), fh.packed0),
+        "labb_equal": torch.equal(fc.labb.cpu(), fh.labb),
+        "edge_thin_max_diff": float((fc.edge_thin.cpu()
+                                     - fh.edge_thin).abs().max()),
+        "edge_bin_differ": int((fc.edge_bin.cpu() != fh.edge_bin).sum())}
+    plane = fh.labb[..., 0].contiguous()
+    out["blur_radii_equal"] = {
+        r: torch.equal(blur.gaussian_blur(plane.to(dev), r).cpu(),
+                       blur.gaussian_blur(plane, r))
+        for r in (0, 1, 3, 7, 31, 40)}
+    small = torch.from_numpy(fx["blur/in"])
+    out["blur_iir_max_diff"] = float((blur.gaussian_blur_iir(
+        small.to(dev), 5.0).cpu() - blur.gaussian_blur_iir(small, 5.0))
+        .abs().max())
+    pre = torch.from_numpy(fx["rescue/random/pre"])
+    filt = torch.from_numpy(fx["rescue/random/filtered"])
+    out["rescue_equal"] = torch.equal(
+        ccl.rescue_filtered(pre.to(dev), filt.to(dev)).cpu(),
+        ccl.rescue_filtered(pre, filt))
+    out["color_reassign_equal"] = torch.equal(
+        regions.color_reassign(fh.packed0.to(dev), fh.edge_bin.to(dev) - 1)
+        .cpu(), regions.color_reassign(fh.packed0, fh.edge_bin - 1))
+    out["rand_field_equal"] = torch.equal(
+        rand.rand_field(h * w, 7, dev).cpu(), rand.rand_field(h * w, 7))
+    phase(f"phase 7 off-default operations, card against CPU at 720p: "
+          f"{json.dumps(out)}")
+    fr = out["front_end_color_exact_r5"]
+    if not (out["packed_exact_equal"] and fr["packed0_equal"]
+            and fr["labb_equal"] and fr["edge_thin_max_diff"] <= FLOAT_ATOL
+            and fr["edge_bin_differ"] == 0
+            and all(out["blur_radii_equal"].values())
+            and out["blur_iir_max_diff"] <= 1e-5 and out["rescue_equal"]
+            and out["color_reassign_equal"] and out["rand_field_equal"]):
+        fail("an off-default operation differs between the card and the CPU")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -803,7 +1081,7 @@ def main() -> int:
     records = []
 
     def record(name, src, replaces, err, fn, plain_ms, nbytes, ops,
-               kernels=1):
+               kernels=1, label="phase 3"):
         """fn: one wrapper call at the main path's shapes, launching
         `kernels` kernels; nbytes: each input read once and each output
         written once; ops: a lower bound on the operations this run's data
@@ -826,7 +1104,7 @@ def main() -> int:
                         else "operations",
                         "library_ms": None, "device_ms": times,
                         "wrapper_ms": wrapper, "kernels_per_call": kernels})
-        phase(f"phase 3 {name}: max_abs_err {err!r}  device {ms:.4f} ms per "
+        phase(f"{label} {name}: max_abs_err {err!r}  device {ms:.4f} ms per "
               f"call (CUDA events, 10 back-to-back calls, 3 turns: "
               f"{[round(t, 5) for t in times]})  wrapper {wrapper:.4f} ms  "
               f"plain {plain_ms:.4f} ms  bound {max(t_bytes, t_ops):.6f} ms "
@@ -1693,9 +1971,13 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; card {card}")
 
     # ---- 6. photographs, video, stage images ----------------------------
-    photo_corpus(torch, dev, card, cfg, drive, counters)
+    rows_default = photo_corpus(torch, dev, card, cfg, drive, counters)
     video(torch, dev, card, cfg, drive, counters)
     stage_images(torch, bgr, cfg)
+
+    # ---- 7. EXTENDED_CONFIG and the other off-default capabilities -----
+    extended(torch, dev, card, bgr, k3_inputs, drive, counters, record,
+             records, rows_default)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,18 @@
 """Realtime video rectangle detection on the port (the reference's
 `vidrect`, vidrect.cpp:51-227), one stream on one device.
 
-Usage: python -m rectdetect_tpu_torch.apps.vidrect [device] [input] [output] [AOV]
+Usage: python -m rectdetect_tpu_torch.apps.vidrect [device] [input] [output] [AOV] [--extended]
   device: an index into the CUDA devices, or `cpu` given explicitly
   input:  video file, or cam:<id>,<w>,<h>, default camera 0
   output: file path, or `-` for a window
   AOV:    horizontal angle of view in degrees (default 90; demo uses 72)
   --trace=DIR: a torch.profiler trace of the steady loop, written to
   DIR/vidrect_trace.json (chrome trace format).
+  --extended: EXTENDED_CONFIG (2-px staircase bridging and strength-filter
+  rescue rounds) in place of DEFAULT_CONFIG.
 It applies the plan file's capacities (plan_torch.txt in the working
 directory, runtime/calibrate.py) and warns when the first frame does not
-fit them.  Not ported yet: --batch, --streams, --tiles and --extended.
+fit them.  Not ported yet: --batch, --streams and --tiles.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import sys
 
 from rectdetect_tpu_torch.apps import common
 
-NOT_PORTED = ("--batch=", "--streams=", "--tiles=", "--extended")
+NOT_PORTED = ("--batch=", "--streams=", "--tiles=")
 
 
 def main(argv=None) -> int:
@@ -30,10 +32,13 @@ def main(argv=None) -> int:
         if a.startswith(NOT_PORTED):
             sys.exit(f"{a.split('=')[0]} is not ported yet")
     trace_dir = None
+    extended = False
     kept = []
     for a in argv:
         if a.startswith("--trace="):
             trace_dir = a.split("=", 1)[1] or None
+        elif a == "--extended":
+            extended = True
         else:
             kept.append(a)
     argv = kept
@@ -72,14 +77,16 @@ def main(argv=None) -> int:
 
     import torch
 
-    from rectdetect_tpu_torch.config import DEFAULT_CONFIG
+    from rectdetect_tpu_torch.config import DEFAULT_CONFIG, EXTENDED_CONFIG
     from rectdetect_tpu_torch.pipeline.video import FpsMeter, VideoRectDetector
     from rectdetect_tpu_torch.runtime.calibrate import (load_calibrated_config,
                                                         plan_fits)
 
     # loadPlan (rect.cpp:86 / vidrect.cpp:125): the plan's capacities for
     # this device and resolution, if it has them
-    cfg = load_calibrated_config(ih, iw, dev, DEFAULT_CONFIG, verbose=True)
+    cfg = load_calibrated_config(
+        ih, iw, dev, EXTENDED_CONFIG if extended else DEFAULT_CONFIG,
+        verbose=True)
     det = VideoRectDetector(tan_aov, cfg=cfg, device=dev)
     meter = FpsMeter()
 

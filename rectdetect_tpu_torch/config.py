@@ -25,11 +25,11 @@ import dataclasses
 class PipelineConfig:
     # ---- edge front-end -------------------------------------------------
     blur_radius: int = 2          # reference iirblur r=2 (oclrect.c:248)
-    color_exact: bool = False     # LUT colour path (not ported yet)
+    color_exact: bool = False     # LUT colour path (core/luts.py)
     # ---- connected component labeling -----------------------------------
     ccl_passes: int = 8
     ccl_jumps: int = 2
-    bridge_gap2: bool = False     # accuracy extension (not ported yet)
+    bridge_gap2: bool = False     # accuracy extension (K3 bridge2)
     strength_rescue_rounds: int = 0
     # ---- TPU block geometry (unused by the port) ------------------------
     ccl_bh: int = 0
@@ -122,3 +122,6 @@ class PipelineConfig:
 
 
 DEFAULT_CONFIG = PipelineConfig()
+# the accuracy-extension preset (beyond the reference, opt-in): 2-px
+# staircase gap bridging and strength-filter rescue rounds
+EXTENDED_CONFIG = PipelineConfig(bridge_gap2=True, strength_rescue_rounds=3)

@@ -1,5 +1,6 @@
 """sRGB -> CIELAB and the packed-Lab format (port of
-rectdetect_tpu/core/color.py, closed-form path).
+rectdetect_tpu/core/color.py: the closed-form path, and the `color_exact`
+path, the reference's fixed-point LUT conversion).
 
 Packed Lab is one int32 per pixel, b<<22 | a<<12 | L, with the normalized
 values Lf = L*/256, af = (a*+128)/256, bf = (b*+128)/256 on a 12/10/10-bit
@@ -17,6 +18,9 @@ transcendental steps need care:
   * `cbrt` is pow(x, float32(1/3)) evaluated in float64 and rounded once,
     which is the closest float64-reproducible form of XLA:CPU's `cbrt`
     (it agrees on all but a few float32 inputs; see tests).
+The exact path (`bgr_to_packed_exact`, `linear_to_srgb_exact`) is integer
+arithmetic and table lookups (core/luts.py), equal to the JAX package's
+bit for bit on every input.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import functools
 import numpy as np
 import torch
 
+from rectdetect_tpu_torch.core import luts
 from rectdetect_tpu_torch.ops.fp import dot_chain, f32, fma
 
 # D65 sRGB -> XYZ matrix, same literals as oclimgutil.cl:113-115.
@@ -139,6 +144,60 @@ def unpack_labf(packed):
     return torch.stack([lf, af, bf], dim=-1)
 
 
+def _table(fn, device) -> torch.Tensor:
+    return torch.from_numpy(fn()).to(device)
+
+
+def bgr_to_packed_exact(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """(H,W,3) BGR uint8 -> packed int32 by the reference's fixed-point LUT
+    conversion (srgb2plab, oclimgutil.cl:106-134; the tables regenerated
+    from the sRGB/CIELAB formulas, core/luts.py): the `color_exact` path.
+    int32 arithmetic throughout, as in the JAX package (no product or sum
+    leaves int32)."""
+    dev = bgr_u8.device
+    s2l = _table(luts.s2l_table, dev)
+    cfunc = _table(luts.cfunc_table, dev)
+    cfunc2 = _table(luts.cfunc2_table, dev)
+    ib, ig, ir = (s2l[bgr_u8[..., c].long()] for c in range(3))
+
+    def k(c):                        # (int)(coef * 16384 + 0.5)
+        return int(c * 16384 + 0.5)
+
+    kxn = int(32768 / _XN + 0.5)
+    kzn = int(32768 / _ZN + 0.5)
+    m = _M_RGB2XYZ
+    cx = ((((ir * k(m[0][0]) + ig * k(m[0][1]) + ib * k(m[0][2])
+             + (1 << 14)) >> 15) * kxn) + (1 << 10)) >> 11
+    cy = ((ir * k(m[1][0]) + ig * k(m[1][1]) + ib * k(m[1][2]))
+          + (1 << 10)) >> 11
+    cz = ((((ir * k(m[2][0]) + ig * k(m[2][1]) + ib * k(m[2][2])
+             + (1 << 14)) >> 15) * kzn) + (1 << 10)) >> 11
+
+    def interp(tbl, c):
+        hi = (c >> 8).long()
+        frac = c & 255
+        return tbl[hi] * (256 - frac) + tbl[hi + 1] * frac
+
+    cl = ((interp(cfunc2, cy) >> 12) + 1) >> 1
+    fx, fy, fz = interp(cfunc, cx), interp(cfunc, cy), interp(cfunc, cz)
+    fxy = (fx - fy + (1 << 7)) >> 8
+    fyz = (fy - fz + (1 << 7)) >> 8
+    # 8031/3213 and 134744072 are the reference's a*/b* fixed-point
+    # rescale literals (oclimgutil.cl:126-127)
+    ca = (fxy * 8031 + (134744072 + (1 << 17))) >> 18
+    cb = (fyz * 3213 + (134744072 + (1 << 17))) >> 18
+    return pack_lab_int(cl, ca, cb)
+
+
+def linear_to_srgb_exact(lin: torch.Tensor) -> torch.Tensor:
+    """Linear light -> sRGB byte through the regenerated l2s table, as
+    lab2srgb reads it: l2s[clamp(floor(lin * 1024), 0, 1023)]
+    (oclimgutil.cl:173-175; table :697-762).  int32."""
+    tbl = _table(luts.l2s_table, lin.device)
+    i = torch.floor(lin * 1024.0).nan_to_num(0.0)
+    return tbl[torch.clamp(i, 0, 1023).long()]
+
+
 def linear_to_srgb(lin: torch.Tensor) -> torch.Tensor:
     """Linear light -> sRGB byte value in [0,255], float (closed form)."""
     lin = torch.clamp(lin, 0.0, 1.0)
@@ -147,12 +206,13 @@ def linear_to_srgb(lin: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(s * 255.0), 0, 255)
 
 
-def labf_to_bgr(labf: torch.Tensor) -> torch.Tensor:
+def labf_to_bgr(labf: torch.Tensor, exact: bool = False) -> torch.Tensor:
     """(H,W,3) normalized Lab -> (H,W,3) uint8 BGR, the inverse conversion
-    for rendering (lab2srgb, oclimgutil.cl:146-178, with the closed-form
-    gamma encoding): back to L*/a*/b*, the inverse f() transfer, the
-    XYZ -> sRGB matrix, gamma.  Plain float32 arithmetic: it draws the
-    debug images and feeds no stage."""
+    for rendering (lab2srgb, oclimgutil.cl:146-178): back to L*/a*/b*, the
+    inverse f() transfer, the XYZ -> sRGB matrix, gamma, closed form or,
+    with exact, through the reference's l2s table (linear_to_srgb_exact).
+    Plain float32 arithmetic: it draws the debug images and feeds no
+    stage."""
     lstar = labf[..., 0] * 256.0
     astar = labf[..., 1] * 256.0 - 128.0
     bstar = labf[..., 2] * 256.0 - 128.0
@@ -172,6 +232,5 @@ def labf_to_bgr(labf: torch.Tensor) -> torch.Tensor:
     r = m[0][0] * x + m[0][1] * y + m[0][2] * z
     g = m[1][0] * x + m[1][1] * y + m[1][2] * z
     b = m[2][0] * x + m[2][1] * y + m[2][2] * z
-    bgr = torch.stack([linear_to_srgb(b), linear_to_srgb(g),
-                       linear_to_srgb(r)], dim=-1)
-    return bgr.to(torch.uint8)
+    enc = linear_to_srgb_exact if exact else linear_to_srgb
+    return torch.stack([enc(b), enc(g), enc(r)], dim=-1).to(torch.uint8)

@@ -5,36 +5,46 @@
 //   poly_branch: simpleJunction -> simpleConnect(poly) -> stringify x2
 //                -> removeBranch (oclpolyline.c stages 1-4,
 //                oclpolyline.cl:66-147)
+// with bridge2, either variant runs simple_connect2 (the 2-px staircase
+// bridging of the bridge_gap2 accuracy extension) after the connect stage.
 //
 // Replaces the TPU kernel rectdetect_tpu/ops/pallas_morph.py:_morph_kernel
-// (morph_chain_pallas); the semantics are ops/morphology.py's, borders
-// included (each stage zeroes its own border ring, reads outside the
-// frame are 0).
+// (morph_chain_pallas, bridge2 off and on); the semantics are
+// ops/morphology.py's, borders included (each stage zeroes its own border
+// ring, reads outside the frame are 0).
 //
 // Bound: device memory, the (H,W) int32 map read once and written once
 // (7.4 MB at 720p).  The whole chain is one launch.  Each block owns a
 // kTileRows x kTileWords*32 output tile and keeps the chain in shared
 // memory as bit words (bit i of a word = pixel x0 + i, x0 a multiple of
-// 32), over a window that reaches halo(variant) rows above and below the
-// tile and one word on each side.  Every stage works on the words of a
-// window that shrinks by the stage's reach, so the tile's words are exact
-// after the last one:
+// 32), over a window that reaches halo(variant, bridge2) rows above and
+// below the tile and one word on each side.  Every stage works on the
+// words of a window that shrinks by the stage's reach, so the tile's words
+// are exact after the last one:
 //   junction     reach 1: two bit-planes, NZ (jn != 0: set with at least
 //                one set neighbour) and ONE (jn == 2: exactly one), from a
 //                saturating bit-sliced count of the 8 shifted neighbour
 //                planes, masked by interior(1);
 //   connect      reach 2 (poly) or 1 (rect): the gap patterns as word
 //                logic on NZ and ONE, masked by interior(2);
+//   connect2     reach 3 (bridge2 only): the chain ends E (degree 2: set
+//                with exactly one set neighbour), the ONE plane recomputed
+//                on the connect output by the same saturating count (reach
+//                1); then the fill, the OR over the directions d = (0,1),
+//                (1,0), (1,1), (1,-1) of E(-d) & E(+2d) and E(-2d) & E(+d)
+//                (reach 2), ORed into the connect output and masked by
+//                interior(2);
 //   stringify    reach 1 each, parity 0 then parity 1: clear
 //                (up|dn) & (lf|rt) on the checkerboard parity, whose mask
 //                is 0x55555555 or 0xAAAAAAAA by the row's parity, masked
 //                by interior(1);
 //   removeBranch reach 1 (poly): keep set bits with at most 2 set
 //                neighbours, by the same saturating count, interior(1).
-// So the halo is 6 rows for poly_branch and 4 for rect; bridge2's
-// simple_connect2 (not ported) would add 3.  A neighbour bit comes from
-// the adjacent word by a shift and carry; words beyond the window read 0,
-// which disturbs at most 6 bits of the halo words and never the tile's.
+// So the halo is 6 rows for poly_branch and 4 for rect, 9 and 7 with
+// bridge2.  A neighbour bit comes from the adjacent word by a shift and
+// carry (Row3::at, |dx| <= 2); words beyond the window read 0, which
+// disturbs at most 9 bits of the halo words (the stages' horizontal
+// reaches summed) and never the tile's.
 // Interior masks use frame coordinates, so the frame border, not the
 // tile's, decides them.  Loads are one coalesced 128-byte warp read per
 // window word, turned into the word by __ballot_sync (every lane reaches
@@ -53,8 +63,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 // variant 0 = rect, 1 = poly_branch: the stages' reaches summed
-__host__ __device__ constexpr int halo(int variant) {
-  return variant == 0 ? 4 : 6;
+__host__ __device__ constexpr int halo(int variant, bool bridge2) {
+  return (variant == 0 ? 4 : 6) + (bridge2 ? 3 : 0);
 }
 
 // bits [lo, hi) of a word, 0 <= lo, hi <= 32
@@ -119,11 +129,11 @@ __device__ __forceinline__ void stage(int rows, int k, F f) {
   __syncthreads();
 }
 
-template <int V>
+template <int V, bool B2>
 __global__ void __launch_bounds__(kThreads)
     chain_kernel(const int* __restrict__ edge, int* __restrict__ out, int h,
                  int w) {
-  constexpr int R = halo(V);
+  constexpr int R = halo(V, B2);
   constexpr int WR = kTileRows + 2 * R;
   constexpr int kWin = WR * kWinWords;
   constexpr int kLoads = (kWin + kWarps - 1) / kWarps;
@@ -194,6 +204,36 @@ __global__ void __launch_bounds__(kThreads)
         (nm.m | b) & interior(2, frame_y(r), frame_x0(c), h, w);
   });
 
+  // connect2 (bridge2): the connect output s_a, its chain ends E in s_b,
+  // the bridged map in s_c, which the stages below take as their input
+  constexpr int kB = B2 ? 3 : 0;
+  unsigned* conn = s_a;
+  unsigned* t1 = s_b;
+  unsigned* t2 = s_c;
+  if (B2) {
+    stage(WR, kConnect + 1, [&](int r, int c) {
+      const Row3 md = row3(s_a, r, c);
+      Count3 n;
+      n.add8(row3(s_a, r - 1, c), md, row3(s_a, r + 1, c));
+      s_b[r * kWinWords + c] = md.m & n.a1 & ~n.a2;
+    });
+    stage(WR, kConnect + 3, [&](int r, int c) {
+      const Row3 u2 = row3(s_b, r - 2, c), u1 = row3(s_b, r - 1, c),
+                 e0 = row3(s_b, r, c), d1 = row3(s_b, r + 1, c),
+                 d2 = row3(s_b, r + 2, c);
+      const unsigned fill =
+          (e0.at(-1) & e0.at(2)) | (e0.at(-2) & e0.at(1)) |      // (0, 1)
+          (u1.m & d2.m) | (u2.m & d1.m) |                        // (1, 0)
+          (u1.at(-1) & d2.at(2)) | (u2.at(-2) & d1.at(1)) |      // (1, 1)
+          (u1.at(1) & d2.at(-2)) | (u2.at(2) & d1.at(-1));       // (1, -1)
+      s_c[r * kWinWords + c] = (s_a[r * kWinWords + c] | fill) &
+                               interior(2, frame_y(r), frame_x0(c), h, w);
+    });
+    conn = s_c;
+    t1 = s_a;
+    t2 = s_b;
+  }
+
   // stringify parity p: src -> dst
   auto stringify = [&](const unsigned* src, unsigned* dst, int k, int p) {
     stage(WR, k, [&](int r, int c) {
@@ -207,22 +247,22 @@ __global__ void __launch_bounds__(kThreads)
       dst[r * kWinWords + c] = md.m & ~clear;
     });
   };
-  stringify(s_a, s_b, kConnect + 1, 0);
-  stringify(s_b, s_c, kConnect + 2, 1);
-  const unsigned* result = s_c;
+  stringify(conn, t1, kConnect + kB + 1, 0);
+  stringify(t1, t2, kConnect + kB + 2, 1);
+  const unsigned* result = t2;
 
-  // removeBranch (poly_branch): s_c -> s_a
+  // removeBranch (poly_branch): t2 -> conn, free by now
   if (V == 1) {
-    stage(WR, kConnect + 3, [&](int r, int c) {
-      const Row3 md = row3(s_c, r, c);
+    stage(WR, kConnect + kB + 3, [&](int r, int c) {
+      const Row3 md = row3(t2, r, c);
       Count3 n;
-      n.add8(row3(s_c, r - 1, c), md, row3(s_c, r + 1, c));
-      s_a[r * kWinWords + c] =
+      n.add8(row3(t2, r - 1, c), md, row3(t2, r + 1, c));
+      conn[r * kWinWords + c] =
           md.m & ~n.a3 & interior(1, frame_y(r), frame_x0(c), h, w);
     });
-    result = s_a;
+    result = conn;
   }
-  static_assert(kConnect + 2 + V == R, "the halo is the stages' reaches");
+  static_assert(kConnect + kB + 2 + V == R, "the halo is the stages' reaches");
 
   // store: one warp per tile word, each lane its own pixel
   for (int i = warp; i < kTileRows * kTileWords; i += kWarps) {
@@ -235,18 +275,25 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// variant: 0 = rect, 1 = poly_branch; one launch for either
-extern "C" int rd_strings_chain(const void* edge, void* out, int h, int w,
-                                int variant, void* stream) {
+template <int V, bool B2>
+static void launch_chain(const void* edge, void* out, int h, int w,
+                         cudaStream_t s) {
   const dim3 grid((w + 32 * kTileWords - 1) / (32 * kTileWords),
                   (h + kTileRows - 1) / kTileRows);
+  chain_kernel<V, B2><<<grid, kThreads, 0, s>>>((const int*)edge, (int*)out,
+                                                h, w);
+}
+
+// variant: 0 = rect, 1 = poly_branch; bridge2: 0 or 1; one launch for any
+extern "C" int rd_strings_chain(const void* edge, void* out, int h, int w,
+                                int variant, int bridge2, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == 0)
-    chain_kernel<0><<<grid, kThreads, 0, s>>>((const int*)edge, (int*)out, h,
-                                              w);
+    bridge2 ? launch_chain<0, true>(edge, out, h, w, s)
+            : launch_chain<0, false>(edge, out, h, w, s);
   else
-    chain_kernel<1><<<grid, kThreads, 0, s>>>((const int*)edge, (int*)out, h,
-                                              w);
+    bridge2 ? launch_chain<1, true>(edge, out, h, w, s)
+            : launch_chain<1, false>(edge, out, h, w, s);
   rd::count_launch();
   return (int)cudaGetLastError();
 }

@@ -41,7 +41,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "rd_edge_front": (_P, _P, _P, _I, _I, _P),
     "rd_thin": (_P, _P, _P, _I, _I, _I, _F, _P),
-    "rd_strings_chain": (_P, _P, _I, _I, _I, _P),
+    "rd_strings_chain": (_P, _P, _I, _I, _I, _I, _P),
     "rd_label_components": (_P, _P, _I, _I, _I, _P),
     "rd_mkpl": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rd_seg_scan": (_P, _P, _P, _P, _I, _I, _I, _P),

@@ -1,5 +1,5 @@
 """Connected-component labeling and per-component strength, plain PyTorch
-(port of the poly-path subset of rectdetect_tpu/ops/ccl.py).
+(port of the subset of rectdetect_tpu/ops/ccl.py that the port runs).
 
 Labels are the minimum flat index of each 8-connected equal-value
 component, background -1 (the reference's converged fixpoint of
@@ -7,12 +7,18 @@ labelxPreprocess / label8xMain, oclimgutil.cl:495-538).  The plain version
 runs min-label propagation with pointer jumping and scatter-min to its
 fixpoint, like ccl.label_components_converged; it is the plain version of
 kernel K4 (ops/hopper_ccl.py).
+
+The strength filters (calcStrength / filterStrength, dense or over a slot
+list) and `rescue_filtered` are XLA in the JAX package, with no Pallas
+kernel, and are plain PyTorch here on either device: the per-component
+sums are int32 `index_add_`, exact in any order.
 """
 
 from __future__ import annotations
 
 import torch
 
+from rectdetect_tpu_torch.ops.compact import Compaction
 from rectdetect_tpu_torch.ops.hopper_scan import seg_total_sorted
 from rectdetect_tpu_torch.ops.shifts import NEIGH8, interior_mask, pad2d, shifted
 
@@ -61,34 +67,87 @@ def label_components_plain(pix: torch.Tensor, bgc: int) -> torch.Tensor:
 
 
 def calc_strength(edge_img: torch.Tensor, label: torch.Tensor,
-                  scale: float = 10000.0) -> torch.Tensor:
+                  scale: float = 10000.0,
+                  comp: Compaction | None = None) -> torch.Tensor:
     """Per-component sum of (int)(edge^2 * scale) over interior pixels with
     label > 0 (calcStrength, oclimgutil.cl:641-649). Returns (H*W,) int32
-    indexed by label."""
+    indexed by label.
+
+    comp: a slot list of the labelled pixels (compact_mask); the sums then
+    run over its live slots only, so a pixel beyond its capacity adds
+    nothing, as in the JAX package."""
     h, w = edge_img.shape
     n = h * w
-    inter = interior_mask(h, w, 1, edge_img.device).reshape(-1)
-    lbl = label.reshape(-1)
-    e = edge_img.reshape(-1)
+    dev = edge_img.device
+    if comp is not None:
+        p = torch.clamp(comp.idx, 0, n - 1).long()
+        yy, xx = p // w, p % w
+        inter = (yy >= 1) & (yy < h - 1) & (xx >= 1) & (xx < w - 1)
+        lbl = label.reshape(-1)[p]
+        e = edge_img.reshape(-1)[p]
+        ok = comp.valid() & inter & (lbl > 0)
+    else:
+        inter = interior_mask(h, w, 1, dev).reshape(-1)
+        lbl = label.reshape(-1)
+        e = edge_img.reshape(-1)
+        ok = inter & (lbl > 0)
     val = torch.trunc(e * e * scale).to(torch.int32)
-    ok = inter & (lbl > 0)
     tgt = torch.where(ok, lbl, n).long()
-    acc = torch.zeros((n + 1,), dtype=torch.int32, device=edge_img.device)
+    acc = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
     acc.index_add_(0, tgt, torch.where(ok, val, 0))
     return acc[:n]
 
 
 def filter_strength(label: torch.Tensor, strength: torch.Tensor,
-                    thre: int) -> torch.Tensor:
+                    thre: int, comp: Compaction | None = None
+                    ) -> torch.Tensor:
     """Interior pixels whose component strength < thre (or label <= 0)
     become -1; border pixels keep their label (filterStrength,
-    oclimgutil.cl:651-657)."""
+    oclimgutil.cl:651-657).
+
+    comp: a slot list covering the label > 0 pixels; only its live slots
+    can survive, so an interior pixel beyond its capacity becomes -1, as
+    in the JAX package."""
     h, w = label.shape
+    n = h * w
     inter = interior_mask(h, w, 1, label.device).reshape(-1)
     lbl = label.reshape(-1)
+    if comp is not None:
+        live = comp.valid()
+        p = torch.clamp(comp.idx, 0, n - 1).long()
+        lbl_s = torch.where(live, lbl[p], 0)
+        st_s = strength[torch.clamp(lbl_s, 0, strength.shape[0] - 1).long()]
+        keep = live & (lbl_s > 0) & (st_s >= thre)
+        base = torch.cat([torch.where(inter, -1, lbl).to(torch.int32),
+                          lbl.new_zeros((1,))])
+        out = base.scatter(0, torch.where(keep, p, n), lbl_s)[:n]
+        return out.reshape(h, w)
     st = strength[torch.clamp(lbl, 0, strength.shape[0] - 1).long()]
     kill = (lbl <= 0) | (st < thre)
     return torch.where(inter & kill, -1, lbl).reshape(h, w).to(torch.int32)
+
+
+def rescue_filtered(pre_label: torch.Tensor, filtered: torch.Tensor,
+                    rounds: int = 3) -> torch.Tensor:
+    """Fail-open repair of strength filtering (the `strength_rescue_rounds`
+    accuracy extension, ccl.rescue_filtered of the JAX package): a killed
+    foreground pixel (pre_label > 0) that is 8-adjacent to a surviving
+    pixel (> 0) takes its pre-filter label back, `rounds` times.  Such a
+    pixel is in the surviving pixel's component, so exact filtering keeps
+    it; it repairs piece labels, pixels dropped past a slot list, and the
+    border pixels that filterStrength leaves labelled.  Returns the
+    repaired image, (H,W) int32."""
+    h, w = pre_label.shape
+    fg = pre_label > 0
+    out = filtered
+    for _ in range(rounds):
+        surv = out > 0
+        sp = pad2d(surv.to(torch.uint8), 1, "zero")
+        near = torch.zeros((h, w), dtype=torch.uint8, device=surv.device)
+        for dy, dx in NEIGH8:
+            near = near | shifted(sp, 1, dy, dx, h, w)
+        out = torch.where(fg & ~surv & (near != 0), pre_label, out)
+    return out.to(torch.int32)
 
 
 def strength_filter_pair_dense(edge_img: torch.Tensor, label: torch.Tensor,

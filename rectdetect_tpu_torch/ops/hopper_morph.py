@@ -1,12 +1,14 @@
 """K3 strings_chain: junction -> connect -> stringify x2 [-> removeBranch].
 
 Replaces the TPU kernel rectdetect_tpu/ops/pallas_morph.py:_morph_kernel
-(morph_chain_pallas), variants "rect" and "poly_branch" (the accuracy
-extension bridge2 is not ported yet).  CUDA source: csrc/morph.cu, the
+(morph_chain_pallas), variants "rect" and "poly_branch", each with or
+without the bridge2 accuracy extension (simple_connect2 after the connect
+stage, EXTENDED_CONFIG's bridge_gap2).  CUDA source: csrc/morph.cu, the
 whole chain in one launch: each block keeps its tile's window as 32-pixel
 bit words in shared memory and runs every stage there on a window that
 shrinks by the stage's reach (a halo of 4 rows for "rect", 6 for
-"poly_branch"), so the map is read once and written once.
+"poly_branch", 3 more with bridge2), so the map is read once and written
+once.
 
 `strings_chain` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; there is no other path.
@@ -21,23 +23,25 @@ from rectdetect_tpu_torch.ops.morphology import (
     strings_chain as strings_chain_plain)
 
 _VARIANTS = {"rect": 0, "poly_branch": 1}
-# kernels launched per call, either variant
+# kernels launched per call, any variant, bridge2 or not
 KERNELS = 1
 
 launches = 0
 
 
-def strings_chain(edge_bin: torch.Tensor, variant: str):
+def strings_chain(edge_bin: torch.Tensor, variant: str,
+                  bridge2: bool = False):
     """edge_bin (H,W) int32 0/1 -> strings map (H,W) int32 0/1."""
     global launches
     if not _build.on_cuda(edge_bin):
-        return strings_chain_plain(edge_bin, variant)
+        return strings_chain_plain(edge_bin, variant, bridge2)
     if variant not in _VARIANTS:
         raise ValueError(f"unknown strings variant {variant!r}")
     h, w = edge_bin.shape
     _build.check(edge_bin, "edge_bin", torch.int32, (h, w))
     out = torch.empty_like(edge_bin)
     _build.launch("rd_strings_chain", edge_bin.device, edge_bin.data_ptr(),
-                  out.data_ptr(), h, w, _VARIANTS[variant], kernels=KERNELS)
+                  out.data_ptr(), h, w, _VARIANTS[variant], int(bool(bridge2)),
+                  kernels=KERNELS)
     launches += 1
     return out

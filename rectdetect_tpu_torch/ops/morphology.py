@@ -1,7 +1,8 @@
 """Binary edge-map morphology, plain PyTorch (port of
 rectdetect_tpu/ops/morphology.py, single-frame form).
 
-Junction counting, 1-px gap bridging, checkerboard thinning to strings and
+Junction counting, 1-px gap bridging (and the 2-px bridging of the
+`bridge_gap2` accuracy extension), checkerboard thinning to strings and
 branch removal, each an interior-masked stencil of statically shifted
 views with zero padding.  These are the plain versions of kernel K3
 (ops/hopper_morph.py).
@@ -80,6 +81,31 @@ def simple_connect_rect(jn):
     return _masked(((jn != 0) | bridge).to(torch.int32), 2)
 
 
+def simple_connect2(conn):
+    """2-px gap bridging, an accuracy extension over the reference
+    (ops/morphology.py:simple_connect2 of the JAX package): the thinning
+    drops two pixels at every staircase step of a shallow edge, and the
+    reference's bridging closes 1-px gaps only.  Sets a background pixel
+    of a straight 2-px gap whose two flanks are chain ends (degree 2: set,
+    with exactly one set 8-neighbour), along the 4 axis and diagonal
+    directions; binary output, the 2-px border is zero."""
+    h, w = conn.shape
+    nz = conn != 0
+    deg = torch.where(nz, 1 + _neighbor_count(nz), torch.zeros_like(conn))
+    p = pad2d(deg, 3, "zero")
+
+    def end(dy, dx):
+        return shifted(p, 3, dy, dx, h, w) == 2
+
+    fill = torch.zeros((h, w), dtype=torch.bool, device=conn.device)
+    for dy, dx in ((0, 1), (1, 0), (1, 1), (1, -1)):
+        # ends at p - d and p + 2d set p; the mirrored pattern sets the
+        # other pixel of the gap
+        fill |= end(-dy, -dx) & end(2 * dy, 2 * dx)
+        fill |= end(-2 * dy, -2 * dx) & end(dy, dx)
+    return _masked((nz | fill).to(torch.int32), 2)
+
+
 def stringify(img, parity: int):
     """Checkerboard corner thinning (stringify, oclpolyline.cl:112-124): on
     pixels of the given frame-global parity, clear a pixel that has both a
@@ -106,15 +132,19 @@ def remove_branch(img):
     return _masked((nz & (cnt <= 2)).to(torch.int32), 1)
 
 
-def strings_chain(edge_bin, variant: str):
+def strings_chain(edge_bin, variant: str, bridge2: bool = False):
     """The edge -> strings morphology prefix: "rect" = junction(positive)
     -> connect_rect -> stringify x2 (oclrect.c:265-272); "poly_branch" =
     junction -> connect_poly -> stringify x2 -> removeBranch
-    (oclpolyline.c stages 1-4)."""
+    (oclpolyline.c stages 1-4).  bridge2 inserts simple_connect2 after the
+    connect stage."""
     if variant == "rect":
         c = simple_connect_rect(simple_junction(edge_bin, positive_only=True))
-        return stringify(stringify(c, 0), 1)
-    if variant != "poly_branch":
+    elif variant == "poly_branch":
+        c = simple_connect_poly(simple_junction(edge_bin))
+    else:
         raise ValueError(f"unknown strings variant {variant!r}")
-    c = simple_connect_poly(simple_junction(edge_bin))
-    return remove_branch(stringify(stringify(c, 0), 1))
+    if bridge2:
+        c = simple_connect2(c)
+    s = stringify(stringify(c, 0), 1)
+    return s if variant == "rect" else remove_branch(s)

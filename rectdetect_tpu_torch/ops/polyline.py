@@ -209,19 +209,18 @@ def polyline_execute(edge_binary, minerror: float, size_thre: int, cap: int,
 
 def mkpl_inputs(edge_binary, size_thre: int, cap: int,
                 cfg: PipelineConfig = DEFAULT_CONFIG):
-    """Everything before the subdivision: strings morphology, the arc walk
+    """Everything before the subdivision: strings morphology (K3
+    "poly_branch", with its bridge2 stage under bridge_gap2), the arc walk
     and grouping, the one-segment-per-arc arena.  Returns (arena, dense
     arc-id image, number image, arc Compaction), the subdivision's
     inputs."""
     if not cfg.sparse_factor:
         raise NotImplementedError("the port runs the slot-space polyline "
                                   "tail only (sparse_factor > 0)")
-    if cfg.bridge_gap2:
-        raise NotImplementedError("bridge_gap2 is not ported yet")
     h, w = edge_binary.shape
     n = h * w
     sp = max(4096, n // cfg.strings_sparse_factor)
-    strings = strings_chain(edge_binary, "poly_branch")
+    strings = strings_chain(edge_binary, "poly_branch", cfg.bridge_gap2)
 
     comp0 = compact_mask((strings != 0).reshape(-1), sp)
     cyc_cap = max(1024, n // cfg.cycle_sparse_factor)

@@ -8,7 +8,8 @@ quantize lattice) are exact.  These are the plain versions of kernels
 (ops/hopper_quant.py), #6 merge mask (ops/hopper_merge_mask.py), #9 links
 CCL (ops/hopper_links.py) and #8 despeckle2 (ops/hopper_despeckle2.py).
 The region merge's labels are the minimum flat index of each region, so
-every output here is an exact integer map.
+every output here is an exact integer map.  `color_reassign`, which the
+reference leaves out of its pipeline, has no kernel in either package.
 
 Floats in quantize + despeckle, as jitted XLA:CPU evaluates them (found
 by comparing with the jitted JAX functions):
@@ -302,6 +303,30 @@ def sizes_despeckle2(label: torch.Tensor, thre: int = 16) -> torch.Tensor:
     form (region_run_factor) gives the same output; the port runs the
     dense form only."""
     return despeckle2(label, label_sizes(label), thre)
+
+
+def color_reassign(packed: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Every labelled pixel (label >= 0) takes its region's mean colour
+    (colorReassign_pass0/1, oclrect.cl:392-424: present but disabled in
+    the reference's pipeline, oclrect.c:346-359; for debug rendering),
+    with the reference's x128 fixed-point sums: trunc(Lab * 128) summed in
+    int32 per region, divided in float32 by 128 * count, and packed.
+    Pixels with label < 0 keep their colour.  (H,W) int32 packed Lab."""
+    h, w = packed.shape
+    n = h * w
+    lab = color.unpack_labf(packed).reshape(-1, 3)
+    lbl = label.reshape(-1)
+    ok = lbl >= 0
+    tgt = torch.where(ok, torch.clamp(lbl, 0, n - 1), n).long()
+    fx = torch.trunc(lab * 128.0).to(torch.int32)
+    acc = torch.zeros((n + 1, 3), dtype=torch.int32, device=packed.device)
+    acc.index_add_(0, tgt, torch.where(ok[:, None], fx, 0))
+    cnt = torch.zeros((n + 1,), dtype=torch.int32, device=packed.device)
+    cnt.index_add_(0, tgt, ok.to(torch.int32))
+    mean = acc[tgt].to(torch.float32) / torch.clamp(
+        cnt[tgt, None].to(torch.float32) * 128.0, min=1.0)
+    out = torch.where(ok[:, None], mean, lab)
+    return color.pack_lab(out.reshape(h, w, 3))
 
 
 def mark_boundary(label: torch.Tensor) -> torch.Tensor:

@@ -22,11 +22,13 @@ NEIGH8_REF = NEIGH8
 
 
 def reflect_index(n: int, r: int, device=None) -> torch.Tensor:
-    """Source index of each padded position -r..n+r-1 under reflect-101."""
-    if r >= n:
-        raise ValueError(f"mirror padding by {r} needs a size > {r}, got {n}")
+    """Source index of each padded position -r..n+r-1 under reflect-101,
+    reflected again where r >= n (numpy's and jnp.pad's "reflect": a
+    triangle wave of period 2n - 2; a size of 1 repeats its one value)."""
     i = torch.arange(-r, n + r, device=device)
-    i = torch.where(i < 0, -i, i)
+    if n == 1:
+        return torch.zeros_like(i)
+    i = torch.remainder(i, 2 * n - 2)
     return torch.where(i >= n, 2 * n - 2 - i, i)
 
 

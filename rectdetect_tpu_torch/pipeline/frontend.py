@@ -1,9 +1,11 @@
 """Shared edge front-end: BGR frame -> thinned edge magnitude + binary map
-(port of rectdetect_tpu/pipeline/frontend.py, closed-form colour path).
+(port of rectdetect_tpu/pipeline/frontend.py).
 
 Mirrors the head of genGPUTask (oclrect.c:245-263) and the poly tool's
-pipeline (poly.cpp:104-121): packed-Lab conversion, r=2 Gaussian blur per
-channel, K1 (edgevec + Lab edge magnitude), K2 (bicubic NMS thinning).
+pipeline (poly.cpp:104-121): packed-Lab conversion (the closed form, or
+with `color_exact` the reference's fixed-point LUT conversion), the
+Gaussian blur per channel (r = blur_radius, 2 by default), K1 (edgevec +
+Lab edge magnitude), K2 (bicubic NMS thinning).
 """
 
 from __future__ import annotations
@@ -30,11 +32,13 @@ def edge_frontend(bgr: torch.Tensor,
                   cfg: PipelineConfig = DEFAULT_CONFIG) -> EdgeFrontend:
     """bgr (H,W,3) uint8 on the CPU or a CUDA device."""
     if cfg.color_exact:
-        raise NotImplementedError("color_exact (the LUT colour path) is not "
-                                  "ported yet")
-    lab = color.bgr_to_labf(bgr)
-    labq = color.quantize_labf(lab)          # = unpack(pack(lab)) centers
-    packed0 = color.pack_lab(lab)
+        # bit parity with the reference's fixed-point LUT conversion
+        packed0 = color.bgr_to_packed_exact(bgr)
+        labq = color.unpack_labf(packed0)
+    else:
+        lab = color.bgr_to_labf(bgr)
+        labq = color.quantize_labf(lab)      # = unpack(pack(lab)) centers
+        packed0 = color.pack_lab(lab)
     labb = torch.stack([blur.gaussian_blur(labq[..., c], cfg.blur_radius)
                         for c in range(3)], dim=-1)
     em, vec = edge_front(labb)

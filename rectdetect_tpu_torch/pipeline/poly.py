@@ -26,14 +26,18 @@ def poly_frame(bgr: torch.Tensor, cfg: PipelineConfig = DEFAULT_CONFIG,
     strength=2000, size_thre=10 (vidpoly.cpp:158-166).  The JAX package
     labels the weak edges with round-capped pieces on the TPU and a
     fixed-pass CCL on the CPU; the port's labels are exact, which is the
-    converged result those approximate."""
-    if cfg.strength_rescue_rounds:
-        raise NotImplementedError("strength_rescue_rounds is not ported yet")
+    converged result those approximate.  strength_rescue_rounds (the
+    EXTENDED_CONFIG accuracy extension) repairs the filter's output
+    (ccl.rescue_filtered), and bridge_gap2 runs the polyline's K3 with its
+    bridge2 stage."""
     h, w = bgr.shape[:2]
     fe = edge_frontend(bgr, cfg)
     lbl = label_components(fe.edge_bin, 0)
     st = ccl.calc_strength(fe.edge_thin, lbl, cfg.strength_scale)
     filtered = ccl.filter_strength(lbl, st, strength)
+    if cfg.strength_rescue_rounds:
+        filtered = ccl.rescue_filtered(lbl, filtered,
+                                       cfg.strength_rescue_rounds)
     edge = (filtered > 0).to(torch.int32)
     cap = cfg.ls_cap_for(w, h)
     return polyline.polyline_execute(edge, minerror, size_thre, cap, cfg)

@@ -3,7 +3,9 @@ of rectdetect_tpu/pipeline/rect.py:rect_frame, one frame at a time).
 
 Mirrors oclrect.c:262-381 and executeCPUTask (oclrect.c:1049-1226): the
 weak/strong edge labels (strings morphology, kernel K3; exact labels, K4;
-the strength pair with the segmented scan, #10), the edge-limited blur
+the strength pair with the segmented scan, #10, or under
+EXTENDED_CONFIG K3's bridge2 variant and the staged strength filters with
+their rescue rounds), the edge-limited blur
 (#12) and quantize + despeckle (#5) of the packed-Lab plane, the region
 merge (merge mask #6, links CCL #9, despeckle2 #8), the boundary labels
 (mark_boundary, K4 on its foreground), the polylines of the strong edges,
@@ -70,26 +72,40 @@ def weak_strong_labels(edge_bin: torch.Tensor, edge_thin: torch.Tensor,
     With return_strings also the stringified ("rect" variant) map that
     was labelled.
 
-    Only the JAX package's `rect_strength_dense` branch is ported.  Its
-    labels come from the exact K4; the JAX package's CPU path labels with a
-    fixed-pass CCL and its TPU path with capped pieces, which the exact
-    labels are the converged form of."""
-    if not (cfg.sparse_factor and cfg.rect_strength_dense):
+    With strength_rescue_rounds = 0 this is the JAX package's
+    `rect_strength_dense` branch, the dense strength pair with the
+    segmented scan (#10).  With rescue rounds (EXTENDED_CONFIG) it is the
+    staged form: the strings' slot list (compact_mask at the sparse_factor
+    capacity), calc_strength and filter_strength over it, and
+    rescue_filtered after the weak filter and again after the strong one,
+    which the JAX package's rect_tail runs after the region smoothing; the
+    staged form has no kernel in either package.  bridge_gap2 runs K3 with
+    its bridge2 stage.  The labels come from the exact K4; the JAX
+    package's CPU path labels with a fixed-pass CCL and its TPU path with
+    capped pieces, which the exact labels are the converged form of."""
+    rounds = cfg.strength_rescue_rounds
+    if not cfg.sparse_factor or not (rounds or cfg.rect_strength_dense):
         raise NotImplementedError("the port runs the dense strength pair "
-                                  "only (sparse_factor > 0, "
-                                  "rect_strength_dense=1)")
-    if cfg.strength_rescue_rounds:
-        raise NotImplementedError("strength_rescue_rounds is not ported yet")
-    if cfg.bridge_gap2:
-        raise NotImplementedError("bridge_gap2 is not ported yet")
+                                  "or, with rescue rounds, the staged form "
+                                  "(sparse_factor > 0; rect_strength_dense=1 "
+                                  "without rescue rounds)")
     ih, iw = edge_bin.shape
     sp = max(4096, ih * iw // cfg.sparse_factor)
-    s = strings_chain(edge_bin, "rect")
+    s = strings_chain(edge_bin, "rect", cfg.bridge_gap2)
     lbl = label_components(s, 0)
-    weak, strong = ccl.strength_filter_pair_dense(edge_thin, lbl, sp,
-                                                  cfg.strength_weak,
-                                                  cfg.strength_strong,
-                                                  cfg.strength_scale)
+    if rounds:
+        scomp = compact_mask((s != 0).reshape(-1), sp)
+        st = ccl.calc_strength(edge_thin, lbl, cfg.strength_scale, scomp)
+        weak = ccl.rescue_filtered(
+            lbl, ccl.filter_strength(lbl, st, cfg.strength_weak, scomp),
+            rounds)
+        strong = ccl.rescue_filtered(
+            weak, ccl.filter_strength(weak, st, cfg.strength_strong, scomp),
+            rounds)
+    else:
+        weak, strong = ccl.strength_filter_pair_dense(
+            edge_thin, lbl, sp, cfg.strength_weak, cfg.strength_strong,
+            cfg.strength_scale)
     if return_strings:
         return weak, strong, s
     return weak, strong

@@ -74,7 +74,7 @@ def _frame_densities(bgr: torch.Tensor, cfg: PipelineConfig) -> dict:
     roots = (bflat == torch.arange(n, dtype=bflat.dtype,
                                    device=bflat.device)) & (bflat >= 0)
     strong_bin = (st["strong_labels"] > 0).to(torch.int32)
-    strings = strings_chain(strong_bin, "poly_branch")
+    strings = strings_chain(strong_bin, "poly_branch", cfg.bridge_gap2)
     comp = compact_mask((strings != 0).reshape(-1), n)
     # only the walk's cycle flags are read, and they do not depend on the
     # cycle sub-list's capacity
@@ -161,8 +161,10 @@ def plan_fits(cfg: PipelineConfig, bgr: torch.Tensor) -> bool:
     map against sparse_factor and strings_sparse_factor, and the strong
     edges' density, which bounds the arc pixels from above, against the
     arc list.  The strong edges come from the exact labels of the "rect"
-    strings (K4), uncapped: the JAX package runs a fixed-pass CCL here,
-    whose converged form the exact labels are.  Callers recalibrate when
+    strings (K4), uncapped and without rescue rounds, as in the JAX
+    package, which runs a fixed-pass CCL here, whose converged form the
+    exact labels are; the strings take K3's bridge2 stage under
+    bridge_gap2.  Callers recalibrate when
     it returns False (apps.rect) or warn (apps.vidrect)."""
     from rectdetect_tpu_torch.ops import ccl
     from rectdetect_tpu_torch.ops.hopper_ccl import label_components
@@ -172,8 +174,8 @@ def plan_fits(cfg: PipelineConfig, bgr: torch.Tensor) -> bool:
     if not cfg.sparse_factor:
         return True
     fe = edge_frontend(torch.as_tensor(bgr), cfg)
-    srect = strings_chain(fe.edge_bin, "rect")
-    spoly = strings_chain(fe.edge_bin, "poly_branch")
+    srect = strings_chain(fe.edge_bin, "rect", cfg.bridge_gap2)
+    spoly = strings_chain(fe.edge_bin, "poly_branch", cfg.bridge_gap2)
     h, w = srect.shape
     n = h * w
     lbl = label_components(srect, 0)

@@ -34,8 +34,14 @@ on frames of one region; K3 (both variants) and quant_despeckle bit-equal
 from 1x1 to 720x1280; K2 in both modes from 5x5 to 33x1281 within ATOL
 with edge_thin > 0 equal; despeckle2 equal on maps of one label a pixel
 (the tables spill) and of one region (every tile adds to one size) up to
-720x1280; launches are read from the kernel library's own counter
-(`_build.launch_count`).
+720x1280; K3's bridge2 variant bit-equal to the plain chain from 1x1 to
+720x1280 and on staircases; EXTENDED_CONFIG rect_frame and poly_frame
+on the card as on the CPU (rect_frame's corners within 2e-4 px, no
+seg_scan launched); the exact colour path, the front end at color_exact
+and blur radius 5, the blur at radii 0-40, rescue_filtered over a slot
+list, color_reassign and rand_field equal on the card and the CPU (the
+recursive blur within 1e-5); launches are read from the kernel library's
+own counter (`_build.launch_count`).
 """
 
 import math
@@ -1088,3 +1094,130 @@ def test_stage_images_and_calibration_on_card_equal_cpu(tmp_path):
     assert cal.load_calibrated_config(96, 128, "cuda:0",
                                       plan_path=plan) == c_card
     assert cal.plan_fits(c_card, bgr.cuda()) == cal.plan_fits(c_cpu, bgr)
+
+
+# ---- the off-default capabilities (EXTENDED_CONFIG and the rest) --------
+
+@pytest.mark.parametrize("h,w", K3_CARD_SHAPES)
+def test_morph_bridge2_kernel_matches_plain_at_odd_sizes(h, w):
+    """K3 with bridge2, both variants, bit-equal to the plain chain at
+    densities 0.1, 0.3 and 0.6; one kernel per call."""
+    _need_card()
+    r = np.random.default_rng(h * 7907 + w)
+    for density in (0.1, 0.3, 0.6):
+        vals = r.choice(np.array([-1, 1, 2], np.int32), size=(h, w))
+        e = np.where(r.random((h, w)) < density, vals, 0).astype(np.int32)
+        edge = torch.from_numpy(e)
+        for variant in ("rect", "poly_branch"):
+            n0 = _build.launch_count()
+            got = hopper_morph.strings_chain(edge.cuda(), variant, True)
+            torch.cuda.synchronize()
+            assert _build.launch_count() == n0 + hopper_morph.KERNELS
+            want = hopper_morph.strings_chain_plain(edge, variant, True)
+            assert torch.equal(got.cpu(), want), (density, variant)
+
+
+def _staircases(h, w):
+    """Shallow 1-px edges with a straight 2-px hole at every step,
+    horizontal, vertical and diagonal, across word and tile edges and at
+    the frame border."""
+    e = np.zeros((h, w), np.int32)
+    for x in range(1, w - 1):
+        if x % 12 not in (10, 11):
+            e[7 + (x // 36) % 2, x] = 1
+            e[h - 2 - (x // 48) % 2, x] = 1
+    for y in range(h):
+        if y % 9 not in (7, 8):
+            e[y, 31 + (y // 27) % 2] = 1
+            e[y, w - 2] = 1
+    for i in range(min(h, w) - 12):
+        if i % 10 not in (6, 7):
+            e[10 + i, 40 + i] = 1
+            e[10 + i, w - 3 - i] = 1
+    return torch.from_numpy(e)
+
+
+@pytest.mark.parametrize("h,w", [(41, 99), (33, 1281), (720, 1280)])
+def test_morph_bridge2_kernel_on_staircases(h, w):
+    """bridge2 closes the staircases' holes on the card exactly as the
+    plain chain does, and adds string pixels."""
+    _need_card()
+    edge = _staircases(h, w)
+    for variant in ("rect", "poly_branch"):
+        got = hopper_morph.strings_chain(edge.cuda(), variant, True).cpu()
+        assert torch.equal(got, hopper_morph.strings_chain_plain(
+            edge, variant, True)), variant
+        assert int(got.sum()) > int(hopper_morph.strings_chain_plain(
+            edge, variant).sum())
+
+
+def test_extended_frames_on_card_match_cpu():
+    """EXTENDED_CONFIG rect_frame and poly_frame on the card equal the
+    CPU's; rect_frame runs no seg_scan (the staged strength filters have
+    no kernel) and K3 twice, both with bridge2."""
+    from rectdetect_tpu_torch.config import EXTENDED_CONFIG
+    _need_card()
+    bgr = _scene()
+    hopper_scan.launches = 0
+    hopper_morph.launches = 0
+    got = _count_kernels(lambda: rect_frame(bgr.cuda(), TAN_AOV,
+                                            EXTENDED_CONFIG))
+    assert hopper_scan.launches == 0 and hopper_morph.launches == 2
+    want = rect_frame(bgr, TAN_AOV, EXTENDED_CONFIG)
+    assert torch.equal(got.valid.cpu(), want.valid)
+    assert torch.equal(got.status.cpu(), want.status)
+    torch.testing.assert_close(got.c2.cpu(), want.c2, rtol=0, atol=ATOL)
+    ga, gl = _count_kernels(lambda: poly_frame(bgr.cuda(), EXTENDED_CONFIG))
+    ca, cl = poly_frame(bgr, EXTENDED_CONFIG)
+    assert torch.equal(gl.cpu(), cl)
+    for f in ca._fields:
+        g, c = getattr(ga, f).cpu(), getattr(ca, f)
+        if c.is_floating_point():
+            torch.testing.assert_close(g, c, rtol=0, atol=ATOL)
+        else:
+            assert torch.equal(g, c), f
+
+
+def test_off_default_plain_ops_on_card_match_cpu():
+    """The exact colour path, the front end at color_exact and blur radius
+    5, the FIR blur at radii 1 to 40 and the recursive blur, rescue over a
+    slot list past its capacity, color_reassign and rand_field: plain
+    PyTorch on either device, equal on the card and the CPU (the
+    recursive blur within 1e-5: its float32 sums follow the device's
+    kernels)."""
+    from rectdetect_tpu_torch.core import color
+    from rectdetect_tpu_torch.ops import blur, ccl, rand
+    from rectdetect_tpu_torch.ops.compact import compact_mask
+    _need_card()
+    bgr = _scene()
+    assert torch.equal(color.bgr_to_packed_exact(bgr.cuda()).cpu(),
+                       color.bgr_to_packed_exact(bgr))
+    cfg = PipelineConfig(color_exact=True, blur_radius=5)
+    fc, fh = edge_frontend(bgr.cuda(), cfg), edge_frontend(bgr, cfg)
+    assert torch.equal(fc.packed0.cpu(), fh.packed0)
+    assert torch.equal(fc.labb.cpu(), fh.labb)
+    torch.testing.assert_close(fc.edge_thin.cpu(), fh.edge_thin, rtol=0,
+                               atol=ATOL)
+    assert torch.equal(fc.edge_bin.cpu(), fh.edge_bin)
+    img = torch.from_numpy(np.random.default_rng(3).random(
+        (37, 53)).astype(np.float32))
+    for r in (0, 1, 3, 7, 31, 40):
+        assert torch.equal(blur.gaussian_blur(img.cuda(), r).cpu(),
+                           blur.gaussian_blur(img, r)), r
+    torch.testing.assert_close(blur.gaussian_blur_iir(img.cuda(), 5.0).cpu(),
+                               blur.gaussian_blur_iir(img, 5.0), rtol=0,
+                               atol=1e-5)
+    lbl = hopper_ccl.label_components_plain(fh.edge_bin, 0)
+    comp = compact_mask((lbl > 0).reshape(-1), int((lbl > 0).sum()) // 2)
+    st = ccl.calc_strength(fh.edge_thin, lbl, 10000.0, comp)
+    weak = ccl.rescue_filtered(lbl, ccl.filter_strength(lbl, st, 500, comp))
+    lc = lbl.cuda()
+    cc = compact_mask((lc > 0).reshape(-1), int((lbl > 0).sum()) // 2)
+    stc = ccl.calc_strength(fh.edge_thin.cuda(), lc, 10000.0, cc)
+    weakc = ccl.rescue_filtered(lc, ccl.filter_strength(lc, stc, 500, cc))
+    assert torch.equal(stc.cpu(), st) and torch.equal(weakc.cpu(), weak)
+    assert torch.equal(
+        regions.color_reassign(fh.packed0.cuda(), lc).cpu(),
+        regions.color_reassign(fh.packed0, lbl))
+    assert torch.equal(rand.rand_field(5000, 7, "cuda").cpu(),
+                       rand.rand_field(5000, 7))

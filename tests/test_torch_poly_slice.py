@@ -111,7 +111,9 @@ def test_port_imports_no_jax():
         "from rectdetect_tpu_torch.ops import (hopper_bids, hopper_blblur,"
         " hopper_despeckle2, hopper_hyp, hopper_links, hopper_merge_mask,"
         " hopper_mkpl, hopper_pose, hopper_quant, hopper_scan, mkpl,"
-        " reduce_ls, regions)\n"
+        " reduce_ls, regions, rand, blur, _iircoef)\n"
+        "from rectdetect_tpu_torch.core import luts\n"
+        "from rectdetect_tpu_torch.config import EXTENDED_CONFIG\n"
         "from rectdetect_tpu_torch.geometry import clip, pose, quad\n"
         "from rectdetect_tpu_torch.pipeline.frontend import edge_frontend\n"
         "from rectdetect_tpu_torch.pipeline.rect import ("
@@ -125,6 +127,15 @@ def test_port_imports_no_jax():
         "region_smoothing(fe.packed0, weak, fe.edge_thin)\n"
         "rect_frame(img, 0.7)\n"
         "calibrate._densities([img])\n"
+        "rect_frame(img, 0.7, EXTENDED_CONFIG)\n"
+        "poly_frame(img, EXTENDED_CONFIG)\n"
+        "calibrate._densities([img], EXTENDED_CONFIG)\n"
+        "import dataclasses\n"
+        "edge_frontend(img, dataclasses.replace(EXTENDED_CONFIG, "
+        "color_exact=True, blur_radius=5))\n"
+        "regions.color_reassign(fe.packed0, fe.edge_bin - 1)\n"
+        "rand.rand_field(16, 3)\n"
+        "blur.gaussian_blur_iir(fe.edge_thin, 3.0)\n"
         "calibrate.plan_fits(calibrate.DEFAULT_CONFIG, img)\n"
         "from rectdetect_tpu_torch.pipeline.rect import rect_stage_images\n"
         "debug.render_packed_lab(rect_stage_images(img)['blblur'])\n"

@@ -264,11 +264,16 @@ def test_rect_frame_fixtures_are_the_jax_reference():
 
 
 def test_rect_frame_raises_on_unported_branches():
+    """The batched form and the configs the port leaves out (ROADMAP "Do
+    not port": the dense oracle path, the two-flood boundary labels)
+    raise; bridge_gap2, ported since, is in tests/test_torch_extended.py."""
     bgr = torch.zeros((2, 24, 32, 3), dtype=torch.uint8)
     with pytest.raises(NotImplementedError):
         rect.rect_frame(bgr, TAN_AOV)
-    with pytest.raises(NotImplementedError):
-        rect.rect_frame(bgr[0], TAN_AOV, PipelineConfig(bridge_gap2=True))
+    for cfg in (PipelineConfig(sparse_factor=0),
+                PipelineConfig(boundary_comp=0)):
+        with pytest.raises(NotImplementedError):
+            rect.rect_frame(bgr[0], TAN_AOV, cfg)
 
 
 def test_cli_rect_on_png(tmp_path):

@@ -1076,8 +1076,6 @@ WORD_MASK = (1 << 32) - 1
 # the kernel never reads a window row its previous stage did not write;
 # such rows hold this here, so a read would show
 _STALE_WORD = WORD_MASK
-# the halo rows: the stages' reaches summed
-K3_HALO = {"rect": 4, "poly_branch": 6}
 # each stage's reach and interior margin, in order
 K3_STAGES = {
     "rect": (("junction", 1, 1), ("connect", 1, 2), ("stringify0", 1, 1),
@@ -1086,6 +1084,18 @@ K3_STAGES = {
                     ("stringify0", 1, 1), ("stringify1", 1, 1),
                     ("remove_branch", 1, 1)),
 }
+# bridge2's stages after connect: the chain ends (no mask) and the fill
+K3_BRIDGE2 = (("ends", 1, 0), ("fill", 2, 2))
+
+
+def k3_stages(variant, bridge2=False):
+    st = K3_STAGES[variant]
+    return st[:2] + K3_BRIDGE2 + st[2:] if bridge2 else st
+
+
+def k3_halo(variant, bridge2=False):
+    """The halo rows: the stages' reaches summed."""
+    return sum(reach for _, reach, _ in k3_stages(variant, bridge2))
 
 
 def _bit_range(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -1142,12 +1152,12 @@ def _count3(win, plane):
 
 
 def strings_chain_words(edge: torch.Tensor, variant: str, th: int,
-                        tww: int) -> torch.Tensor:
+                        tww: int, bridge2: bool = False) -> torch.Tensor:
     """csrc/morph.cu's schedule: tiles of th rows x tww words, a window of
-    K3_HALO rows and one word on each side, every stage on the words of a
+    k3_halo rows and one word on each side, every stage on the words of a
     window that shrinks by its reach."""
     h, w = edge.shape
-    r_halo = K3_HALO[variant]
+    r_halo = k3_halo(variant, bridge2)
     nty, ntx = -(-h // th), -(-w // (32 * tww))
     wr, ww = th + 2 * r_halo, tww + 2
     nz = edge > 0 if variant == "rect" else edge != 0
@@ -1164,7 +1174,7 @@ def strings_chain_words(edge: torch.Tensor, variant: str, th: int,
     x0s = torch.tensor([(tx * tww - 1) * 32 for _, tx in tiles])[:, None, None]
     x0s = x0s + 32 * torch.arange(ww)[None, None, :]
     k = 0
-    for name, reach, margin in K3_STAGES[variant]:
+    for name, reach, margin in k3_stages(variant, bridge2):
         k += reach
         win = _Window(k, wr)
         y = ys + torch.arange(k, wr - k)[None, :, None]
@@ -1200,6 +1210,20 @@ def strings_chain_words(edge: torch.Tensor, variant: str, th: int,
                      (n(-2, 1) & o(-1, 1) & o(1, 0) & n(2, 0)) |
                      (n(-2, -1) & o(-1, -1) & o(1, 0) & n(2, 0)))
             planes["s"] = win.write(nz, (n(0, 0) | b) & inner)
+        elif name == "ends":
+            src = planes["s"]
+            a1, a2, _ = _count3(win, src)
+            planes["e"] = win.write(src, win.at(src, 0, 0) & a1 & ~a2
+                                    & WORD_MASK)
+        elif name == "fill":
+            src, ends = planes["s"], planes["e"]
+            fill = torch.zeros_like(win.at(src, 0, 0))
+            for dy, dx in ((0, 1), (1, 0), (1, 1), (1, -1)):
+                fill = fill | (win.at(ends, -dy, -dx)
+                               & win.at(ends, 2 * dy, 2 * dx))
+                fill = fill | (win.at(ends, -2 * dy, -2 * dx)
+                               & win.at(ends, dy, dx))
+            planes["s"] = win.write(src, (win.at(src, 0, 0) | fill) & inner)
         elif name.startswith("stringify"):
             src = planes["s"]
             parity = torch.where(((y + int(name[-1])) & 1) == 1,
@@ -1236,17 +1260,29 @@ def signed_edges(shape, density, seed):
 K3_SHAPES = [(37, 53), (70, 33), (1, 61), (61, 1), (33, 97)]
 
 
+def _k3_word_schedule_case(shape, variant, bridge2):
+    for i, density in enumerate((0.1, 0.3, 0.6)):
+        edge = signed_edges(shape, density, seed=40 + i + sum(shape))
+        want = morphology.strings_chain(edge, variant, bridge2)
+        for tww in (1, 2):
+            got = strings_chain_words(edge, variant, 8, tww, bridge2)
+            assert torch.equal(got, want), (density, tww)
+
+
 @pytest.mark.parametrize("variant", ["rect", "poly_branch"])
 @pytest.mark.parametrize("shape", K3_SHAPES)
 def test_k3_word_schedule_matches_plain(shape, variant):
     """csrc/morph.cu's bit-word chain, tiles of 8 rows x 1 and 2 words, is
     bit-equal to morphology.strings_chain."""
-    for i, density in enumerate((0.1, 0.3, 0.6)):
-        edge = signed_edges(shape, density, seed=40 + i + sum(shape))
-        want = morphology.strings_chain(edge, variant)
-        for tww in (1, 2):
-            got = strings_chain_words(edge, variant, 8, tww)
-            assert torch.equal(got, want), (density, tww)
+    _k3_word_schedule_case(shape, variant, False)
+
+
+@pytest.mark.parametrize("variant", ["rect", "poly_branch"])
+@pytest.mark.parametrize("shape", K3_SHAPES)
+def test_k3_bridge2_word_schedule_matches_plain(shape, variant):
+    """The same with bridge2: the chain ends' plane and the fill stage
+    on the words, 3 more halo rows."""
+    _k3_word_schedule_case(shape, variant, True)
 
 
 def test_k3_word_schedule_on_chains_across_tiles():
@@ -1303,6 +1339,47 @@ def test_k3_word_schedule_at_the_frame_border(shape):
         for tww in (1, 2):
             assert torch.equal(strings_chain_words(edge, variant, 8, tww),
                                want), (variant, tww)
+
+
+def staircases(h, w):
+    """Shallow 1-px edges as the thinning leaves them: runs with a straight
+    2-px hole at every step, horizontal, vertical and diagonal, crossing
+    word edges (x = 32, 64) and the 8-row tile edges, some ending on the
+    frame's border ring and one hole next to a junction."""
+    e = np.zeros((h, w), np.int32)
+    for x in range(1, w - 1):
+        if x % 12 not in (10, 11):
+            e[7 + (x // 36) % 2, x] = 1
+    for y in range(0, h):
+        if y % 9 not in (7, 8):
+            e[y, 31 + (y // 27) % 2] = 1
+    for i in range(0, min(h, w) - 12):
+        if i % 10 not in (6, 7):
+            e[10 + i, 40 + i] = 1
+            e[10 + i, w - 3 - i] = 1
+    e[h - 3, 2:14] = 1
+    e[h - 3, 8:10] = 0
+    e[h - 4, 7] = 1
+    e[h - 2, 7] = 1                      # a junction flanking a hole
+    e[0:h, 1] = np.arange(h) % 5 < 3     # 2-px holes one pixel in
+    return torch.from_numpy(e)
+
+
+@pytest.mark.parametrize("shape", [(41, 99), (30, 70), (33, 97)])
+def test_k3_bridge2_word_schedule_on_staircases(shape):
+    """bridge2 on staircases with 2-px holes across tile and word edges
+    and at the frame border: the chain ends' plane and the fill, in the
+    kernel's words, are bit-equal to morphology.strings_chain, and the
+    bridge closes holes that the map without it keeps."""
+    edge = staircases(*shape)
+    for variant in ("rect", "poly_branch"):
+        want = morphology.strings_chain(edge, variant, True)
+        assert int(want.sum()) > int(morphology.strings_chain(
+            edge, variant).sum())
+        for tww in (1, 2):
+            assert torch.equal(
+                strings_chain_words(edge, variant, 8, tww, True),
+                want), (variant, tww)
 
 
 # ---- quant_despeckle (csrc/quant_despeckle.cu): the window schedule -----

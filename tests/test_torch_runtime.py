@@ -224,10 +224,29 @@ def test_rect_cli_calibrates_then_applies_the_plan(tmp_path, monkeypatch,
     assert plan.read_text() == text
 
 
-def test_rect_cli_extended_is_not_ported(tmp_path):
-    from rectdetect_tpu_torch.apps import rect
-    with pytest.raises(SystemExit, match="not ported"):
-        rect.main(["rect", "x.png", "cpu", "--extended"])
+def test_rect_cli_extended_is_not_ported(tmp_path, monkeypatch, capsys):
+    """--extended runs EXTENDED_CONFIG: in a fresh directory it calibrates
+    from EXTENDED_CONFIG on the image, writes the plan and draws the
+    detections, as the JAX CLI does (rectdetect_tpu/apps/rect.py:36-48)."""
+    from rectdetect_tpu_torch.apps import common, rect
+    from rectdetect_tpu_torch.config import EXTENDED_CONFIG
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("RECTDETECT_DUMP", raising=False)
+    common.save_image_bgr("quad.png", one_quad_scene())
+    seen = []
+    real = cal.calibrate
+    monkeypatch.setattr(cal, "calibrate", lambda frames, cfg, *a: (
+        seen.append(cfg), real(frames, cfg, *a))[1])
+    assert rect.main(["rect", "quad.png", "cpu", "out.png",
+                      "--extended"]) == 0
+    out = capsys.readouterr().out
+    assert "No plan" in out and "not ported" not in out
+    assert [(c.bridge_gap2, c.strength_rescue_rounds) for c in seen] == \
+        [(EXTENDED_CONFIG.bridge_gap2, EXTENDED_CONFIG.strength_rescue_rounds)]
+    last = out.splitlines()[-1]
+    assert last.endswith(" rectangles -> out.png") and int(last.split()[0]) >= 1
+    assert (tmp_path / "plan_torch.txt").read_text().startswith(
+        "[cpu|144x192]\n")
 
 
 def test_frame_pump_reads_a_file_in_order(tmp_path):

@@ -126,10 +126,31 @@ def test_vidpoly_and_videotest_write_every_frame(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--batch=4", "--streams=2", "--tiles=2",
                                   "--extended"])
-def test_vidrect_flags_not_ported(flag):
+def test_vidrect_flags_not_ported(flag, tmp_path, monkeypatch, capsys):
+    """--batch, --streams and --tiles exit with "not ported yet";
+    --extended is ported and runs EXTENDED_CONFIG over every frame."""
     from rectdetect_tpu_torch.apps import vidrect
-    with pytest.raises(SystemExit, match="not ported yet"):
-        vidrect.main(["vidrect", "cpu", "in.avi", "out.avi", flag])
+    from rectdetect_tpu_torch.pipeline import video
+    if flag != "--extended":
+        with pytest.raises(SystemExit, match="not ported yet"):
+            vidrect.main(["vidrect", "cpu", "in.avi", "out.avi", flag])
+        return
+    monkeypatch.chdir(tmp_path)
+    _write_video("in.avi", 2, 72, 96)
+    seen = []
+    real = video.VideoRectDetector.__init__
+
+    def spy(self, tan_aov, cfg=None, **kw):
+        seen.append(cfg)
+        real(self, tan_aov, cfg=cfg, **kw)
+
+    monkeypatch.setattr(video.VideoRectDetector, "__init__", spy)
+    assert vidrect.main(["vidrect", "cpu", "in.avi", "out.avi", "72",
+                         flag]) == 0
+    assert "2 frames" in capsys.readouterr().out
+    assert _count_frames("out.avi") == 2
+    assert [(c.bridge_gap2, c.strength_rescue_rounds) for c in seen] == \
+        [(True, 3)]
 
 
 def test_vidrect_needs_an_explicit_cpu(tmp_path, monkeypatch):

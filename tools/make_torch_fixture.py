@@ -107,7 +107,8 @@ def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
     makers = {"poly": make_poly, "rect": make_rect, "hyp": make_hyp,
               "frame": make_frame, "calib": make_calib,
-              "photos": make_photos, "gaps": make_gaps}
+              "photos": make_photos, "gaps": make_gaps,
+              "extended": make_extended, "photos_ext": make_photos_ext}
     which = argv[1:2] or list(makers)
     if which[0] not in makers:
         sys.exit(f"unknown fixture {which[0]!r}: one of {sorted(makers)}")
@@ -125,7 +126,9 @@ FIXTURES = {"poly": "poly_720p_synth.npz",
             "frame_small": "rect_frame_small.npz",
             "calib": "calib_small.npz",
             "photos": "photo_corpus.npz",
-            "gaps": "photo_gaps.npz"}
+            "gaps": "photo_gaps.npz",
+            "extended": "extended.npz",
+            "photos_ext": "photo_corpus_ext.npz"}
 
 
 def make_poly(out: str) -> None:
@@ -278,6 +281,62 @@ def make_rect(out: str) -> None:
           f"{how}")
 
 
+def _weak_strong(fe, cfg):
+    """The JAX package's weak/strong edge maps of a frame's front end, as
+    rect_tail makes them: the dense strength pair, or with
+    strength_rescue_rounds the staged form (calc_strength /
+    filter_strength over the strings' slot list, rescue_filtered after
+    each filter).  Where the fixed-pass labels give other > 0 maps than
+    label_components_converged, the maps from the converged labels.
+    Returns (weak, strong, the pixels where the two differ)."""
+    import jax
+    import jax.numpy as jnp
+
+    from rectdetect_tpu.ops import ccl, morphology
+    from rectdetect_tpu.ops.compact import compact_mask
+    from rectdetect_tpu.pipeline.rect import weak_strong_labels
+
+    h, w = fe.edge_bin.shape
+    sp = max(4096, h * w // cfg.sparse_factor)
+    rounds = cfg.strength_rescue_rounds
+
+    def staged(lbl, s):
+        scomp = compact_mask((s != 0).reshape(-1), sp)
+        st = ccl.calc_strength(fe.edge_thin, lbl, cfg.strength_scale,
+                               comp=scomp)
+        wk = ccl.rescue_filtered(lbl, ccl.filter_strength(
+            lbl, st, cfg.strength_weak, comp=scomp), rounds)
+        sg = ccl.rescue_filtered(wk, ccl.filter_strength(
+            wk, st, cfg.strength_strong, comp=scomp), rounds)
+        return wk, sg
+
+    def fixed_pair(eb, et):
+        wk, sg, st, scomp = weak_strong_labels(eb, et, cfg)
+        if sg is None:                  # the staged form, as rect_tail
+            sg = ccl.rescue_filtered(wk, ccl.filter_strength(
+                wk, st, cfg.strength_strong, comp=scomp), rounds)
+        return wk, sg
+
+    def converged_pair(eb, et):
+        s = morphology.strings_chain(eb, "rect", bridge2=cfg.bridge_gap2,
+                                     bh=cfg.morph_bh)
+        lbl = ccl.label_components_converged(s, 0)
+        if rounds:
+            return staged(lbl, s)
+        return ccl.strength_filter_pair_dense(
+            et, lbl, sp, cfg.strength_weak, cfg.strength_strong,
+            cfg.strength_scale)
+
+    weak, strong = jax.jit(fixed_pair)(fe.edge_bin, fe.edge_thin)
+    cweak, cstrong = jax.jit(converged_pair)(fe.edge_bin, fe.edge_thin)
+    n_edge = int(((np.asarray(weak) > 0) != (np.asarray(cweak) > 0)).sum() +
+                 ((np.asarray(strong) > 0) !=
+                  (np.asarray(cstrong) > 0)).sum())
+    if n_edge:
+        return cweak, cstrong, n_edge
+    return weak, strong, 0
+
+
 def _hyp_chain(bgr_np, cfg):
     """The rect path from a BGR frame to the hypotheses on the JAX package
     (rect_tail's stages up to pipeline.rect._hypotheses), with the
@@ -287,33 +346,16 @@ def _hyp_chain(bgr_np, cfg):
     import jax
     import jax.numpy as jnp
 
-    from rectdetect_tpu.ops import ccl, morphology, polyline, regions
+    from rectdetect_tpu.ops import ccl, polyline, regions
     from rectdetect_tpu.ops.compact import compact_mask
     from rectdetect_tpu.pipeline.frontend import edge_frontend
-    from rectdetect_tpu.pipeline.rect import _hypotheses, weak_strong_labels
+    from rectdetect_tpu.pipeline.rect import _hypotheses
 
     h, w = bgr_np.shape[:2]
-    sp = max(4096, h * w // cfg.sparse_factor)
     spb = max(4096, h * w // cfg.boundary_sparse_factor)
     bgr = jnp.asarray(bgr_np)
     fe = jax.jit(lambda b: edge_frontend(b, cfg))(bgr)
-    weak, strong, _, _ = jax.jit(lambda eb, et: weak_strong_labels(
-        eb, et, cfg))(fe.edge_bin, fe.edge_thin)
-
-    def converged_pair(eb, et):
-        s = morphology.strings_chain(eb, "rect", bridge2=cfg.bridge_gap2,
-                                     bh=cfg.morph_bh)
-        lbl = ccl.label_components_converged(s, 0)
-        return ccl.strength_filter_pair_dense(
-            et, lbl, sp, cfg.strength_weak, cfg.strength_strong,
-            cfg.strength_scale)
-
-    cweak, cstrong = jax.jit(converged_pair)(fe.edge_bin, fe.edge_thin)
-    n_edge = int(((np.asarray(weak) > 0) != (np.asarray(cweak) > 0)).sum() +
-                 ((np.asarray(strong) > 0) !=
-                  (np.asarray(cstrong) > 0)).sum())
-    if n_edge:
-        weak, strong = cweak, cstrong
+    weak, strong, n_edge = _weak_strong(fe, cfg)
     n = cfg.quantize_levels
 
     def regions_part(p0, et, wk, st):
@@ -573,7 +615,8 @@ def _label_checks(bgr, cfg):
     def f(b):
         st = prect.rect_stage_images(b, dense)
         fe = edge_frontend(b, dense)
-        s = morphology.strings_chain(fe.edge_bin, "rect")
+        s = morphology.strings_chain(fe.edge_bin, "rect",
+                                     bridge2=cfg.bridge_gap2)
         fixed = ccl.label_components(s, 0, cfg.ccl_passes, cfg.ccl_jumps)
         conv = ccl.label_components_converged(s, 0)
         bconv = ccl.label_components_converged(
@@ -716,19 +759,376 @@ def make_calib(out: str) -> None:
           f"{fits}, {os.path.getsize(out)} bytes")
 
 
+# the seed-66 shallow-slope scene of tests/test_accuracy_fixes.py
+SEED66 = ("tests/test_property.random_scene(66) at 448x336 (the scene of "
+          "tests/test_accuracy_fixes.py::"
+          "test_shallow_slope_quad_detected_end_to_end)")
+EXT_RADII = (1, 3, 7, 31, 40)
+EXT_SIGMAS = (2.0, 5.0)
+EXT_SEEDS = (0, 7, 2 ** 63 + 5)
+
+
+def _seed66():
+    """The seed-66 scene: (BGR uint8 448x336, its ground-truth quads)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_property as tp
+    old = tp.W, tp.H
+    tp.W, tp.H = 448, 336
+    try:
+        frame, quads = tp.random_scene(66)
+    finally:
+        tp.W, tp.H = old
+    return (np.asarray(frame).astype(np.uint8),
+            np.asarray(quads, np.float32))
+
+
+def _poly_arena(bgr_np, cfg, minerror=1.0, size_thre=20, strength=500):
+    """The JAX poly path on a frame: pipeline.poly.poly_frame where its
+    fixed-pass weak labels equal label_components_converged, else the
+    same stages from the converged labels.  Returns (the live segments
+    as a dict of arrays, lsid, the sentence that says which)."""
+    import jax
+    import jax.numpy as jnp
+
+    from rectdetect_tpu.ops import ccl, polyline
+    from rectdetect_tpu.pipeline.frontend import edge_frontend
+    from rectdetect_tpu.pipeline.poly import poly_frame
+
+    h, w = bgr_np.shape[:2]
+    bgr = jnp.asarray(bgr_np)
+    fe = jax.jit(lambda b: edge_frontend(b, cfg))(bgr)
+    fixed = jax.jit(lambda e: ccl.label_components_adaptive(
+        e, 0, cfg.ccl_passes, cfg.ccl_jumps,
+        small_cap=max(4096, h * w // 8), big_cap=max(4096, h * w // 2),
+        round_cap=cfg.weak_ccl_round_cap, pieces_ok=True))(fe.edge_bin)
+    conv = jax.jit(lambda e: ccl.label_components_converged(e, 0))(
+        fe.edge_bin)
+    n_diff = int((np.asarray(fixed) != np.asarray(conv)).sum())
+    if n_diff == 0:
+        how = ("pipeline.poly.poly_frame; its fixed-pass weak labels equal "
+               "label_components_converged")
+        arena, lsid = poly_frame(bgr, cfg, minerror, size_thre, strength)
+    else:
+        how = (f"converged labels: the fixed-pass weak labels differ from "
+               f"label_components_converged at {n_diff} pixels, so "
+               f"edge_frontend -> label_components_converged -> "
+               f"calc_strength/filter_strength/rescue_filtered -> "
+               f"polyline_execute")
+
+        def edge_of(lbl):
+            st = ccl.calc_strength(fe.edge_thin, lbl, cfg.strength_scale)
+            f = ccl.filter_strength(lbl, st, strength)
+            if cfg.strength_rescue_rounds:
+                f = ccl.rescue_filtered(lbl, f, cfg.strength_rescue_rounds)
+            return (f > 0).astype(jnp.int32)
+
+        arena, lsid = jax.jit(lambda l: polyline.polyline_execute(
+            edge_of(l), minerror, size_thre, cfg.ls_cap_for(w, h), cfg))(
+                conv)
+    a = {k: np.asarray(v) for k, v in arena._asdict().items()}
+    live = np.nonzero(a["polyid"][:int(a["count"]) + 1])[0].astype(np.int32)
+    segs = {"count": np.asarray(int(a["count"]), np.int32), "seg_id": live}
+    for f in INT_FIELDS:
+        segs[f] = a[f][live].astype(np.int32)
+    for f in FLOAT_FIELDS:
+        segs[f] = a[f][live].astype(np.float32)
+    return segs, np.asarray(lsid), how
+
+
+def _rect_rows(bgr_np, cfg):
+    """The JAX rect path on a frame (_hyp_chain, _geometry_tail): the
+    valid rows of the RectResult, c2 and status at them, the slot count,
+    the chain's stage maps and which labels it used."""
+    h, w = bgr_np.shape[:2]
+    c = _hyp_chain(bgr_np, cfg)
+    res = _geometry_tail(c["segs"], c["valid"], c["status"], w, h, cfg)
+    rows = np.nonzero(res["valid"])[0].astype(np.int32)
+    return {"rows": rows, "c2": res["c2"][rows].astype(np.float32),
+            "status": res["status"][rows].astype(np.int32),
+            "n_slots": np.asarray(res["valid"].shape[0], np.int32)}, c
+
+
+def _quad_err(c2, g):
+    """Mean corner distance of c2 (4,2) to g (4,2) under the best cyclic
+    or reflected alignment (tests/test_accuracy_fixes.py)."""
+    best = np.inf
+    for s0 in range(4):
+        for f in (1, -1):
+            idx = [(s0 + f * k) % 4 for k in range(4)]
+            best = min(best, float(np.linalg.norm(c2 - g[idx], axis=1)
+                                   .mean()))
+    return best
+
+
+def _unit_cases(data):
+    """The unit inputs and outputs of `extended`, into data."""
+    import hashlib
+
+    import jax
+    import jax.numpy as jnp
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_accuracy_fixes import _shallow_staircase
+
+    from rectdetect_tpu.core import color
+    from rectdetect_tpu.ops import blur, ccl, morphology, regions
+    from rectdetect_tpu.ops import rand as jrand
+    from rectdetect_tpu.ops.compact import compact_mask
+
+    # K3 with bridge2: the staircase, the wide hole and the junction
+    # flank, and random maps (the pallas parity map of
+    # test_pallas_morph_bridge2_parity, and signed maps at 3 densities)
+    wide = np.zeros((16, 40), np.int32)
+    wide[8, 3:10] = 1
+    wide[8, 13:20] = 1
+    junction = np.zeros((16, 40), np.int32)
+    junction[8, 3:10] = 1
+    junction[7, 9] = 1
+    junction[9, 9] = 1
+    junction[8, 12:20] = 1
+    r = np.random.default_rng(6)
+    maps = {"staircase": _shallow_staircase(), "wide": wide,
+            "junction": junction,
+            "random70x48": (r.random((70, 48)) < 0.25).astype(np.int32)}
+    for i, d in enumerate((0.1, 0.3, 0.6)):
+        r = np.random.default_rng(60 + i)
+        vals = r.choice(np.array([-1, 1, 2], np.int32), size=(37, 53))
+        maps[f"signed37x53_{d}"] = np.where(r.random((37, 53)) < d, vals,
+                                            0).astype(np.int32)
+    data["k3_names"] = np.asarray(list(maps))
+    for k, m in maps.items():
+        data[f"k3/{k}/in"] = m
+        data[f"k3/{k}/connect2"] = np.asarray(jax.jit(
+            morphology.simple_connect2)(jnp.asarray(m)))
+        for v in ("rect", "poly_branch"):
+            for b2 in (False, True):
+                data[f"k3/{k}/{v}/{int(b2)}"] = np.asarray(jax.jit(
+                    lambda e: morphology.strings_chain(e, v, bridge2=b2))(
+                        jnp.asarray(m)))
+
+    # rescue_filtered: the piece-label sliver and an isolated component
+    # (test_rescue_filtered_repairs_piece_slivers), and a random case
+    pre = np.zeros((12, 32), np.int32)
+    pre[6, 2:30] = np.arange(2, 30)
+    pre[2, 5:8] = 7
+    filt = pre.copy()
+    filt[6, 10:12] = -1
+    filt[2, 5:8] = -1
+    r = np.random.default_rng(4)
+    pre_r = np.where(r.random((30, 40)) < 0.3,
+                     r.integers(1, 900, (30, 40)), 0).astype(np.int32)
+    filt_r = np.where(r.random((30, 40)) < 0.5, pre_r, -1).astype(np.int32)
+    filt_r = np.where(pre_r > 0, filt_r, -1)
+    for k, (a, b) in {"sliver": (pre, filt), "random": (pre_r,
+                                                        filt_r)}.items():
+        data[f"rescue/{k}/pre"] = a
+        data[f"rescue/{k}/filtered"] = b
+        data[f"rescue/{k}/out"] = np.asarray(ccl.rescue_filtered(
+            jnp.asarray(a), jnp.asarray(b), 3))
+
+    # the compacted strength pair past its capacity: labels of a random
+    # edge map, a slot list holding 60% of the labelled pixels
+    r = np.random.default_rng(5)
+    edge = (r.random((48, 64)) < 0.35).astype(np.int32)
+    lbl = np.asarray(ccl.label_components_converged(jnp.asarray(edge), 0))
+    thin = np.where(edge > 0, r.random((48, 64)) * 0.5, 0).astype(
+        np.float32)
+    cap = int((lbl > 0).sum() * 0.6)
+
+    def comp_pair(l, t):
+        comp = compact_mask((l > 0).reshape(-1), cap)
+        st = ccl.calc_strength(t, l, 10000.0, comp=comp)
+        wk = ccl.filter_strength(l, st, 600, comp=comp)
+        sg = ccl.filter_strength(wk, st, 1500, comp=comp)
+        return st, wk, sg, ccl.rescue_filtered(l, wk, 3)
+
+    st, wk, sg, rs = map(np.asarray, jax.jit(comp_pair)(
+        jnp.asarray(lbl), jnp.asarray(thin)))
+    data.update({"strength/label": lbl, "strength/edge": thin,
+                 "strength/cap": np.asarray(cap),
+                 "strength/thresholds": np.asarray([600, 1500]),
+                 "strength/st": st, "strength/weak": wk,
+                 "strength/strong": sg, "strength/weak_rescued": rs})
+
+    # the blur: taps for r in 0..40, a 37x53 image at EXT_RADII, the
+    # recursive blur at EXT_SIGMAS
+    taps = [np.asarray(blur.gaussian_taps(k)) for k in range(41)]
+    data["taps"] = np.concatenate(taps)
+    data["taps_len"] = np.asarray([len(t) for t in taps], np.int32)
+    img = np.random.default_rng(3).random((37, 53)).astype(np.float32)
+    data["blur/in"] = img
+    for k in EXT_RADII:
+        data[f"blur/{k}"] = np.asarray(jax.jit(
+            lambda x: blur.gaussian_blur(x, k))(jnp.asarray(img)))
+    for sg_ in EXT_SIGMAS:
+        data[f"blur_iir/{sg_}"] = np.asarray(jax.jit(
+            lambda x: blur.gaussian_blur_iir(x, sg_))(jnp.asarray(img)))
+
+    # the exact colour path: SHA-256 of the packed int32 of every colour,
+    # colour i = (b, g, r) = (i & 255, (i >> 8) & 255, i >> 16), in order;
+    # and labf_to_bgr(exact=True) of a sample's packed Lab
+    h = hashlib.sha256()
+    conv = jax.jit(color.bgr_to_packed_exact)
+    for part in range(16):
+        i = np.arange(part << 20, (part + 1) << 20, dtype=np.int64)
+        bgr = np.stack([i & 255, (i >> 8) & 255, i >> 16], -1).astype(
+            np.uint8).reshape(1024, 1024, 3)
+        h.update(np.ascontiguousarray(np.asarray(conv(jnp.asarray(bgr))),
+                                      dtype="<i4").tobytes())
+    data["packed_exact_sha256"] = np.asarray(h.hexdigest())
+    sample = np.random.default_rng(8).integers(0, 256, (24, 32, 3),
+                                               dtype=np.uint8)
+    packed = np.asarray(conv(jnp.asarray(sample)))
+    data["color/bgr"] = sample
+    data["color/packed"] = packed
+    data["color/labf_to_bgr_exact"] = np.asarray(jax.jit(
+        lambda p: color.labf_to_bgr(color.unpack_labf(p), exact=True))(
+            jnp.asarray(packed)))
+
+    # color_reassign on random colours and labels (-1 keeps its colour)
+    r = np.random.default_rng(9)
+    cp = r.integers(0, 2 ** 31, (40, 60)).astype(np.int32)
+    cl = (r.integers(0, 7, (40, 60)) * 100 +
+          r.integers(-1, 1, (40, 60))).astype(np.int32)
+    data["reassign/packed"] = cp
+    data["reassign/label"] = cl
+    data["reassign/out"] = np.asarray(jax.jit(regions.color_reassign)(
+        jnp.asarray(cp), jnp.asarray(cl)))
+
+    # rand_field at a few seeds: the SHA-256 of 4096 values, the first 16
+    data["rand/seeds"] = np.asarray([str(k) for k in EXT_SEEDS])
+    for k in EXT_SEEDS:
+        v = np.asarray(jrand.rand_field(4096, k))
+        data[f"rand/{k}/sha256"] = np.asarray(digest(v))
+        data[f"rand/{k}/head"] = v[:16]
+
+
+def _ext_calibration(data):
+    """The calibration of the 192x144 scene of rect_frame_small.npz from
+    EXTENDED_CONFIG, as make_calib makes it from PipelineConfig()."""
+    from rectdetect_tpu.config import EXTENDED_CONFIG
+    from rectdetect_tpu.runtime.calibrate import plan_fits
+
+    cfg = EXTENDED_CONFIG
+    bgr = np.load(os.path.join(ROOT, "tests", "data",
+                               FIXTURES["frame_small"]))["bgr"]
+    checks = _label_checks(bgr, cfg)
+    new, dens = _jax_calibrate(bgr, cfg, checks)
+    data["calib/densities"] = np.asarray(dens, np.float64)
+    data["calib/capacities"] = np.asarray([getattr(new, k) for k in KEPT],
+                                          np.int64)
+    data["calib/plan_fits"] = np.asarray([bool(plan_fits(c, bgr))
+                                          for c in (cfg, new)])
+    return checks
+
+
+def make_extended(out: str) -> None:
+    """EXTENDED_CONFIG (bridge_gap2, strength_rescue_rounds=3) and the
+    other off-default capabilities on the JAX package, into
+    tests/data/extended.npz (make_extended's sections below)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from bench import synth_frame
+    from rectdetect_tpu.config import DEFAULT_CONFIG, EXTENDED_CONFIG
+    from rectdetect_tpu.pipeline.rect import live_rects, rect_frame
+    from rectdetect_tpu_torch import parity
+
+    cfg = EXTENDED_CONFIG
+    data, meta = {}, {"config": "EXTENDED_CONFIG", "tan_aov":
+                      "tan(radians(72) / 2)", "jax": jax.__version__,
+                      "backend": jax.default_backend()}
+
+    # the seed-66 scene: the rect path's valid rows and the poly arena;
+    # rect_frame itself under both configs, against the chain and the
+    # ground truth
+    bgr, quads = _seed66()
+    rows, c = _rect_rows(bgr, cfg)
+    data.update({"s66/bgr": bgr, "s66/quads": quads})
+    data.update({f"s66/{k}": v for k, v in rows.items()})
+    for k in ("weak", "strong"):
+        data[f"s66/{k}_sha256"] = np.asarray(digest(c[k]))
+    segs, lsid, how_p = _poly_arena(bgr, cfg)
+    data.update({f"s66/poly/{k}": v for k, v in segs.items()})
+    data["s66/poly/lsid_sha256"] = np.asarray(digest(lsid))
+    valid = np.zeros(int(rows["n_slots"]), bool)
+    valid[rows["rows"]] = True
+    c2 = np.zeros((int(rows["n_slots"]), 4, 2), np.float32)
+    c2[rows["rows"]] = rows["c2"]
+    chain_sets = parity.accepted_corner_sets(c2, valid)
+    rf = {}
+    for name, cf in (("EXTENDED_CONFIG", cfg),
+                     ("DEFAULT_CONFIG", DEFAULT_CONFIG)):
+        res = rect_frame(jnp.asarray(bgr), TAN_AOV, cf)
+        dets = live_rects(res)
+        sets = parity.accepted_corner_sets(np.asarray(res.c2),
+                                           np.asarray(res.valid))
+        rf[name] = {
+            "best_err_per_quad": [min((_quad_err(np.asarray(d["c2"]), g)
+                                       for d in dets), default=None)
+                                  for g in quads],
+            "corner_sets_vs_chain": dict(zip(
+                ("matched", "rect_frame_only", "chain_only"),
+                parity.match_sets(sets, chain_sets)))}
+    meta["s66"] = {"frame": SEED66, "rect": c["reference"],
+                   "poly": how_p, "rect_frame": rf,
+                   "corner_sets": len(chain_sets)}
+
+    # bench.synth_frame at 720p: rect_frame's valid rows, the stage maps'
+    # digests and the weak/strong maps, the poly arena
+    bgr = synth_frame(720, 1280, seed=0)
+    rows, c = _rect_rows(bgr, cfg)
+    data.update({f"s720/{k}": v for k, v in rows.items()})
+    for k in ("packed0", "edge_bin", "weak", "strong", "mask", "seg",
+              "boundary", "lsid"):
+        data[f"s720/{k}_sha256"] = np.asarray(digest(c[k]))
+    for k in ("weak", "strong"):
+        data[f"s720/{k}_bits"] = bits(np.asarray(c[k]) > 0)
+    segs, lsid, how_p = _poly_arena(bgr, cfg)
+    data.update({f"s720/poly/{k}": v for k, v in segs.items()})
+    data["s720/poly/lsid_sha256"] = np.asarray(digest(lsid))
+    meta["s720"] = {"frame": "bench.synth_frame(720, 1280, seed=0)",
+                    "rect": c["reference"], "poly": how_p}
+
+    _unit_cases(data)
+    meta["calib"] = _ext_calibration(data)
+    meta["units"] = (
+        "k3: simple_connect2 and strings_chain (rect, poly_branch; bridge2 "
+        "0/1) of each map, jitted XLA; rescue: rescue_filtered(pre, "
+        "filtered, 3); strength: calc_strength / filter_strength (600, "
+        "then 1500 on the weak map) over compact_mask(label > 0, cap) and "
+        "rescue_filtered of the weak map; taps: gaussian_taps(r), r = "
+        "0..40, concatenated; blur: jitted gaussian_blur(in, r) and "
+        "gaussian_blur_iir(in, sigma); packed_exact_sha256: "
+        "bgr_to_packed_exact of every colour, (b, g, r) = (i & 255, "
+        "(i >> 8) & 255, i >> 16) for i in order, int32 little-endian; "
+        "color: labf_to_bgr(unpack_labf(packed), exact=True); reassign: "
+        "color_reassign(packed, label); rand: SHA-256 and the first 16 values "
+        "of rand_field(4096, seed); "
+        "calib: calibrate._densities and the kept capacities of "
+        "calibrate([rect_frame_small bgr], EXTENDED_CONFIG), plan_fits of "
+        "EXTENDED_CONFIG and of the calibrated config")
+    data["meta"] = np.asarray(json.dumps(meta))
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez_compressed(out, **data)
+    print(f"{out}: {os.path.getsize(out)} bytes; {json.dumps(meta)}")
+
+
 PHOTO_DIR = os.path.join("docs", "photo_corpus")
 
 
-def _photo_row(path):
+def _photo_row(path, extended=False):
     """One photo of the corpus: the JAX package's calibrate, then the rect
-    path at the calibrated config through _hyp_chain and _geometry_tail."""
+    path at the calibrated config through _hyp_chain and _geometry_tail,
+    from DEFAULT_CONFIG or, extended, from EXTENDED_CONFIG."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     from PIL import Image
 
-    from rectdetect_tpu.config import PipelineConfig
+    from rectdetect_tpu.config import EXTENDED_CONFIG, PipelineConfig
 
-    cfg = PipelineConfig()
+    cfg = EXTENDED_CONFIG if extended else PipelineConfig()
     bgr = np.ascontiguousarray(
         np.asarray(Image.open(path).convert("RGB"))[..., ::-1])
     h, w = bgr.shape[:2]
@@ -749,14 +1149,15 @@ def _photo_row(path):
             "edge_bin_bits": bits(c["edge_bin"])}
 
 
-def make_photos(out: str) -> None:
+def make_photos(out: str, extended: bool = False) -> None:
     """The 25 photographs of docs/photo_corpus at 448x336, each calibrated
-    on itself by the JAX package, into tests/data/photo_corpus.npz: per
-    photo (key prefix `<stem>/`) the densities and kept capacities, the
-    valid rows of rect_frame's RectResult under the calibrated config (c2
-    and status at them, `rows` their slots out of `n_slots`), the SHA-256
-    of its stage maps (`stage_names`) and its bit-packed edge_bin.  The
-    photos are read in parallel (PHOTO_PROCS processes, default 4).
+    on itself by the JAX package, into tests/data/photo_corpus.npz (or,
+    extended, from EXTENDED_CONFIG into tests/data/photo_corpus_ext.npz):
+    per photo (key prefix `<stem>/`) the densities and kept capacities,
+    the valid rows of rect_frame's RectResult under the calibrated config
+    (c2 and status at them, `rows` their slots out of `n_slots`), the
+    SHA-256 of its stage maps (`stage_names`) and its bit-packed edge_bin.
+    The photos are read in parallel (PHOTO_PROCS processes, default 4).
 
     The JAX package's first_k_members asserts n_groups < 2**11
     (reduce_ls.py:286), though its calibrate may choose max_groups = 2048
@@ -767,7 +1168,8 @@ def make_photos(out: str) -> None:
     `python -O`, which the worker processes inherit; it refuses to run
     otherwise."""
     if __debug__:
-        sys.exit("run the photos fixture with python -O (see make_photos)")
+        sys.exit("run the photos fixtures with python -O (see make_photos)")
+    import functools
     import multiprocessing as mp
 
     import jax
@@ -777,10 +1179,12 @@ def make_photos(out: str) -> None:
                    if f.endswith(".png"))
     procs = int(os.environ.get("PHOTO_PROCS", "4"))
     with mp.get_context("spawn").Pool(procs) as pool:
-        rows = pool.map(_photo_row, paths, chunksize=1)
+        rows = pool.map(functools.partial(_photo_row, extended=extended),
+                        paths, chunksize=1)
+    base = "EXTENDED_CONFIG" if extended else "PipelineConfig()"
     meta = {
         "photos": f"{PHOTO_DIR}/*.png, read with Pillow, RGB -> BGR",
-        "config": "PipelineConfig(), then calibrate([photo]) on each photo "
+        "config": f"{base}, then calibrate([photo], {base}) on each photo "
                   "(plan in a temporary directory)",
         "densities": "rectdetect_tpu.runtime.calibrate._densities, as "
                      "calibrate measured them (`density_names`); where the "
@@ -822,6 +1226,12 @@ def make_photos(out: str) -> None:
               f"{r['densities'][-1]}, {len(r['rows'])} valid; "
               f"{r['labels']}")
     print(f"{out}: {len(rows)} photos, {os.path.getsize(out)} bytes")
+
+
+def make_photos_ext(out: str) -> None:
+    """make_photos from EXTENDED_CONFIG, into
+    tests/data/photo_corpus_ext.npz."""
+    make_photos(out, extended=True)
 
 
 GAP_HALF = 16
