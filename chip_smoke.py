@@ -95,7 +95,23 @@ the final line):
      how many more corner sets than DEFAULT_CONFIG's they give; the exact
      LUT colour path, the front end at color_exact and blur radius 5, the
      blur at radii 0-40, the recursive blur, rescue_filtered,
-     color_reassign and rand_field on the card against the CPU.
+     color_reassign and rand_field on the card against the CPU;
+  8. the width-tiled path (dist/tile.py), every tile on the one card
+     (TileGroup([cuda:0] * N)): the x0/w_total offset forms of K3 (rect,
+     poly_branch, bridge2), merge_mask, blblur and the links CCL, and K2
+     at a frame column, bit-equal to their plain versions at the 720p
+     tile shapes of the left, an interior and the right tile of four and
+     at an odd x0, each call's kernels held by the library's counter,
+     each form's device time in turns with the kernel on the whole frame
+     (their own records on the kernels line, launches from the run
+     below); rect_step_tiled over 4 tiles driven with the launch counts
+     (every offset form launched, seg_scan and despeckle2 not); its
+     RectResult bit-equal to rect_frame's at 720p over 2 and 4 tiles and
+     at 3840x2160 over 4 (calibrated on itself, with the capacities'
+     overflow flags: a difference below them fails), and the tiled and
+     single frame medians in turns; poly_step_tiled at 720p over 4 tiles
+     equal to poly_frame; TiledVideoRectDetector over 6 720p frames, each
+     poll equal to direct rect_step_tiled and rect_frame calls.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -146,6 +162,10 @@ VIDEO_FRAMES = 30
 # frames a turn of phase 7's frame times (default, extended, extended,
 # default)
 EXT_TURN_FRAMES = 10
+# phase 8's large frame (height, width), over 4 tiles, and the frames a
+# turn of its frame times
+TILED_BIG = (2160, 3840)
+TILED_TURN_FRAMES = 5
 
 
 def fail(msg: str):
@@ -329,14 +349,14 @@ def bind_thin(torch, lib):
     """thin_fn(em, vec, mode) through lib's rd_thin."""
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rd_thin.argtypes = [P, P, P, I, I, I, F, P]
+    lib.rd_thin.argtypes = [P, P, P, I, I, I, F, I, P]
     lib.rd_thin.restype = ctypes.c_int
 
     def thin_fn(em, vec, mode):
         h, w = em.shape
         out = torch.empty_like(em)
         err = lib.rd_thin(em.data_ptr(), vec.data_ptr(), out.data_ptr(), h,
-                          w, int(mode == "cubic"), 0.99, stream_of(torch))
+                          w, int(mode == "cubic"), 0.99, 0, stream_of(torch))
         if err:
             fail(f"rd_thin of {lib._name} did not launch (error {err})")
         return out
@@ -369,14 +389,14 @@ def bind_merge_mask(torch, lib):
     """merge_mask_fn(strong) through lib's rd_merge_mask."""
     import ctypes
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rd_merge_mask.argtypes = [P, P, I, I, P]
+    lib.rd_merge_mask.argtypes = [P, P, I, I, I, I, P]
     lib.rd_merge_mask.restype = ctypes.c_int
 
     def merge_mask_fn(strong):
         h, w = strong.shape
         out = torch.empty_like(strong)
-        err = lib.rd_merge_mask(strong.data_ptr(), out.data_ptr(), h, w,
-                                stream_of(torch))
+        err = lib.rd_merge_mask(strong.data_ptr(), out.data_ptr(), h, w, 0,
+                                w, stream_of(torch))
         if err:
             fail(f"rd_merge_mask of {lib._name} did not launch (error {err})")
         return out
@@ -1015,6 +1035,325 @@ def extended(torch, dev, card, bgr, k3_inputs, drive, counters, record,
             and out["blur_iir_max_diff"] <= 1e-5 and out["rescue_equal"]
             and out["color_reassign_equal"] and out["rand_field_equal"]):
         fail("an off-default operation differs between the card and the CPU")
+
+
+def same_result(torch, a, b) -> bool:
+    """Two RectResults on the card, every field equal bit for bit."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def turns_of(torch, fns: dict, frames: int):
+    """CUDA-event ms of `frames` calls of each of the two functions, in
+    turns a, b, b, a; returns {name: [ms, ...]}."""
+    (na, fa), (nb, fb) = fns.items()
+    for f in (fa, fb):
+        f()
+    torch.cuda.synchronize()
+    times = {na: [], nb: []}
+    for name, f in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+        for _ in range(frames):
+            times[name].append(cuda_timed(torch, f)[1])
+    return times
+
+
+def overflow_flags(bgr, cfg):
+    """Where rect_frame's capacities cut what the tiled path keeps whole:
+    the strength pair's rows (the strings' interior labelled pixels, past
+    max(4096, H*W // sparse_factor)) and the boundary compaction (the
+    marked boundary pixels, past max(4096, H*W // boundary_sparse_factor)).
+    Below both, the two paths compute the same function."""
+    from rectdetect_tpu_torch.ops import hopper_morph, regions
+    from rectdetect_tpu_torch.ops.shifts import interior_mask
+    from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
+    from rectdetect_tpu_torch.pipeline.rect import (region_merge,
+                                                    region_smoothing,
+                                                    weak_strong_labels)
+    h, w = bgr.shape[:2]
+    n = h * w
+    fe = edge_frontend(bgr, cfg)
+    s = hopper_morph.strings_chain(fe.edge_bin, "rect", cfg.bridge_gap2)
+    rows = int(((s > 0) & interior_mask(h, w, 1, s.device)).sum())
+    weak, strong = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
+    despeck = region_smoothing(fe.packed0, weak, fe.edge_thin, cfg)[1]
+    seg = region_merge(despeck, strong, cfg)[1]
+    marks = int((regions.mark_boundary(seg) != -1).sum())
+    sp = max(4096, n // cfg.sparse_factor)
+    spb = max(4096, n // cfg.boundary_sparse_factor)
+    return {"strength_rows": rows, "strength_cap": sp,
+            "strength_overflow": rows > sp, "boundary_pixels": marks,
+            "boundary_cap": spb, "boundary_overflow": marks > spb}
+
+
+def tiled(torch, dev, card, bgr, drive, counters, record, records):
+    """Phase 8, the width-tiled path (dist/tile.py) on one card, every tile
+    on it (TileGroup([cuda:0] * N)): the x0/w_total offset forms of K3
+    (rect, poly_branch, bridge2), merge_mask, blblur and the links CCL,
+    and K2's frame-column form, bit-equal to their plain versions at the
+    720p tile shapes of the left, an interior and the right tile of four
+    and at an odd x0, each call's kernels held by the library's counter,
+    each form's device time in turns with the kernel on the whole frame;
+    rect_step_tiled driven with the launch counts, and equal to rect_frame
+    at 720p over 2 and 4 tiles and at 3840x2160 over 4 (calibrated on
+    itself; the capacities' overflow flags beside), with the frame medians
+    in turns; poly_step_tiled at 720p over 4 tiles equal to poly_frame;
+    TiledVideoRectDetector's polls equal to direct calls."""
+    import tempfile
+
+    from bench import synth_frame
+    from rectdetect_tpu_torch.apps.common import TAN_AOV
+    from rectdetect_tpu_torch.config import DEFAULT_CONFIG
+    from rectdetect_tpu_torch.core import color
+    from rectdetect_tpu_torch.dist import tile as dtile
+    from rectdetect_tpu_torch.dist.mesh import TileGroup
+    from rectdetect_tpu_torch.ops import (_build, blur, ccl, hopper_blblur,
+                                          hopper_ccl, hopper_grad,
+                                          hopper_links, hopper_merge_mask,
+                                          hopper_morph, hopper_thin, regions)
+    from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
+    from rectdetect_tpu_torch.pipeline.poly import poly_frame
+    from rectdetect_tpu_torch.pipeline.rect import (live_rects, rect_frame,
+                                                    region_merge,
+                                                    region_smoothing,
+                                                    weak_strong_labels)
+    from rectdetect_tpu_torch.pipeline.video import TiledVideoRectDetector
+    from rectdetect_tpu_torch.runtime import calibrate as cal
+
+    cfg = DEFAULT_CONFIG
+    h, w = bgr.shape[:2]
+    n_t = 4
+    wl = w // n_t
+    g4 = TileGroup([dev] * n_t)
+    fe = edge_frontend(bgr, cfg)
+    lbl = hopper_ccl.label_components(fe.edge_bin, 0)
+    edge = (ccl.filter_strength(lbl, ccl.calc_strength(fe.edge_thin, lbl),
+                                500) > 0).to(torch.int32)
+    weak, strong = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
+    weak_bin = (weak > 0).to(torch.int32)
+    despeck = region_smoothing(fe.packed0, weak, fe.edge_thin, cfg)[1]
+    mask = region_merge(despeck, strong, cfg)[0]
+    odd_x0 = wl + 1
+
+    def positions(halo):
+        """(name, x0, slice start) of the left, an interior and the right
+        tile of four widened by `halo`, and of a window at an odd x0."""
+        return (("left", -halo, None), ("interior", wl - halo, wl - halo),
+                ("right", 3 * wl - halo, None),
+                ("odd x0", odd_x0, odd_x0))
+
+    def window(t, halo, x0, start, fill):
+        """t's columns x0 .. x0 + wl + 2 halo - 1 (fill beyond the frame),
+        as halo_exchange_w widens a tile."""
+        if start is not None:
+            return t[:, start:start + wl + 2 * halo].contiguous()
+        return dtile.halo_exchange_w(
+            g4, g4.split(t), halo, fill="const",
+            fill_value=fill)[0 if x0 < 0 else n_t - 1]
+
+    # (name, source, TPU kernel, halo, fill, kernels per call, the wrapper
+    # on a window at x0, its plain version, the window's inputs)
+    forms = [
+        ("strings_chain_x0", "morph.cu",
+         "rectdetect_tpu/ops/pallas_morph.py:40", 12, 0, hopper_morph.KERNELS,
+         lambda x0, e: hopper_morph.strings_chain(e, "rect", False, x0, w),
+         lambda x0, e: hopper_morph.strings_chain_plain(e, "rect", False, x0,
+                                                        w), (fe.edge_bin,)),
+        ("strings_chain_x0[poly_branch]", "morph.cu",
+         "rectdetect_tpu/ops/pallas_morph.py:40", 12, 0, hopper_morph.KERNELS,
+         lambda x0, e: hopper_morph.strings_chain(e, "poly_branch", False,
+                                                  x0, w),
+         lambda x0, e: hopper_morph.strings_chain_plain(
+             e, "poly_branch", False, x0, w), (edge,)),
+        ("strings_chain_x0[bridge2]", "morph.cu",
+         "rectdetect_tpu/ops/pallas_morph.py:118", 12, 0,
+         hopper_morph.KERNELS,
+         lambda x0, e: hopper_morph.strings_chain(e, "rect", True, x0, w),
+         lambda x0, e: hopper_morph.strings_chain_plain(e, "rect", True, x0,
+                                                        w), (fe.edge_bin,)),
+        ("merge_mask_x0", "merge_mask.cu",
+         "rectdetect_tpu/ops/pallas_morph.py:391", 12, -1, 1,
+         lambda x0, s_: hopper_merge_mask.junction_merge_mask(s_, x0, w),
+         lambda x0, s_: regions.junction_merge_mask(s_, x0, w), (strong,)),
+        ("blblur_x0", "blblur.cu", "rectdetect_tpu/ops/pallas_blblur.py:223",
+         5 * cfg.blblur_iters + 6, 0,
+         hopper_blblur.launch_count(cfg.blblur_iters),
+         lambda x0, p, e: hopper_blblur.blblur(p, e, cfg.blblur_iters, x0, w),
+         lambda x0, p, e: regions.blblur(p, e, cfg.blblur_iters, x0, w),
+         (fe.packed0, weak_bin)),
+        ("label_merge_x0", "links_ccl.cu",
+         "rectdetect_tpu/ops/pallas_ccl.py:471", 0, 0, 3,
+         lambda x0, p, m, e: hopper_links.label_merge(p, m, e, x0, w),
+         lambda x0, p, m, e: regions.label_merge(p, m, e, x0, w),
+         (despeck, mask, strong)),
+    ]
+    whole = {"strings_chain_x0": lambda: hopper_morph.strings_chain(
+                 fe.edge_bin, "rect"),
+             "merge_mask_x0": lambda: hopper_merge_mask.junction_merge_mask(
+                 strong),
+             "blblur_x0": lambda: hopper_blblur.blblur(
+                 fe.packed0, weak_bin, cfg.blblur_iters),
+             "label_merge_x0": lambda: hopper_links.label_merge(
+                 despeck, mask, strong)}
+    checks, new_records = {}, {}
+    for name, src, replaces, halo, fill, kernels, fn, plain, ins in forms:
+        entry = {}
+        for pos, x0, start in positions(halo):
+            if halo == 0 and start is None:
+                # the links CCL runs on the tile itself
+                start = 0 if pos == "left" else 3 * wl
+                x0 = start
+            wins = [window(t, halo, x0, start, fill) for t in ins]
+            n0 = _build.launch_count()
+            got = fn(x0, *wins)
+            torch.cuda.synchronize()
+            made = _build.launch_count() - n0
+            want = plain(x0, *wins)
+            nd = int((got != want).sum())
+            entry[pos] = {"x0": x0, "shape": list(wins[0].shape),
+                          "differ": nd, "kernels": made}
+            if nd or made != kernels:
+                fail(f"{name} at the {pos} tile (x0 {x0}): {nd} pixels "
+                     f"differ from the plain version, {made} kernels, not "
+                     f"{kernels}")
+        checks[name] = entry
+        if name not in whole:
+            continue
+        # the interior tile's call, timed in turns with the whole frame's
+        x0 = wl - halo if halo else wl
+        wins = [window(t, halo, x0, x0, fill) for t in ins]
+        turns = []
+        for f in (lambda: fn(x0, *wins), whole[name], whole[name],
+                  lambda: fn(x0, *wins)):
+            turns.append(device_ms(torch, _build, f, turns=1)[0][0])
+        entry["device_ms (tile, frame, frame, tile)"] = turns
+        out_b = wins[0].numel() * 4
+        record(name, src, replaces, 0.0, lambda: fn(x0, *wins),
+               cuda_ms(torch, lambda: plain(x0, *wins), 3),
+               sum(t.numel() * t.element_size() for t in wins) + out_b,
+               wins[0].numel(), kernels=kernels, label="phase 8")
+        new_records[name] = records[-1]
+    # K2 at a frame column (the tiled front end's thinthres), on the
+    # interior tile's widened em and vec
+    labq = color.quantize_labf(color.bgr_to_labf(bgr)).permute(2, 0, 1)
+    wide = dtile.halo_exchange_w(g4, g4.split(labq, axis=2), 16)[1]
+    labb = torch.stack([blur.gaussian_blur(wide[c], cfg.blur_radius)
+                        for c in range(3)], dim=-1)
+    em, vec = hopper_grad.edge_front(labb)
+    x0 = wl - 16
+    got = hopper_thin.thinthres(em, vec, x0=x0)
+    want = hopper_thin.thin_plain(em, vec, x0=x0)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    nbin = int(((got > 0) != (want > 0)).sum())
+    checks["thinthres_x0"] = {"x0": x0, "shape": list(em.shape),
+                              "max_abs_err": err, "edge_bin_differ": nbin,
+                              "bits_differ": int((got != want).sum())}
+    if not err <= FLOAT_ATOL or nbin:
+        fail(f"thinthres at x0 {x0}: max diff {err}, {nbin} edge_bin pixels")
+    record("thinthres_x0", "thin.cu", "rectdetect_tpu/ops/pallas_thin.py:43",
+           err, lambda: hopper_thin.thinthres(em, vec, x0=x0),
+           cuda_ms(torch, lambda: hopper_thin.thin_plain(em, vec, x0=x0), 3),
+           em.numel() * 4 * 4, 2 * em.numel(), label="phase 8")
+    new_records["thinthres_x0"] = records[-1]
+    phase(f"phase 8 offset forms against their plain versions: "
+          f"{json.dumps(checks)}; card {card}")
+
+    # rect_step_tiled, the main path of this phase
+    offset_mods = {"strings_chain_x0": hopper_morph,
+                   "merge_mask_x0": hopper_merge_mask,
+                   "blblur_x0": hopper_blblur,
+                   "label_merge_x0": hopper_links,
+                   "thinthres_x0": hopper_thin}
+    names = [k for k in counters
+             if k not in ("seg_scan", "despeckle2")]
+    tiles4 = g4.split(bgr)
+    for mod in offset_mods.values():
+        mod.offset_launches = 0
+    res_t = drive("rect_step_tiled (phase 8, 720p, 4 tiles)", names,
+                  lambda: dtile.rect_step_tiled(g4, tiles4, TAN_AOV, cfg=cfg))
+    offs = {k: m.offset_launches for k, m in offset_mods.items()}
+    phase(f"phase 8 offset-form launches in that run: {json.dumps(offs)}")
+    if any(v < 1 for v in offs.values()):
+        fail(f"rect_step_tiled did not launch an offset form: {offs}")
+    for k, rec in new_records.items():
+        rec["launches"] = offs[k]
+    if counters["seg_scan"].launches or counters["despeckle2"].launches:
+        fail("rect_step_tiled launched seg_scan or despeckle2")
+    res = rect_frame(bgr, TAN_AOV, cfg)
+    torch.cuda.synchronize()
+    if not same_result(torch, res_t, res):
+        fail("rect_step_tiled at 720p over 4 tiles differs from rect_frame")
+    out = {}
+    for nt, frame, cfg_f, label in (
+            (2, bgr, cfg, "720p"), (4, bgr, cfg, "720p"),
+            (4, None, None, f"{TILED_BIG[1]}x{TILED_BIG[0]}")):
+        if frame is None:
+            frame = torch.from_numpy(synth_frame(*TILED_BIG, seed=0)).to(dev)
+            with tempfile.TemporaryDirectory() as td:
+                cfg_f = cal.calibrate([frame], cfg,
+                                      os.path.join(td, "plan_torch.txt"))
+        g = TileGroup([dev] * nt)
+        tiles = g.split(frame)
+        got = dtile.rect_step_tiled(g, tiles, TAN_AOV, cfg=cfg_f)
+        want = rect_frame(frame, TAN_AOV, cfg_f)
+        torch.cuda.synchronize()
+        flags = overflow_flags(frame, cfg_f)
+        eq = same_result(torch, got, want)
+        times = turns_of(torch, {
+            f"rect_step_tiled {nt} tiles": lambda: dtile.rect_step_tiled(
+                g, tiles, TAN_AOV, cfg=cfg_f),
+            "rect_frame": lambda: rect_frame(frame, TAN_AOV, cfg_f)},
+            TILED_TURN_FRAMES)
+        row = {"equal": eq, "valid": int(want.valid.sum()),
+               "valid_equal": torch.equal(got.valid, want.valid),
+               "status_equal": torch.equal(got.status, want.status),
+               "overflow": flags,
+               "median_ms": {k: statistics.median(v)
+                             for k, v in times.items()},
+               "ms": times}
+        if label != "720p":
+            row["calibrated"] = {k: getattr(cfg_f, k) for k in cal.KEPT}
+        out[f"{label} {nt} tiles"] = row
+        phase(f"phase 8 rect_step_tiled {label} over {nt} tiles against "
+              f"rect_frame: {json.dumps(row)}; card {card}")
+        if not eq and not (flags["strength_overflow"]
+                           or flags["boundary_overflow"]):
+            fail(f"rect_step_tiled at {label} over {nt} tiles differs from "
+                 f"rect_frame below the capacities' overflow")
+
+    # poly_step_tiled against poly_frame
+    arena_t, lsid_t = dtile.poly_step_tiled(g4, tiles4, cfg, 1.0, 20, 500)
+    arena, lsid = poly_frame(bgr, cfg, 1.0, 20, 500)
+    torch.cuda.synchronize()
+    same = torch.equal(lsid_t, lsid) and all(
+        torch.equal(getattr(arena_t, f), getattr(arena, f))
+        for f in arena._fields)
+    phase(f"phase 8 poly_step_tiled 720p over 4 tiles: arena and lsid equal "
+          f"to poly_frame's: {same} ({int(arena.count)} segments)")
+    if not same:
+        fail("poly_step_tiled differs from poly_frame")
+
+    # the video detector over the tiles
+    frames = [synth_frame(H, W, seed=s) for s in range(6)]
+    det = TiledVideoRectDetector(TAN_AOV, g4, cfg)
+    polls = []
+    det.enqueue(frames[0])
+    for f in frames[1:] + [None]:
+        if f is not None:
+            det.enqueue(f)
+        polls.append(det.poll())
+    direct = [live_rects(dtile.rect_step_tiled(
+        g4, g4.split(torch.from_numpy(f).to(dev)), TAN_AOV, cfg=cfg))
+        for f in frames]
+    single = [live_rects(rect_frame(torch.from_numpy(f).to(dev), TAN_AOV,
+                                    cfg)) for f in frames]
+    ok = all(same_results(a, b) and same_results(a, c)
+             for a, b, c in zip(polls, direct, single))
+    phase(f"phase 8 TiledVideoRectDetector over {len(frames)} 720p frames, "
+          f"4 tiles: polls equal to direct rect_step_tiled and rect_frame "
+          f"calls: {ok} ({sum(len(p) for p in polls)} rectangles)")
+    if not ok:
+        fail("TiledVideoRectDetector: a poll differs from the direct call")
+    return out
 
 
 def main() -> int:
@@ -1978,6 +2317,9 @@ def main() -> int:
     # ---- 7. EXTENDED_CONFIG and the other off-default capabilities -----
     extended(torch, dev, card, bgr, k3_inputs, drive, counters, record,
              records, rows_default)
+
+    # ---- 8. the width-tiled path ---------------------------------------
+    tiled(torch, dev, card, bgr, drive, counters, record, records)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

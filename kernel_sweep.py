@@ -275,7 +275,7 @@ def hyp_entry(torch, lib):
 def morph_entry(torch, lib):
     """strings_fn(edge, variant) through lib's rd_strings_chain."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rd_strings_chain.argtypes = [P, P, I, I, I, I, P]
+    lib.rd_strings_chain.argtypes = [P, P, I, I, I, I, I, I, P]
     lib.rd_strings_chain.restype = ctypes.c_int
 
     def strings_fn(edge, variant):
@@ -283,7 +283,7 @@ def morph_entry(torch, lib):
         out = torch.empty_like(edge)
         if lib.rd_strings_chain(edge.data_ptr(), out.data_ptr(), h, w,
                                 {"rect": 0, "poly_branch": 1}[variant], 0,
-                                chip_smoke.stream_of(torch)):
+                                0, w, chip_smoke.stream_of(torch)):
             fail("a K3 build did not launch")
         return out
 

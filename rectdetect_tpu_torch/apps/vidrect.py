@@ -10,9 +10,13 @@ Usage: python -m rectdetect_tpu_torch.apps.vidrect [device] [input] [output] [AO
   DIR/vidrect_trace.json (chrome trace format).
   --extended: EXTENDED_CONFIG (2-px staircase bridging and strength-filter
   rescue rounds) in place of DEFAULT_CONFIG.
+  --tiles=N: width tiles: each frame's width is cut over N devices, CUDA
+  devices device..device+N-1 (halo-exchanged stencils, cross-tile CCLs;
+  dist/tile.py), or N tiles on the host with `cpu`; for resolutions (4K)
+  where one device cannot hold the frame pipeline at rate.
 It applies the plan file's capacities (plan_torch.txt in the working
 directory, runtime/calibrate.py) and warns when the first frame does not
-fit them.  Not ported yet: --batch, --streams and --tiles.
+fit them.  Not ported yet: --batch and --streams.
 """
 
 from __future__ import annotations
@@ -23,11 +27,24 @@ import sys
 
 from rectdetect_tpu_torch.apps import common
 
-NOT_PORTED = ("--batch=", "--streams=", "--tiles=")
+NOT_PORTED = ("--batch=", "--streams=")
+
+
+def _count(argv, flag: str) -> int:
+    """The value of the last `flag=N` in argv, 0 without one."""
+    n = 0
+    for a in argv[1:]:
+        if a.startswith(flag):
+            n = int(a.split("=")[1])
+    return n
 
 
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
+    tiles = _count(argv, "--tiles=")
+    if tiles > 1 and (_count(argv, "--streams=") > 1
+                      or _count(argv, "--batch=") > 1):
+        sys.exit("--tiles cannot be combined with --streams/--batch")
     for a in argv[1:]:
         if a.startswith(NOT_PORTED):
             sys.exit(f"{a.split('=')[0]} is not ported yet")
@@ -39,7 +56,7 @@ def main(argv=None) -> int:
             trace_dir = a.split("=", 1)[1] or None
         elif a == "--extended":
             extended = True
-        else:
+        elif not a.startswith("--tiles="):
             kept.append(a)
     argv = kept
     if len(argv) < 2:
@@ -57,6 +74,7 @@ def main(argv=None) -> int:
     import cv2
 
     dev = common.pick_device(argv[1])
+    group = tile_group(dev, tiles) if tiles > 1 else None
 
     from rectdetect_tpu_torch.runtime.native import FramePump
     pump = FramePump(argv[2] if len(argv) >= 3 else None)
@@ -87,7 +105,13 @@ def main(argv=None) -> int:
     cfg = load_calibrated_config(
         ih, iw, dev, EXTENDED_CONFIG if extended else DEFAULT_CONFIG,
         verbose=True)
-    det = VideoRectDetector(tan_aov, cfg=cfg, device=dev)
+    if group is not None:
+        from rectdetect_tpu_torch.pipeline.video import TiledVideoRectDetector
+        det = TiledVideoRectDetector(tan_aov, group, cfg=cfg)
+        print(f"width sharded over {tiles} tiles "
+              f"({', '.join(str(d) for d in group.devices)})")
+    else:
+        det = VideoRectDetector(tan_aov, cfg=cfg, device=dev)
     meter = FpsMeter()
 
     frame = pump.next(timeout_ms=5000)
@@ -120,6 +144,22 @@ def main(argv=None) -> int:
             print(f"trace written to {path}")
     print(f"{n} frames")
     return 0
+
+
+def tile_group(dev, tiles: int):
+    """The TileGroup of `--tiles`: CUDA devices dev..dev+tiles-1, which
+    must exist (the JAX CLI's check and message), or `tiles` tiles on the
+    host for `cpu`."""
+    import torch
+
+    from rectdetect_tpu_torch.dist.mesh import TileGroup
+    if dev.type == "cpu":
+        return TileGroup([dev] * tiles)
+    did, have = dev.index, torch.cuda.device_count()
+    if did + tiles > have:
+        sys.exit(f"--tiles={tiles} from device {did} needs "
+                 f"{did + tiles} devices, have {have}")
+    return TileGroup([torch.device("cuda", did + i) for i in range(tiles)])
 
 
 def _steady_loop(pump, det, writer, winname, first, meter) -> int:

@@ -18,7 +18,18 @@
 //    edge entry, diagonal corner, `oe`) and packs the four into one 16-bit
 //    word: bits 0-2 horizontal negative, 3-5 horizontal positive, 6-8
 //    vertical negative, 9-11 vertical positive.  The arms never leave the
-//    frame, so the fused kernel needs no frame-border logic.
+//    frame, so the fused kernel needs no frame-border logic.  In the
+//    offset form (a halo-widened width tile of the width-tiled path,
+//    dist/tile.py: local column 0 is frame column gx0 of a frame wt wide;
+//    the whole frame is gx0 = 0, wt = w) the horizontal arms break at
+//    frame columns 0 and wt - 1 and the vertical pass's corner test
+//    reads across x against wt - 1, in frame columns.  At a seam inside
+//    the frame an arm may then reach past the map's own edge, where it
+//    reads what the plain version's zero padding holds: no edge, and 0 in
+//    the fused kernel's zero-filled shared tile, whose arm words are 0 too,
+//    so a pixel beyond the map keeps its 0 through every round.  Nothing
+//    reads outside the map; the outputs that see past it lie in the halo
+//    the tiled path crops.
 //  * blblur_fused, ceil(iters / F) launches: each block loads one output
 //    tile with a halo of 4F pixels on every side into shared memory once
 //    (the packed plane by cp.async, zero-filled outside the frame; the arm
@@ -71,9 +82,9 @@ __device__ __forceinline__ unsigned below(int m) {
 // regions._blblur_axis keep before their first break, as the index of the
 // first break bit.  e: the edges at offsets -5..5 along the axis (bit
 // 5 + k); x: those across the axis, at +1 (the corner test); coord,
-// limit: the pixel's coordinate along the axis and the frame's size;
-// cross_ok: the pixel is not on the last row (horizontal) or column
-// (vertical).  Outside the frame the masks hold 0: no edge, as the plain
+// limit: the pixel's coordinate along the axis and the frame's size, in
+// frame coordinates; cross_ok: the pixel is not on the frame's last row
+// (horizontal) or column (vertical).  Outside the frame the masks hold 0: no edge, as the plain
 // version's zero padding.
 __device__ __forceinline__ unsigned arm_pair(unsigned e, unsigned x,
                                              int coord, int limit,
@@ -100,7 +111,7 @@ __device__ __forceinline__ unsigned arm_pair(unsigned e, unsigned x,
 
 __global__ void __launch_bounds__(kArmW* kArmRows)
     blblur_arms(const int* __restrict__ edge, uint16_t* __restrict__ arms,
-                int h, int w) {
+                int h, int w, int gx0, int wt) {
   // bit c of rowm[r] / bit r of colm[c]: the edge at tile row r, column c
   __shared__ unsigned long long rowm[kArmT], colm[kArmT];
   const int bx = blockIdx.x * kArmW - kArmHalo;
@@ -149,9 +160,10 @@ __global__ void __launch_bounds__(kArmW* kArmRows)
     const unsigned vcol = (unsigned)(colm[tx + kArmHalo] >> ty) & 0x7FFu;
     const unsigned vcross =
         (unsigned)(colm[tx + kArmHalo + 1] >> ty) & 0x7FFu;
+    const int xg = x + gx0;
     arms[(size_t)y * w + x] =
-        (uint16_t)(arm_pair(hrow, hcross, x, w, y < h - 1) |
-                   arm_pair(vcol, vcross, y, h, x < w - 1) << 6);
+        (uint16_t)(arm_pair(hrow, hcross, xg, wt, y < h - 1) |
+                   arm_pair(vcol, vcross, y, h, xg < wt - 1) << 6);
   }
 }
 
@@ -376,10 +388,10 @@ cudaError_t fused(int fuse, const int* in, const uint16_t* arms, int* out,
   }
 }
 
-cudaError_t arm_pass(const int* edge, uint16_t* arms, int h, int w,
-                     cudaStream_t s) {
+cudaError_t arm_pass(const int* edge, uint16_t* arms, int h, int w, int gx0,
+                     int wt, cudaStream_t s) {
   blblur_arms<<<dim3((w + kArmW - 1) / kArmW, (h + kArmH - 1) / kArmH),
-                dim3(kArmW, kArmRows), 0, s>>>(edge, arms, h, w);
+                dim3(kArmW, kArmRows), 0, s>>>(edge, arms, h, w, gx0, wt);
   rd::count_launch();
   return cudaGetLastError();
 }
@@ -387,10 +399,12 @@ cudaError_t arm_pass(const int* edge, uint16_t* arms, int h, int w,
 }  // namespace
 
 // out and tmp: (h, w) int32 buffers, neither aliasing packed; arms: (h, w)
-// uint16 scratch.  1 + ceil(iters / fuse) launches, the last into out.
+// uint16 scratch; gx0: the frame column of local column 0, wt: the frame's
+// width (0 and w for a whole frame).  1 + ceil(iters / fuse) launches, the
+// last into out.
 extern "C" int rd_blblur(const void* packed, const void* edge, void* out,
                          void* tmp, void* arms, int h, int w, int iters,
-                         int fuse, void* stream) {
+                         int fuse, int gx0, int wt, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (h <= 0 || w <= 0) return 0;
   if (iters <= 0)
@@ -399,7 +413,7 @@ extern "C" int rd_blblur(const void* packed, const void* edge, void* out,
   if (fuse != 1 && fuse != 2 && fuse != 5 && fuse != 10)
     return (int)cudaErrorInvalidValue;
   uint16_t* A = (uint16_t*)arms;
-  cudaError_t e = arm_pass((const int*)edge, A, h, w, s);
+  cudaError_t e = arm_pass((const int*)edge, A, h, w, gx0, wt, s);
   if (e != cudaSuccess) return (int)e;
   const int n = (iters + fuse - 1) / fuse;
   const int* src = (const int*)packed;

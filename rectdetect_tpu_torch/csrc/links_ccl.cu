@@ -38,7 +38,11 @@
 // not on a strong edge and the pixel merging is interior with equal
 // colours or a mask bit, or, whatever the edges, when the colours are
 // equal and b is the lower pixel or (right link) b's upper neighbour
-// differs from b.
+// differs from b.  "Interior" is in frame coordinates: in the offset form
+// (a width tile of the width-tiled path, dist/tile.py) the map's local
+// column 0 is frame column gx0 of a frame wt wide, and the links test
+// interior(y, x + gx0) against wt; the whole frame is gx0 = 0, wt = w.
+// Only the links see the offset.
 
 #include "tile_ccl.cuh"
 
@@ -48,35 +52,37 @@ using rd::kTH;
 using rd::kTW;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ bool interior(int y, int x, int h, int w) {
-  return y >= 1 && y < h - 1 && x >= 1 && x < w - 1;
+// frame row y, frame column xg of a frame h x wt
+__device__ __forceinline__ bool interior(int y, int xg, int h, int wt) {
+  return y >= 1 && y < h - 1 && xg >= 1 && xg < wt - 1;
 }
 
-// the right link of (y, x) to (y, x + 1): colours ca, cb, the merge mask
-// bits, b on a strong edge, and b's upper neighbour's colour (y > 0)
-__device__ __forceinline__ bool right_link(int y, int x, int h, int w, int ca,
-                                           int cb, bool ma, bool mb, bool eb,
-                                           int cb_up) {
+// the right link of (y, xg) to (y, xg + 1), in frame coordinates: colours
+// ca, cb, the merge mask bits, b on a strong edge, and b's upper
+// neighbour's colour (y > 0)
+__device__ __forceinline__ bool right_link(int y, int xg, int h, int wt,
+                                           int ca, int cb, bool ma, bool mb,
+                                           bool eb, int cb_up) {
   const bool eq = ca == cb;
-  const bool link = !eb && ((interior(y, x, h, w) && (eq || ma)) ||
-                            (interior(y, x + 1, h, w) && (eq || mb)));
+  const bool link = !eb && ((interior(y, xg, h, wt) && (eq || ma)) ||
+                            (interior(y, xg + 1, h, wt) && (eq || mb)));
   return link || (eq && !(y > 0 && cb_up == cb));
 }
 
-// the lower link of (y, x) to (y + 1, x)
-__device__ __forceinline__ bool lower_link(int y, int x, int h, int w, int ca,
-                                           int cb, bool ma, bool mb,
+// the lower link of (y, xg) to (y + 1, xg)
+__device__ __forceinline__ bool lower_link(int y, int xg, int h, int wt,
+                                           int ca, int cb, bool ma, bool mb,
                                            bool eb) {
   const bool eq = ca == cb;
-  const bool link = !eb && ((interior(y, x, h, w) && (eq || ma)) ||
-                            (interior(y + 1, x, h, w) && (eq || mb)));
+  const bool link = !eb && ((interior(y, xg, h, wt) && (eq || ma)) ||
+                            (interior(y + 1, xg, h, wt) && (eq || mb)));
   return link || eq;
 }
 
 __global__ void __launch_bounds__(kTW* kTH)
     tile_kernel(const int* __restrict__ packed, const int* __restrict__ mask,
                 const int* __restrict__ edge, int* __restrict__ parent, int h,
-                int w) {
+                int w, int gx0, int wt) {
   __shared__ int s_col[kTH + 1][kTW];  // row 0: the row above the tile
   __shared__ bool s_mask[kTH][kTW];
   __shared__ bool s_edge[kTH][kTW];
@@ -100,11 +106,11 @@ __global__ void __launch_bounds__(kTW* kTH)
     const int ca = s_col[ty + 1][tx];
     const bool ma = s_mask[ty][tx];
     right = tx + 1 < kTW && x + 1 < w &&
-            right_link(y, x, h, w, ca, s_col[ty + 1][tx + 1], ma,
+            right_link(y, x + gx0, h, wt, ca, s_col[ty + 1][tx + 1], ma,
                        s_mask[ty][tx + 1], s_edge[ty][tx + 1],
                        s_col[ty][tx + 1]);
     lower = ty + 1 < kTH && y + 1 < h &&
-            lower_link(y, x, h, w, ca, s_col[ty + 2][tx], ma,
+            lower_link(y, x + gx0, h, wt, ca, s_col[ty + 2][tx], ma,
                        s_mask[ty + 1][tx], s_edge[ty + 1][tx]);
   }
   // the row run of (ty, tx) starts after the last lane before tx that has
@@ -135,7 +141,7 @@ __global__ void __launch_bounds__(kTW* kTH)
 __global__ void seam_kernel(const int* __restrict__ packed,
                             const int* __restrict__ mask,
                             const int* __restrict__ edge, int* parent, int h,
-                            int w) {
+                            int w, int gx0, int wt) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   const int nv = (w - 1) / kTW * h;  // right links across column seams
   const int nh = (h - 1) / kTH * w;  // lower links across row seams
@@ -144,7 +150,8 @@ __global__ void seam_kernel(const int* __restrict__ packed,
     const int a = y * w + x, b = a + 1;
     const int ca = packed[a], cb = packed[b];
     const bool ma = mask[a] != 0, mb = mask[b] != 0;
-    if (!right_link(y, x, h, w, ca, cb, ma, mb, edge[b] > 0,
+    const int xg = x + gx0;
+    if (!right_link(y, xg, h, wt, ca, cb, ma, mb, edge[b] > 0,
                     y > 0 ? packed[b - w] : 0))
       return;
     if (y % kTH != 0) {
@@ -152,10 +159,10 @@ __global__ void seam_kernel(const int* __restrict__ packed,
       const int ua = a - w, ub = b - w;
       const int cua = packed[ua], cub = packed[ub];
       const bool mua = mask[ua] != 0, mub = mask[ub] != 0;
-      if (right_link(y - 1, x, h, w, cua, cub, mua, mub, edge[ub] > 0,
+      if (right_link(y - 1, xg, h, wt, cua, cub, mua, mub, edge[ub] > 0,
                      y > 1 ? packed[ub - w] : 0) &&
-          lower_link(y - 1, x, h, w, cua, ca, mua, ma, edge[a] > 0) &&
-          lower_link(y - 1, x + 1, h, w, cub, cb, mub, mb, edge[b] > 0))
+          lower_link(y - 1, xg, h, wt, cua, ca, mua, ma, edge[a] > 0) &&
+          lower_link(y - 1, xg + 1, h, wt, cub, cb, mub, mb, edge[b] > 0))
         return;
     }
     rd::unite(parent, a, b);
@@ -165,16 +172,17 @@ __global__ void seam_kernel(const int* __restrict__ packed,
     const int a = y * w + x, b = a + w;
     const int ca = packed[a], cb = packed[b];
     const bool ma = mask[a] != 0, mb = mask[b] != 0;
-    if (!lower_link(y, x, h, w, ca, cb, ma, mb, edge[b] > 0)) return;
+    const int xg = x + gx0;
+    if (!lower_link(y, xg, h, wt, ca, cb, ma, mb, edge[b] > 0)) return;
     if (x % kTW != 0) {
       // the column to the left, inside the same two tiles
       const int la = a - 1, lb = b - 1;
       const int cla = packed[la], clb = packed[lb];
       const bool mla = mask[la] != 0, mlb = mask[lb] != 0;
-      if (lower_link(y, x - 1, h, w, cla, clb, mla, mlb, edge[lb] > 0) &&
-          right_link(y, x - 1, h, w, cla, ca, mla, ma, edge[a] > 0,
+      if (lower_link(y, xg - 1, h, wt, cla, clb, mla, mlb, edge[lb] > 0) &&
+          right_link(y, xg - 1, h, wt, cla, ca, mla, ma, edge[a] > 0,
                      y > 0 ? packed[a - w] : 0) &&
-          right_link(y + 1, x - 1, h, w, clb, cb, mlb, mb, edge[b] > 0,
+          right_link(y + 1, xg - 1, h, wt, clb, cb, mlb, mb, edge[b] > 0,
                      ca))
         return;
     }
@@ -184,10 +192,12 @@ __global__ void seam_kernel(const int* __restrict__ packed,
 
 }  // namespace
 
-// out: (h, w) int32, the parent array and then the labels
+// out: (h, w) int32, the parent array and then the labels; gx0: the frame
+// column of local column 0, wt: the frame's width (0 and w for a whole
+// frame)
 extern "C" int rd_label_merge(const void* packed, const void* mask,
                               const void* edge, void* out, int h, int w,
-                              void* stream) {
+                              int gx0, int wt, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int n = h * w;
   if (n <= 0) return 0;
@@ -196,10 +206,11 @@ extern "C" int rd_label_merge(const void* packed, const void* mask,
   const int* E = (const int*)edge;
   int* L = (int*)out;
   tile_kernel<<<dim3((w + kTW - 1) / kTW, (h + kTH - 1) / kTH),
-                dim3(kTW, kTH), 0, s>>>(P, M, E, L, h, w);
+                dim3(kTW, kTH), 0, s>>>(P, M, E, L, h, w, gx0, wt);
   rd::count_launch();
   const int seams = (w - 1) / kTW * h + (h - 1) / kTH * w;
-  seam_kernel<<<max(1, (seams + 255) / 256), 256, 0, s>>>(P, M, E, L, h, w);
+  seam_kernel<<<max(1, (seams + 255) / 256), 256, 0, s>>>(P, M, E, L, h, w,
+                                                          gx0, wt);
   rd::count_launch();
   rd::flatten_kernel<<<(n + 255) / 256, 256, 0, s>>>(L, n);
   rd::count_launch();

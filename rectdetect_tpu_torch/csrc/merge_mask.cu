@@ -20,8 +20,12 @@
 //             END (jn == 2: exactly one) and CORE (jn > 2: two or more),
 //             from a saturating bit-sliced count of the 8 neighbour planes,
 //             masked by the frame's interior (1 <= y < h - 1, 1 <= x <
-//             w - 1) in frame coordinates, so a tile on the frame border
-//             stays right;
+//             wt - 1) in frame coordinates, so a tile on the frame border
+//             stays right.  In the offset form (a halo-widened width tile
+//             of the width-tiled path, dist/tile.py) the map's local
+//             column 0 is frame column gx0 of a frame wt wide; the whole
+//             frame is gx0 = 0, wt = w.  Only this test sees the offset:
+//             the dilations read 0 beyond the map either way;
 //   dilate    one thread per tile word.  A structuring element is a set of
 //             (dy, dx) taps, symmetric in both; OR-ing rows first, it is
 //             the OR over |dx| of the word at dx of the union of the rows
@@ -63,11 +67,11 @@ __device__ __forceinline__ unsigned bit_range(int lo, int hi) {
   return top & ~((1u << lo) - 1u);
 }
 
-// the frame's interior (1 <= y < h - 1, 1 <= x < w - 1) as the word of row
-// y whose bit 0 is pixel x0
-__device__ __forceinline__ unsigned interior(int y, int x0, int h, int w) {
+// the frame's interior (1 <= y < h - 1, 1 <= x < wt - 1) as the word of
+// row y whose bit 0 is frame column x0
+__device__ __forceinline__ unsigned interior(int y, int x0, int h, int wt) {
   if (y < 1 || y >= h - 1) return 0u;
-  return bit_range(min(max(1 - x0, 0), 32), min(max(w - 1 - x0, 0), 32));
+  return bit_range(min(max(1 - x0, 0), 32), min(max(wt - 1 - x0, 0), 32));
 }
 
 // three adjacent words of a row; at(dx) is the word whose bit i holds
@@ -111,7 +115,7 @@ __device__ __forceinline__ Row3 rows(const unsigned* plane, int r, int c,
 
 __global__ void __launch_bounds__(kThreads)
     merge_mask_kernel(const int* __restrict__ lbl, int* __restrict__ out,
-                      int h, int w) {
+                      int h, int w, int gx0, int wt) {
   __shared__ unsigned s_nz[kWin], s_any[kWin], s_end[kWin], s_core[kWin];
   __shared__ unsigned s_out[kTileWordsAll];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -155,7 +159,7 @@ __global__ void __launch_bounds__(kThreads)
       a1 |= nb[k];
     }
     const unsigned any =
-        md.m & a1 & interior(frame_y(r), frame_x0(c), h, w);
+        md.m & a1 & interior(frame_y(r), frame_x0(c) + gx0, h, wt);
     const int o = r * kWinWords + c;
     s_any[o] = any;
     s_end[o] = any & ~a2;
@@ -207,12 +211,14 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// gx0: the frame column of local column 0, wt: the frame's width (0 and w
+// for a whole frame)
 extern "C" int rd_merge_mask(const void* lbl, void* out, int h, int w,
-                             void* stream) {
+                             int gx0, int wt, void* stream) {
   const dim3 grid((w + 32 * kTileWords - 1) / (32 * kTileWords),
                   (h + kTileRows - 1) / kTileRows);
   merge_mask_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)lbl, (int*)out, h, w);
+      (const int*)lbl, (int*)out, h, w, gx0, wt);
   rd::count_launch();
   return (int)cudaGetLastError();
 }

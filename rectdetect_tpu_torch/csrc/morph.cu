@@ -46,7 +46,12 @@
 // disturbs at most 9 bits of the halo words (the stages' horizontal
 // reaches summed) and never the tile's.
 // Interior masks use frame coordinates, so the frame border, not the
-// tile's, decides them.  Loads are one coalesced 128-byte warp read per
+// tile's, decides them.  The offset form (the width-tiled path,
+// dist/tile.py) runs on a halo-widened width tile of a frame of width wt
+// whose local column 0 sits at frame column gx0: the interior masks and
+// stringify's checkerboard parity take the frame column (local + gx0)
+// and wt, and the loads and stores stay local; gx0 = 0, wt = w is the
+// whole frame.  Loads are one coalesced 128-byte warp read per
 // window word, turned into the word by __ballot_sync (every lane reaches
 // it: there is no early return); stores one 128-byte warp write per tile
 // word, each lane its own pixel.
@@ -132,7 +137,7 @@ __device__ __forceinline__ void stage(int rows, int k, F f) {
 template <int V, bool B2>
 __global__ void __launch_bounds__(kThreads)
     chain_kernel(const int* __restrict__ edge, int* __restrict__ out, int h,
-                 int w) {
+                 int w, int gx0, int wt) {
   constexpr int R = halo(V, B2);
   constexpr int WR = kTileRows + 2 * R;
   constexpr int kWin = WR * kWinWords;
@@ -145,6 +150,10 @@ __global__ void __launch_bounds__(kThreads)
   // (tw0 - 1 + c) * 32
   auto frame_y = [&](int r) { return ty0 - R + r; };
   auto frame_x0 = [&](int c) { return (tw0 - 1 + c) * 32; };
+  // interior(m) of the frame as window word (r, c), in frame columns
+  auto inner = [&](int m, int r, int c) {
+    return interior(m, frame_y(r), frame_x0(c) + gx0, h, wt);
+  };
 
   // load: all of a warp's pixels first, then one ballot per word
   int v[kLoads];
@@ -169,8 +178,7 @@ __global__ void __launch_bounds__(kThreads)
     const Row3 md = row3(s_a, r, c);
     Count3 n;
     n.add8(row3(s_a, r - 1, c), md, row3(s_a, r + 1, c));
-    const unsigned base =
-        md.m & n.a1 & interior(1, frame_y(r), frame_x0(c), h, w);
+    const unsigned base = md.m & n.a1 & inner(1, r, c);
     s_b[r * kWinWords + c] = base;
     s_c[r * kWinWords + c] = base & ~n.a2;
   });
@@ -200,8 +208,7 @@ __global__ void __launch_bounds__(kThreads)
           (n2u.at(1) & ou.at(1) & od.m & n2d.m) |
           (n2u.at(-1) & ou.at(-1) & od.m & n2d.m);
     }
-    s_a[r * kWinWords + c] =
-        (nm.m | b) & interior(2, frame_y(r), frame_x0(c), h, w);
+    s_a[r * kWinWords + c] = (nm.m | b) & inner(2, r, c);
   });
 
   // connect2 (bridge2): the connect output s_a, its chain ends E in s_b,
@@ -227,23 +234,25 @@ __global__ void __launch_bounds__(kThreads)
           (u1.at(-1) & d2.at(2)) | (u2.at(-2) & d1.at(1)) |      // (1, 1)
           (u1.at(1) & d2.at(-2)) | (u2.at(2) & d1.at(-1));       // (1, -1)
       s_c[r * kWinWords + c] = (s_a[r * kWinWords + c] | fill) &
-                               interior(2, frame_y(r), frame_x0(c), h, w);
+                               inner(2, r, c);
     });
     conn = s_c;
     t1 = s_a;
     t2 = s_b;
   }
 
-  // stringify parity p: src -> dst
+  // stringify parity p: src -> dst; bit i is frame column frame_x0(c) +
+  // gx0 + i, and frame_x0(c) is even
   auto stringify = [&](const unsigned* src, unsigned* dst, int k, int p) {
     stage(WR, k, [&](int r, int c) {
       const Row3 md = row3(src, r, c);
       const unsigned up = src[(r - 1) * kWinWords + c];
       const unsigned dn = src[(r + 1) * kWinWords + c];
       const int y = frame_y(r);
-      const unsigned parity = ((y + p) & 1) ? 0xAAAAAAAAu : 0x55555555u;
+      const unsigned parity =
+          ((y + p + gx0) & 1) ? 0xAAAAAAAAu : 0x55555555u;
       const unsigned clear = parity & (up | dn) & (md.at(-1) | md.at(1)) &
-                             interior(1, y, frame_x0(c), h, w);
+                             inner(1, r, c);
       dst[r * kWinWords + c] = md.m & ~clear;
     });
   };
@@ -257,8 +266,7 @@ __global__ void __launch_bounds__(kThreads)
       const Row3 md = row3(t2, r, c);
       Count3 n;
       n.add8(row3(t2, r - 1, c), md, row3(t2, r + 1, c));
-      conn[r * kWinWords + c] =
-          md.m & ~n.a3 & interior(1, frame_y(r), frame_x0(c), h, w);
+      conn[r * kWinWords + c] = md.m & ~n.a3 & inner(1, r, c);
     });
     result = conn;
   }
@@ -277,23 +285,26 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int V, bool B2>
 static void launch_chain(const void* edge, void* out, int h, int w,
-                         cudaStream_t s) {
+                         int gx0, int wt, cudaStream_t s) {
   const dim3 grid((w + 32 * kTileWords - 1) / (32 * kTileWords),
                   (h + kTileRows - 1) / kTileRows);
   chain_kernel<V, B2><<<grid, kThreads, 0, s>>>((const int*)edge, (int*)out,
-                                                h, w);
+                                                h, w, gx0, wt);
 }
 
-// variant: 0 = rect, 1 = poly_branch; bridge2: 0 or 1; one launch for any
+// variant: 0 = rect, 1 = poly_branch; bridge2: 0 or 1; gx0: the frame
+// column of local column 0, wt: the frame's width (0 and w for a whole
+// frame); one launch for any
 extern "C" int rd_strings_chain(const void* edge, void* out, int h, int w,
-                                int variant, int bridge2, void* stream) {
+                                int variant, int bridge2, int gx0, int wt,
+                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == 0)
-    bridge2 ? launch_chain<0, true>(edge, out, h, w, s)
-            : launch_chain<0, false>(edge, out, h, w, s);
+    bridge2 ? launch_chain<0, true>(edge, out, h, w, gx0, wt, s)
+            : launch_chain<0, false>(edge, out, h, w, gx0, wt, s);
   else
-    bridge2 ? launch_chain<1, true>(edge, out, h, w, s)
-            : launch_chain<1, false>(edge, out, h, w, s);
+    bridge2 ? launch_chain<1, true>(edge, out, h, w, gx0, wt, s)
+            : launch_chain<1, false>(edge, out, h, w, gx0, wt, s);
   rd::count_launch();
   return (int)cudaGetLastError();
 }

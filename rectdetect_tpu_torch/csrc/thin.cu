@@ -30,7 +30,10 @@
 // plain version's, in its order (fused multiply-adds where the JAX
 // reference has them), only computed once per cell, and --fmad=false keeps
 // the flat-plateau tie am1 <= a0 exact: the output is bit-equal to one
-// thread evaluating bicubicSub tap by tap.
+// thread evaluating bicubicSub tap by tap.  The sample position is a float
+// in frame columns, so its rounding depends on the column: a width tile of
+// the width-tiled path (dist/tile.py) passes its frame column gx0 (0 for a
+// whole frame), and the taps stay local.
 
 #include "common.cuh"
 
@@ -89,8 +92,8 @@ __device__ __forceinline__ void int_frac(float k, float v, int c, int kr,
   *f = pos - ip;
 }
 
-// the bicubic sample at (x + k vx, y + k vy); c: the cell of the pixel's
-// row whose taps start at the pixel's column
+// the bicubic sample at (x + k vx, y + k vy), x the frame column; c: the
+// cell of the pixel's row whose taps start at the pixel's column
 __device__ __forceinline__ float sample(const float4* c, int x, int y,
                                         float vx, float vy, float k, int kr) {
   int fdx, fdy;
@@ -114,7 +117,7 @@ __device__ __forceinline__ int window_index(int i, int n) {
 __global__ void __launch_bounds__(kThreads)
     thin_kernel(const float* __restrict__ em, const float2* __restrict__ vec,
                 float* __restrict__ out, int h, int w, int cubic,
-                float slack) {
+                float slack, int gx0) {
   __shared__ float win[kWinSize];
   __shared__ float4 cells[kWinRows * kCells];
   const int x0 = blockIdx.x * kTileCols;
@@ -154,11 +157,12 @@ __global__ void __launch_bounds__(kThreads)
     const float2 v = vec[p];
     // the cell whose taps start at the pixel: window column tx + 3
     const float4* c = cells + (ty + kHaloLo) * kCells + threadIdx.x + kHaloLo;
-    const float am2 = sample(c, x, y, v.x, v.y, -2.0f, 2);
-    const float am1 = sample(c, x, y, v.x, v.y, -1.0f, 1);
+    const int xg = x + gx0;
+    const float am2 = sample(c, xg, y, v.x, v.y, -2.0f, 2);
+    const float am1 = sample(c, xg, y, v.x, v.y, -1.0f, 1);
     const float a0 = win[(ty + kHaloLo) * kWinCols + threadIdx.x + kHaloLo];
-    const float ap1 = sample(c, x, y, v.x, v.y, 1.0f, 1);
-    const float ap2 = sample(c, x, y, v.x, v.y, 2.0f, 2);
+    const float ap1 = sample(c, xg, y, v.x, v.y, 1.0f, 1);
+    const float ap2 = sample(c, xg, y, v.x, v.y, 2.0f, 2);
     bool keep;
     if (cubic) {
       keep = (am2 * slack <= a0) && (am1 * slack <= a0) &&
@@ -172,14 +176,17 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// vec: (h, w, 2) float32, 8-byte aligned; h, w >= 5
+// vec: (h, w, 2) float32, 8-byte aligned; h, w >= 5; gx0: the frame column
+// of local column 0 (0 for a whole frame)
 extern "C" int rd_thin(const void* em, const void* vec, void* out, int h,
-                       int w, int cubic, float slack, void* stream) {
+                       int w, int cubic, float slack, int gx0,
+                       void* stream) {
   const dim3 grid((w + kTileCols - 1) / kTileCols,
                   (h + kTileRows - 1) / kTileRows);
   thin_kernel<<<grid, dim3(kTileCols, kRowsPerPass), 0,
                 (cudaStream_t)stream>>>((const float*)em, (const float2*)vec,
-                                        (float*)out, h, w, cubic, slack);
+                                        (float*)out, h, w, cubic, slack,
+                                        gx0);
   rd::count_launch();
   return (int)cudaGetLastError();
 }

@@ -40,16 +40,16 @@ _F = ctypes.c_float
 # C entry points: name -> argument types (pointers, ints, float, stream)
 SIGNATURES = {
     "rd_edge_front": (_P, _P, _P, _I, _I, _P),
-    "rd_thin": (_P, _P, _P, _I, _I, _I, _F, _P),
-    "rd_strings_chain": (_P, _P, _I, _I, _I, _I, _P),
+    "rd_thin": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "rd_strings_chain": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rd_label_components": (_P, _P, _I, _I, _I, _P),
     "rd_mkpl": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rd_seg_scan": (_P, _P, _P, _P, _I, _I, _I, _P),
     "rd_seg_total": (_P, _P, _P, _P, _I, _I, _P),
-    "rd_blblur": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rd_blblur": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rd_quant_despeckle": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "rd_merge_mask": (_P, _P, _I, _I, _P),
-    "rd_label_merge": (_P, _P, _P, _P, _I, _I, _P),
+    "rd_merge_mask": (_P, _P, _I, _I, _I, _I, _P),
+    "rd_label_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rd_despeckle2": (_P, _P, _P, _I, _I, _I, _P),
     "rd_distinct_bids": (_P, _P, _I, _I, _P),
     "rd_hyp": (_P, _P, _P, _P, _I, _I, _I, _F, _P),

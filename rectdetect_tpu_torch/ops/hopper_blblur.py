@@ -14,9 +14,13 @@ fastest of the compiled F on the H100 (chip_smoke.py's sweep).  Integer
 arithmetic only: the result equals the plain version
 (ops/regions.py:blblur) exactly.
 
+The x0/w_total offset form of the width-tiled path (dist/tile.py) is the
+same launches with the tile's global x and the frame's width: the arm
+pass breaks the horizontal arms at the true frame border and tests the
+vertical corner against it; the fused launches do not change.
+
 `blblur` takes the plain version for CPU tensors and launches the kernel
-for CUDA tensors; there is no other path.  The x0/w_total offset form of
-the width-tiled multi-device path is not ported and raises.
+for CUDA tensors; there is no other path.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from rectdetect_tpu_torch.ops import _build
 from rectdetect_tpu_torch.ops.regions import blblur as blblur_plain
 
 launches = 0
+# the launches of the x0/w_total offset form (counted in `launches` too)
+offset_launches = 0
 
 # rounds fused per launch, and the output tile (rows, columns) the kernel
 # compiles for each (csrc/blblur.cu:fused)
@@ -41,9 +47,10 @@ def launch_count(iters: int, fuse: int = FUSE) -> int:
 
 
 def blblur_fused(packed: torch.Tensor, edge: torch.Tensor, iters: int,
-                 fuse: int) -> torch.Tensor:
+                 fuse: int, x0: int = 0,
+                 w_total: int | None = None) -> torch.Tensor:
     """The kernel with `fuse` rounds per launch (CUDA tensors only)."""
-    global launches
+    global launches, offset_launches
     if fuse not in TILES:
         raise ValueError(f"fuse must be one of {sorted(TILES)}, got {fuse}")
     h, w = packed.shape
@@ -54,18 +61,19 @@ def blblur_fused(packed: torch.Tensor, edge: torch.Tensor, iters: int,
     arms = torch.empty((h, w), dtype=torch.int16, device=packed.device)
     _build.launch("rd_blblur", packed.device, packed.data_ptr(),
                   edge.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                  arms.data_ptr(), h, w, int(iters), int(fuse),
+                  arms.data_ptr(), h, w, int(iters), int(fuse), int(x0),
+                  w if w_total is None else int(w_total),
                   kernels=launch_count(iters, fuse) if h and w else 0)
     launches += 1
+    if x0 != 0 or w_total is not None:
+        offset_launches += 1
     return out
 
 
 def blblur(packed: torch.Tensor, edge: torch.Tensor, iters: int = 10,
            x0: int = 0, w_total: int | None = None) -> torch.Tensor:
-    """packed (H,W) int32 packed Lab, edge (H,W) int32 0/1 -> (H,W) int32."""
-    if x0 != 0 or w_total is not None:
-        raise NotImplementedError("the x0/w_total offset form of blblur "
-                                  "(width-tiled frames) is not ported")
+    """packed (H,W) int32 packed Lab, edge (H,W) int32 0/1 -> (H,W) int32.
+    x0: the global x of column 0, w_total: the frame's width (None: W)."""
     if not _build.on_cuda(packed, edge):
-        return blblur_plain(packed, edge, iters)
-    return blblur_fused(packed, edge, iters, FUSE)
+        return blblur_plain(packed, edge, iters, x0, w_total)
+    return blblur_fused(packed, edge, iters, FUSE, x0, w_total)

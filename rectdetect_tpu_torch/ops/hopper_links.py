@@ -11,7 +11,10 @@ shared-memory atomics, writing each pixel's tile root; the links across
 the tile seams unite the roots through device memory (atomicMin linking,
 path halving); a last pass flattens.  Bound by the latency of dependent
 loads and atomics.  Roots are component minima whatever order the atomics
-run in, so the labels are exact and deterministic.
+run in, so the labels are exact and deterministic.  The x0/w_total offset form
+of the width-tiled path (dist/tile.py) is the same three launches with
+the tile's global x and the frame's width: only the links' interior
+test sees them.
 
 `label_merge` takes the plain version (ops/regions.py: merge_pairs +
 label_links) for CPU tensors and launches the kernel for CUDA tensors;
@@ -26,15 +29,20 @@ from rectdetect_tpu_torch.ops import _build
 from rectdetect_tpu_torch.ops.regions import label_merge as label_merge_plain
 
 launches = 0
+# the launches of the x0/w_total offset form (counted in `launches` too)
+offset_launches = 0
 
 
 def label_merge(packed: torch.Tensor, mask: torch.Tensor,
-                edge_label: torch.Tensor) -> torch.Tensor:
+                edge_label: torch.Tensor, x0: int = 0,
+                w_total: int | None = None) -> torch.Tensor:
     """packed (H,W) int32 colours, mask (H,W) int32 merge mask, edge_label
-    (H,W) int32 (> 0 blocks) -> (H,W) int32 region labels."""
-    global launches
+    (H,W) int32 (> 0 blocks) -> (H,W) int32 region labels (local flat
+    indices).  x0: the global x of column 0, w_total: the frame's width
+    (None: W)."""
+    global launches, offset_launches
     if not _build.on_cuda(packed, mask, edge_label):
-        return label_merge_plain(packed, mask, edge_label)
+        return label_merge_plain(packed, mask, edge_label, x0, w_total)
     h, w = packed.shape
     for t, name in ((packed, "packed"), (mask, "mask"),
                     (edge_label, "edge_label")):
@@ -42,6 +50,9 @@ def label_merge(packed: torch.Tensor, mask: torch.Tensor,
     out = torch.empty_like(packed)
     _build.launch("rd_label_merge", packed.device, packed.data_ptr(),
                   mask.data_ptr(), edge_label.data_ptr(), out.data_ptr(), h, w,
+                  int(x0), w if w_total is None else int(w_total),
                   kernels=3 if h and w else 0)
     launches += 1
+    if x0 != 0 or w_total is not None:
+        offset_launches += 1
     return out

@@ -6,7 +6,9 @@ Replaces the TPU kernel rectdetect_tpu/ops/pallas_morph.py:
 _merge_mask_kernel (merge_mask_pallas).  CUDA source: csrc/merge_mask.cu,
 one thread per output pixel over shared-memory tiles of the "label > 0"
 map and the junction code, so neither map reaches device memory; bound by
-device memory (8 B per pixel).
+device memory (8 B per pixel).  The x0/w_total offset form of the
+width-tiled path (dist/tile.py) is the same launch with the tile's global x
+and the frame's width: only the junction's interior test sees them.
 
 `junction_merge_mask` takes the plain version (ops/regions.py) for a CPU
 tensor and launches the kernel for a CUDA tensor; there is no other path.
@@ -21,18 +23,25 @@ from rectdetect_tpu_torch.ops.regions import (
     junction_merge_mask as junction_merge_mask_plain)
 
 launches = 0
+# the launches of the x0/w_total offset form (counted in `launches` too)
+offset_launches = 0
 
 
-def junction_merge_mask(strong_lbl: torch.Tensor) -> torch.Tensor:
+def junction_merge_mask(strong_lbl: torch.Tensor, x0: int = 0,
+                        w_total: int | None = None) -> torch.Tensor:
     """strong_lbl (H,W) int32 (labels > 0 are edges) -> mask (H,W) int32
-    0/1."""
-    global launches
+    0/1.  x0: the global x of column 0, w_total: the frame's width (None:
+    W)."""
+    global launches, offset_launches
     if not _build.on_cuda(strong_lbl):
-        return junction_merge_mask_plain(strong_lbl)
+        return junction_merge_mask_plain(strong_lbl, x0, w_total)
     h, w = strong_lbl.shape
     _build.check(strong_lbl, "strong_lbl", torch.int32, (h, w))
     out = torch.empty_like(strong_lbl)
     _build.launch("rd_merge_mask", strong_lbl.device, strong_lbl.data_ptr(),
-                  out.data_ptr(), h, w)
+                  out.data_ptr(), h, w, int(x0),
+                  w if w_total is None else int(w_total))
     launches += 1
+    if x0 != 0 or w_total is not None:
+        offset_launches += 1
     return out

@@ -8,7 +8,10 @@ whole chain in one launch: each block keeps its tile's window as 32-pixel
 bit words in shared memory and runs every stage there on a window that
 shrinks by the stage's reach (a halo of 4 rows for "rect", 6 for
 "poly_branch", 3 more with bridge2), so the map is read once and written
-once.
+once.  The x0/w_total offset form of the width-tiled path (dist/tile.py)
+is the same launch with the tile's global x and the frame's width as two
+more arguments: the border guards and stringify's checkerboard parity are
+then frame-global.
 
 `strings_chain` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; there is no other path.
@@ -27,14 +30,18 @@ _VARIANTS = {"rect": 0, "poly_branch": 1}
 KERNELS = 1
 
 launches = 0
+# the launches of the x0/w_total offset form (counted in `launches` too)
+offset_launches = 0
 
 
 def strings_chain(edge_bin: torch.Tensor, variant: str,
-                  bridge2: bool = False):
-    """edge_bin (H,W) int32 0/1 -> strings map (H,W) int32 0/1."""
-    global launches
+                  bridge2: bool = False, x0: int = 0,
+                  w_total: int | None = None):
+    """edge_bin (H,W) int32 0/1 -> strings map (H,W) int32 0/1.  x0: the
+    global x of column 0, w_total: the frame's width (None: W)."""
+    global launches, offset_launches
     if not _build.on_cuda(edge_bin):
-        return strings_chain_plain(edge_bin, variant, bridge2)
+        return strings_chain_plain(edge_bin, variant, bridge2, x0, w_total)
     if variant not in _VARIANTS:
         raise ValueError(f"unknown strings variant {variant!r}")
     h, w = edge_bin.shape
@@ -42,6 +49,9 @@ def strings_chain(edge_bin: torch.Tensor, variant: str,
     out = torch.empty_like(edge_bin)
     _build.launch("rd_strings_chain", edge_bin.device, edge_bin.data_ptr(),
                   out.data_ptr(), h, w, _VARIANTS[variant], int(bool(bridge2)),
+                  int(x0), w if w_total is None else int(w_total),
                   kernels=KERNELS)
     launches += 1
+    if x0 != 0 or w_total is not None:
+        offset_launches += 1
     return out

@@ -6,6 +6,10 @@ Junction counting, 1-px gap bridging (and the 2-px bridging of the
 branch removal, each an interior-masked stencil of statically shifted
 views with zero padding.  These are the plain versions of kernel K3
 (ops/hopper_morph.py).
+
+x0/w_total: the global x of local column 0 and the true frame width, for a
+halo-widened width tile (dist/tile.py): the border guards then mean the
+true frame border and stringify's checkerboard is frame-global.
 """
 
 from __future__ import annotations
@@ -25,22 +29,25 @@ def _neighbor_count(nz: torch.Tensor) -> torch.Tensor:
     return cnt
 
 
-def _masked(out: torch.Tensor, margin: int) -> torch.Tensor:
+def _masked(out: torch.Tensor, margin: int, x0: int = 0,
+            w_total: int | None = None) -> torch.Tensor:
     h, w = out.shape
-    m = interior_mask(h, w, margin, out.device)
+    m = interior_mask(h, w, margin, out.device, x0, w_total)
     return torch.where(m, out, torch.zeros_like(out)).to(torch.int32)
 
 
-def simple_junction(img, positive_only: bool = False):
+def simple_junction(img, positive_only: bool = False, x0: int = 0,
+                    w_total: int | None = None):
     """Neighbour-degree map (simpleJunction, oclpolyline.cl:66-87): 0 for
     background/isolated pixels, else 1 + #nonzero 8-neighbours;
     positive_only is the oclrect.cl:74-95 variant (only values > 0 set)."""
     nz = (img > 0) if positive_only else (img != 0)
     cnt = 1 + _neighbor_count(nz)
-    return _masked(torch.where(nz & (cnt > 1), cnt, torch.zeros_like(cnt)), 1)
+    return _masked(torch.where(nz & (cnt > 1), cnt, torch.zeros_like(cnt)), 1,
+                   x0, w_total)
 
 
-def simple_connect_poly(jn):
+def simple_connect_poly(jn, x0: int = 0, w_total: int | None = None):
     """1-px gap bridging on a junction-degree map (oclpolyline.cl:89-110);
     binary output, the 2-px border is zero."""
     h, w = jn.shape
@@ -57,10 +64,10 @@ def simple_connect_poly(jn):
     bridge |= ((n(0, -2) != 0) & (n(0, -1) == 2) & (n(1, 1) == 2) & (n(1, 2) != 0))
     bridge |= ((n(-2, 1) != 0) & (n(-1, 1) == 2) & (n(1, 0) == 2) & (n(2, 0) != 0))
     bridge |= ((n(-2, -1) != 0) & (n(-1, -1) == 2) & (n(1, 0) == 2) & (n(2, 0) != 0))
-    return _masked(((jn != 0) | bridge).to(torch.int32), 2)
+    return _masked(((jn != 0) | bridge).to(torch.int32), 2, x0, w_total)
 
 
-def simple_connect_rect(jn):
+def simple_connect_rect(jn, x0: int = 0, w_total: int | None = None):
     """The oclrect.cl:97-121 bridging variant."""
     h, w = jn.shape
     p = pad2d(jn, 1, "zero")
@@ -78,10 +85,10 @@ def simple_connect_rect(jn):
     bridge |= ((n(0, -1) == 2) & (n(1, 1) == 2))
     bridge |= ((n(-1, 1) == 2) & (n(1, 0) == 2))
     bridge |= ((n(-1, -1) == 2) & (n(1, 0) == 2))
-    return _masked(((jn != 0) | bridge).to(torch.int32), 2)
+    return _masked(((jn != 0) | bridge).to(torch.int32), 2, x0, w_total)
 
 
-def simple_connect2(conn):
+def simple_connect2(conn, x0: int = 0, w_total: int | None = None):
     """2-px gap bridging, an accuracy extension over the reference
     (ops/morphology.py:simple_connect2 of the JAX package): the thinning
     drops two pixels at every staircase step of a shallow edge, and the
@@ -103,10 +110,10 @@ def simple_connect2(conn):
         # other pixel of the gap
         fill |= end(-dy, -dx) & end(2 * dy, 2 * dx)
         fill |= end(-2 * dy, -2 * dx) & end(dy, dx)
-    return _masked((nz | fill).to(torch.int32), 2)
+    return _masked((nz | fill).to(torch.int32), 2, x0, w_total)
 
 
-def stringify(img, parity: int):
+def stringify(img, parity: int, x0: int = 0, w_total: int | None = None):
     """Checkerboard corner thinning (stringify, oclpolyline.cl:112-124): on
     pixels of the given frame-global parity, clear a pixel that has both a
     vertical and a horizontal nonzero neighbour."""
@@ -119,32 +126,36 @@ def stringify(img, parity: int):
     corner = ((n(-1, 0) & n(0, -1)) | (n(-1, 0) & n(0, 1)) |
               (n(1, 0) & n(0, -1)) | (n(1, 0) & n(0, 1)))
     yy = torch.arange(h, device=img.device)[:, None]
-    xx = torch.arange(w, device=img.device)[None, :]
+    xx = torch.arange(w, device=img.device)[None, :] + x0
     on_parity = ((yy + xx) & 1) == parity
-    clear = on_parity & corner & interior_mask(h, w, 1, img.device)
+    clear = on_parity & corner & interior_mask(h, w, 1, img.device, x0,
+                                               w_total)
     return torch.where(clear, torch.zeros_like(img), img).to(torch.int32)
 
 
-def remove_branch(img):
+def remove_branch(img, x0: int = 0, w_total: int | None = None):
     """Keep only pixels with <= 2 nonzero neighbours (oclpolyline.cl:126-147)."""
     nz = img != 0
     cnt = _neighbor_count(nz)
-    return _masked((nz & (cnt <= 2)).to(torch.int32), 1)
+    return _masked((nz & (cnt <= 2)).to(torch.int32), 1, x0, w_total)
 
 
-def strings_chain(edge_bin, variant: str, bridge2: bool = False):
+def strings_chain(edge_bin, variant: str, bridge2: bool = False,
+                  x0: int = 0, w_total: int | None = None):
     """The edge -> strings morphology prefix: "rect" = junction(positive)
     -> connect_rect -> stringify x2 (oclrect.c:265-272); "poly_branch" =
     junction -> connect_poly -> stringify x2 -> removeBranch
     (oclpolyline.c stages 1-4).  bridge2 inserts simple_connect2 after the
-    connect stage."""
+    connect stage.  x0/w_total pass to every stage."""
+    o = (x0, w_total)
     if variant == "rect":
-        c = simple_connect_rect(simple_junction(edge_bin, positive_only=True))
+        c = simple_connect_rect(
+            simple_junction(edge_bin, True, *o), *o)
     elif variant == "poly_branch":
-        c = simple_connect_poly(simple_junction(edge_bin))
+        c = simple_connect_poly(simple_junction(edge_bin, False, *o), *o)
     else:
         raise ValueError(f"unknown strings variant {variant!r}")
     if bridge2:
-        c = simple_connect2(c)
-    s = stringify(stringify(c, 0), 1)
-    return s if variant == "rect" else remove_branch(s)
+        c = simple_connect2(c, *o)
+    s = stringify(stringify(c, 0, *o), 1, *o)
+    return s if variant == "rect" else remove_branch(s, *o)

@@ -11,6 +11,12 @@ The region merge's labels are the minimum flat index of each region, so
 every output here is an exact integer map.  `color_reassign`, which the
 reference leaves out of its pipeline, has no kernel in either package.
 
+The border-sensitive functions take x0/w_total, the global x of local
+column 0 and the true frame width, for a halo-widened width tile of the
+width-tiled path (dist/tile.py): blblur's border breaks and cross-axis
+test, the merge mask's junction and the merge links' interior test then
+mean the true frame border.
+
 Floats in quantize + despeckle, as jitted XLA:CPU evaluates them (found
 by comparing with the jitted JAX functions):
   * the lattice snap floor(v*n + 0.5) is never within an ulp of an
@@ -41,12 +47,19 @@ def _coord_maps(h: int, w: int, device=None):
 
 
 def _blblur_axis(packed: torch.Tensor, edge: torch.Tensor,
-                 horizontal: bool) -> torch.Tensor:
+                 horizontal: bool, x0: int = 0,
+                 w_total: int | None = None) -> torch.Tensor:
     """One blblur0 (horizontal) or blblur1 (vertical) pass
     (oclrect.cl:155-205).  packed: (H,W) int32 packed Lab; edge: (H,W)
-    int32 0/1 (the weak-edge map, oclrect.c:284)."""
+    int32 0/1 (the weak-edge map, oclrect.c:284).  The q < 0 and
+    q > limit - 1 breaks and the vertical pass's cross-axis test run in
+    frame columns (x + x0, against w_total): beyond-frame columns never
+    contribute, so any fill is safe; at the array's own edges the taps read
+    zero padding, as at the frame border."""
     h, w = packed.shape
     yy, xx = _coord_maps(h, w, packed.device)
+    xx = xx + x0
+    wt = w if w_total is None else w_total
     chans = color.unpack_lab_int(packed)
     r = BLBLURSIZE + 1
     ep = pad2d(edge, r, "zero")
@@ -61,9 +74,9 @@ def _blblur_axis(packed: torch.Tensor, edge: torch.Tensor,
     # cross-axis +1 offset of the diagonal-corner break test
     cross = (1, 0) if horizontal else (0, 1)
     coord = xx if horizontal else yy
-    limit = w if horizontal else h
+    limit = wt if horizontal else h
     cross_coord = yy if horizontal else xx
-    cross_limit = h if horizontal else w
+    cross_limit = h if horizontal else wt
 
     oe = ed(0, 0)
     wsum = torch.zeros((h, w), dtype=torch.int32, device=packed.device)
@@ -104,14 +117,14 @@ def _blblur_axis(packed: torch.Tensor, edge: torch.Tensor,
     return torch.where(wsum == 0, packed, blurred)
 
 
-def blblur(packed: torch.Tensor, edge: torch.Tensor,
-           iters: int = 10) -> torch.Tensor:
+def blblur(packed: torch.Tensor, edge: torch.Tensor, iters: int = 10,
+           x0: int = 0, w_total: int | None = None) -> torch.Tensor:
     """Edge-limited blur: `iters` rounds of a horizontal then a vertical
     pass (oclrect.c:286-296)."""
     p = packed
     for _ in range(iters):
-        p = _blblur_axis(p, edge, True)
-        p = _blblur_axis(p, edge, False)
+        p = _blblur_axis(p, edge, True, x0, w_total)
+        p = _blblur_axis(p, edge, False, x0, w_total)
     return p
 
 
@@ -200,29 +213,34 @@ def merge_mask(junction: torch.Tensor) -> torch.Tensor:
     return (m & ~clear).to(torch.int32)
 
 
-def junction_merge_mask(strong_lbl: torch.Tensor) -> torch.Tensor:
+def junction_merge_mask(strong_lbl: torch.Tensor, x0: int = 0,
+                        w_total: int | None = None) -> torch.Tensor:
     """simple_junction(positive_only) + merge_mask: the plain version of
-    kernel #6 (ops/hopper_merge_mask.py)."""
-    return merge_mask(simple_junction(strong_lbl, positive_only=True))
+    kernel #6 (ops/hopper_merge_mask.py).  Only the junction's interior
+    test sees x0/w_total: the dilations read 0 beyond the map either
+    way."""
+    return merge_mask(simple_junction(strong_lbl, True, x0, w_total))
 
 
 def merge_pairs(packed: torch.Tensor, mask: torch.Tensor,
-                edge_label: torch.Tensor):
+                edge_label: torch.Tensor, x0: int = 0,
+                w_total: int | None = None):
     """Mergeability of horizontally / vertically adjacent pixels under
     labelMergeMain's rules (oclrect.cl:300-334) plus the labelxPreprocess
     seed links (oclrect.cl:289-298), as regions._merge_pairs of the JAX
     package: for a pair (a, b), b right of or below a,
         edge_label[b] <= 0 and (colours equal or mask[a] or mask[b]),
     the merging pixel interior; preprocess adds colour-equal links
-    regardless (up always, left only where the up pixel differs).
-    Returns (mh (H, W-1), mv (H-1, W)) bool."""
+    regardless (up always, left only where the up pixel differs); the
+    interior in frame columns (x0/w_total).  Returns (mh (H, W-1),
+    mv (H-1, W)) bool."""
     h, w = packed.shape
     eq_h = packed[:, 1:] == packed[:, :-1]
     eq_v = packed[1:, :] == packed[:-1, :]
     m = mask != 0
     blocked_h = edge_label[:, 1:] > 0
     blocked_v = edge_label[1:, :] > 0
-    inter = interior_mask(h, w, 1, packed.device)
+    inter = interior_mask(h, w, 1, packed.device, x0, w_total)
     mh = ~blocked_h & ((inter[:, :-1] & (eq_h | m[:, :-1])) |
                        (inter[:, 1:] & (eq_h | m[:, 1:])))
     mv = ~blocked_v & ((inter[:-1, :] & (eq_v | m[:-1, :])) |
@@ -259,11 +277,13 @@ def label_links(mh: torch.Tensor, mv: torch.Tensor) -> torch.Tensor:
 
 
 def label_merge(packed: torch.Tensor, mask: torch.Tensor,
-                edge_label: torch.Tensor) -> torch.Tensor:
+                edge_label: torch.Tensor, x0: int = 0,
+                w_total: int | None = None) -> torch.Tensor:
     """Region-merge CCL (labelxPreprocess + labelMergeMain,
-    oclrect.cl:289-334) at its exact fixpoint, min-flat-index labels: the
-    plain version of kernel #9 (ops/hopper_links.py)."""
-    return label_links(*merge_pairs(packed, mask, edge_label))
+    oclrect.cl:289-334) at its exact fixpoint, min-flat-index labels (of
+    the local array): the plain version of kernel #9
+    (ops/hopper_links.py)."""
+    return label_links(*merge_pairs(packed, mask, edge_label, x0, w_total))
 
 
 def label_sizes(label: torch.Tensor) -> torch.Tensor:

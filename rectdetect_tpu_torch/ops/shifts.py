@@ -54,8 +54,18 @@ def shifted(padded: torch.Tensor, r: int, dy: int, dx: int, h: int, w: int):
     return padded[..., r + dy:r + dy + h, r + dx:r + dx + w]
 
 
-def interior_mask(h: int, w: int, margin: int, device=None) -> torch.Tensor:
-    """True for pixels at least `margin` away from every image border."""
+def interior_mask(h: int, w: int, margin: int, device=None, x0: int = 0,
+                  w_total: int | None = None) -> torch.Tensor:
+    """True for pixels at least `margin` away from every image border.
+
+    x0/w_total: the global x of local column 0 and the true frame width,
+    for a width slice of a (h, w_total) frame (the width-tiled path,
+    dist/tile.py, runs ops on halo-widened tiles): "border" then means the
+    true frame border.  w_total=None is the slice's own width."""
+    wt = w if w_total is None else w_total
     m = torch.zeros((h, w), dtype=torch.bool, device=device)
-    m[margin:h - margin, margin:w - margin] = True
+    lo = min(max(margin - x0, 0), w)
+    hi = min(max(wt - margin - x0, 0), w)
+    if lo < hi:
+        m[margin:h - margin, lo:hi] = True
     return m

@@ -45,15 +45,18 @@ def _int_frac(delta, coord, icoord):
     return ip.to(torch.int32) - icoord, pos - ip
 
 
-def bicubic_sample_along(img, vx, vy, k: float):
-    """Bicubic sample of img at (x + k*vx, y + k*vy) for every pixel."""
+def bicubic_sample_along(img, vx, vy, k: float, x0: int = 0):
+    """Bicubic sample of img at (x + k*vx, y + k*vy) for every pixel; x is
+    the frame column, local column + x0 (a width tile of the width-tiled
+    path, dist/tile.py): the float position, so its rounding, is the
+    frame's."""
     h, w = img.shape[-2], img.shape[-1]
     kr = max(1, min(2, int(abs(k))))
     p = pad2d(img, _R, "mirror")
     dev = img.device
-    xs = torch.arange(w, dtype=img.dtype, device=dev)[None, :]
+    xs = torch.arange(x0, x0 + w, dtype=img.dtype, device=dev)[None, :]
     ys = torch.arange(h, dtype=img.dtype, device=dev)[:, None]
-    ixs = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    ixs = torch.arange(x0, x0 + w, dtype=torch.int32, device=dev)[None, :]
     iys = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
     fdx, fx = _int_frac(k * vx, xs, ixs)
     fdy, fy = _int_frac(k * vy, ys, iys)
@@ -80,28 +83,29 @@ def bicubic_sample_along(img, vx, vy, k: float):
     return _bicubic_sub(R[0], R[1], R[2], R[3], fy)
 
 
-def _samples(edge_img, vec):
+def _samples(edge_img, vec, x0: int = 0):
     vx = vec[..., 0]
     vy = vec[..., 1]
-    am2 = bicubic_sample_along(edge_img, vx, vy, -2.0)
-    am1 = bicubic_sample_along(edge_img, vx, vy, -1.0)
-    ap1 = bicubic_sample_along(edge_img, vx, vy, 1.0)
-    ap2 = bicubic_sample_along(edge_img, vx, vy, 2.0)
+    am2 = bicubic_sample_along(edge_img, vx, vy, -2.0, x0)
+    am1 = bicubic_sample_along(edge_img, vx, vy, -1.0, x0)
+    ap1 = bicubic_sample_along(edge_img, vx, vy, 1.0, x0)
+    ap2 = bicubic_sample_along(edge_img, vx, vy, 2.0, x0)
     return am2, am1, edge_img, ap1, ap2
 
 
-def thinthres(edge_img, vec):
+def thinthres(edge_img, vec, x0: int = 0):
     """NMS thinning (thinthres_f_f_f2, oclimgutil.cl:456-471): keep a pixel
-    if am1 <= a0 >= ap1; the output is the 5-sample sum, else 0."""
-    am2, am1, a0, ap1, ap2 = _samples(edge_img, vec)
+    if am1 <= a0 >= ap1; the output is the 5-sample sum, else 0.  x0: the
+    frame column of local column 0."""
+    am2, am1, a0, ap1, ap2 = _samples(edge_img, vec, x0)
     keep = (am1 <= a0) & (a0 >= ap1)
     return torch.where(keep, am2 + am1 + a0 + ap1 + ap2,
                        torch.zeros_like(a0))
 
 
-def thincubic(edge_img, vec, slack: float = 0.99):
+def thincubic(edge_img, vec, slack: float = 0.99, x0: int = 0):
     """Slack variant (thincubic_float_float, oclimgutil.cl:473-491)."""
-    am2, am1, a0, ap1, ap2 = _samples(edge_img, vec)
+    am2, am1, a0, ap1, ap2 = _samples(edge_img, vec, x0)
     keep = ((am2 * slack <= a0) & (am1 * slack <= a0) &
             (a0 >= ap1 * slack) & (a0 >= ap2 * slack))
     return torch.where(keep, am2 + am1 + a0 + ap1 + ap2,

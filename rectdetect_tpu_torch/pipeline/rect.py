@@ -218,8 +218,16 @@ def rect_hypotheses(bgr: torch.Tensor,
     maps and the hypotheses that quad reduction reads (the JAX package's
     rect_tail up to _hypotheses)."""
     fe = edge_frontend(bgr, cfg)
-    weak_lbl, strong_lbl = weak_strong_labels(fe.edge_bin, fe.edge_thin, cfg)
-    _, despeck = region_smoothing(fe.packed0, weak_lbl, fe.edge_thin, cfg)
+    return tail_hypotheses(fe.packed0, fe.edge_thin, fe.edge_bin, cfg)
+
+
+def tail_hypotheses(packed0: torch.Tensor, edge_thin: torch.Tensor,
+                    edge_bin: torch.Tensor,
+                    cfg: PipelineConfig = DEFAULT_CONFIG) -> RectHypotheses:
+    """rect_hypotheses from the front-end's products (packed Lab, the
+    thinned edge magnitude and its binary map)."""
+    weak_lbl, strong_lbl = weak_strong_labels(edge_bin, edge_thin, cfg)
+    _, despeck = region_smoothing(packed0, weak_lbl, edge_thin, cfg)
     mask, seg = region_merge(despeck, strong_lbl, cfg)
     boundary, bcomp = boundary_labels(seg, cfg)
     ih, iw = seg.shape
@@ -262,6 +270,39 @@ def rect_geometry(segs: torch.Tensor, valid: torch.Tensor,
     c2 = torch.where(ok[:, None, None], torch.nan_to_num(c2), 0.0)
     c3 = torch.where(ok[:, None, None], torch.nan_to_num(c3), 0.0)
     return RectResult(c2=c2, c3=c3, value=val, status=status, valid=ok)
+
+
+def rect_tail(packed0: torch.Tensor, edge_thin: torch.Tensor,
+              edge_bin: torch.Tensor, tan_aov: float,
+              cfg: PipelineConfig = DEFAULT_CONFIG) -> RectResult:
+    """rect_frame from the front-end's products (the JAX package's
+    rect_tail)."""
+    hyp = tail_hypotheses(packed0, edge_thin, edge_bin, cfg)
+    ih, iw = edge_bin.shape
+    return rect_geometry(hyp.segs, hyp.valid, hyp.status, iw, ih, tan_aov,
+                         cfg)
+
+
+def rect_geometry_tail(strong_bin: torch.Tensor, boundary: torch.Tensor,
+                       tan_aov: float,
+                       cfg: PipelineConfig = DEFAULT_CONFIG) -> RectResult:
+    """Polylines, hypotheses and pose from the whole frame's strong-edge map
+    (int32 0/1) and boundary labels (oclrect.c:361-381 + executeCPUTask;
+    rectdetect_tpu/pipeline/rect.py:rect_geometry_tail), for the width-tiled
+    path (dist/tile.py), which computes both maps on its tiles.  The
+    boundary groups are numbered in flat order of their roots, as the JAX
+    package's dense branch (densify_labels) numbers them: through a
+    compaction of every boundary pixel, which holds the frame, so nothing
+    is dropped (rect_frame's boundary_labels drops the pixels past its
+    capacity; the two agree below it)."""
+    ih, iw = strong_bin.shape
+    arena, lsid, comp = polyline_execute(
+        strong_bin, cfg.minerror_rect, cfg.size_thre_rect,
+        cfg.ls_cap_for(iw, ih), cfg, return_comp=True)
+    bcomp = compact_mask((boundary != -1).reshape(-1), ih * iw)
+    segs, valid, status = hypotheses(arena, lsid, boundary, iw, ih, cfg,
+                                     comp, bcomp)
+    return rect_geometry(segs, valid, status, iw, ih, tan_aov, cfg)
 
 
 def rect_frame(bgr: torch.Tensor, tan_aov: float,

@@ -15,6 +15,10 @@ of the frame has run: the overlap with the caller's drawing and capture is
 what remains after it.
 
 With device="cpu", asked for explicitly, both run in step on the host.
+
+`TiledVideoRectDetector` is the same pair over the width-tiled path
+(dist/tile.py): each frame is uploaded to the first tile's device, cut into
+its tiles there, and rect_step_tiled runs on the `TileGroup`.
 """
 
 from __future__ import annotations
@@ -101,6 +105,36 @@ class VideoRectDetector(_Pipelined):
 
     def _run(self, frame):
         return rect_frame(frame, self._tan, self._cfg)
+
+    def _host(self, result):
+        return live_rects(result)
+
+
+class TiledVideoRectDetector(_Pipelined):
+    """enqueue/poll over the width-tiled rect step: each frame's width is
+    cut over `group`'s tiles (halo-exchanged stencils, the cross-tile CCLs,
+    summed tables; dist/tile.py), the geometry tail runs on the first
+    tile's device; poll gives live_rects' list.  For frames (4K and up)
+    where one device cannot hold the pipeline at rate."""
+
+    def __init__(self, tan_aov: float, group,
+                 cfg: PipelineConfig = DEFAULT_CONFIG):
+        super().__init__(group.devices[0])
+        self._tan = tan_aov
+        self._cfg = cfg
+        self._group = group
+
+    def enqueue(self, bgr: np.ndarray) -> None:
+        w = bgr.shape[1]
+        if w % self._group.n_tiles:
+            raise ValueError(f"width {w} not divisible by "
+                             f"{self._group.n_tiles} tiles")
+        super().enqueue(bgr)
+
+    def _run(self, frame):
+        from rectdetect_tpu_torch.dist.tile import rect_step_tiled
+        return rect_step_tiled(self._group, self._group.split(frame),
+                               self._tan, cfg=self._cfg)
 
     def _host(self, result):
         return live_rects(result)

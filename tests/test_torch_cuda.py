@@ -40,8 +40,13 @@ on the card as on the CPU (rect_frame's corners within 2e-4 px, no
 seg_scan launched); the exact colour path, the front end at color_exact
 and blur radius 5, the blur at radii 0-40, rescue_filtered over a slot
 list, color_reassign and rand_field equal on the card and the CPU (the
-recursive blur within 1e-5); launches are read from the kernel library's
-own counter (`_build.launch_count`).
+recursive blur within 1e-5); the width-tiled path's offset forms (K3
+both variants with and without bridge2, merge_mask, blblur at every fused
+round count, the links CCL; K2 at a frame column within ATOL, edge_thin
+> 0 equal) bit-equal to their plain versions at left, odd interior and
+right offsets, and rect_step_tiled over two tiles on one card bit-equal
+to rect_frame; launches are read from the kernel library's own counter
+(`_build.launch_count`).
 """
 
 import math
@@ -748,8 +753,12 @@ def test_blblur_and_quant_despeckle_kernels_match_plain():
             assert torch.equal(
                 hopper_quant.quantize_despeckle(packed, emag, n, n, n),
                 regions.quantize_despeckle(packed, emag, n, n, n)), n
-    with pytest.raises(NotImplementedError):
-        hopper_blblur.blblur(packed, edge, 10, x0=8)
+    # the offset form (a width tile of a wider frame) launches as well
+    n0 = hopper_blblur.launches
+    assert torch.equal(hopper_blblur.blblur(packed, edge, 10, x0=8,
+                                            w_total=w + 16),
+                       regions.blblur(packed, edge, 10, 8, w + 16))
+    assert hopper_blblur.launches == n0 + 1
 
 
 @pytest.mark.parametrize("h,w", [(1, 64), (64, 1), (37, 53), (720, 1280)])
@@ -1221,3 +1230,89 @@ def test_off_default_plain_ops_on_card_match_cpu():
         regions.color_reassign(fh.packed0, lbl))
     assert torch.equal(rand.rand_field(5000, 7, "cuda").cpu(),
                        rand.rand_field(5000, 7))
+
+
+# ---- the width-tiled path's offset forms (dist/tile.py) -------------------
+
+# (x0, w_total) of a 96 x 128 window: the whole frame, a left tile's halo,
+# odd interior columns, a right tile
+TILE_OFFSETS = ((0, None), (-12, 200), (19, 181), (37, 301), (72, 200))
+
+
+@pytest.mark.parametrize("x0,wt", TILE_OFFSETS)
+def test_offset_forms_match_plain(x0, wt):
+    """K3 (both variants, bridge2 off and on), the merge mask, blblur (its
+    fused round counts), the links CCL and K2 at a frame column, each
+    bit-equal to its plain version at the same offset, with as many
+    kernels a call as the whole frame's form."""
+    _need_card()
+    r = np.random.default_rng(x0 + 100)
+    h, w = 96, 128
+    edge = torch.from_numpy((r.random((h, w)) < 0.3).astype(np.int32))
+    lbl = torch.from_numpy(np.where(
+        r.random((h, w)) < 0.25, r.integers(1, 50, (h, w)),
+        np.where(r.random((h, w)) < 0.5, -1, 0)).astype(np.int32))
+    packed = torch.from_numpy(((r.integers(0, 1024, (h, w)) << 22)
+                               | (r.integers(0, 1024, (h, w)) << 12)
+                               | r.integers(0, 4096, (h, w)))
+                              .astype(np.int32))
+    colours = torch.from_numpy(r.integers(0, 3, (h // 4, w // 4))
+                               .repeat(4, 0).repeat(4, 1).astype(np.int32))
+    mask = torch.from_numpy((r.random((h, w)) < 0.1).astype(np.int32))
+    o = dict(x0=x0, w_total=wt)
+
+    def held(fn, plain, *ts, kernels):
+        n0 = _build.launch_count()
+        got = fn(*(t.cuda() for t in ts))
+        torch.cuda.synchronize()
+        assert _build.launch_count() - n0 == kernels
+        assert torch.equal(got.cpu(), plain(*ts))
+
+    for v in ("rect", "poly_branch"):
+        for b2 in (False, True):
+            held(lambda e: hopper_morph.strings_chain(e, v, b2, **o),
+                 lambda e: hopper_morph.strings_chain_plain(e, v, b2, **o),
+                 edge, kernels=hopper_morph.KERNELS)
+    held(lambda s: hopper_merge_mask.junction_merge_mask(s, **o),
+         lambda s: regions.junction_merge_mask(s, **o), lbl, kernels=1)
+    for iters in (1, 10):
+        held(lambda p, e: hopper_blblur.blblur(p, e, iters, **o),
+             lambda p, e: regions.blblur(p, e, iters, **o), packed,
+             (edge > 0).to(torch.int32),
+             kernels=hopper_blblur.launch_count(iters))
+        for fuse in sorted(hopper_blblur.TILES):
+            assert torch.equal(
+                hopper_blblur.blblur_fused(packed.cuda(), edge.cuda(), iters,
+                                           fuse, **o).cpu(),
+                regions.blblur(packed, edge, iters, **o)), fuse
+    held(lambda p, m, e: hopper_links.label_merge(p, m, e, **o),
+         lambda p, m, e: regions.label_merge(p, m, e, **o), colours, mask,
+         lbl, kernels=3)
+    fe = edge_frontend(_scene())
+    em, vec = hopper_grad.edge_front_plain(fe.labb)
+    got = hopper_thin.thinthres(em.cuda(), vec.cuda(), x0=x0).cpu()
+    want = hopper_thin.thin_plain(em, vec, x0=x0)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    assert torch.equal(got > 0, want > 0)
+
+
+def test_rect_step_tiled_on_one_card_equals_rect_frame():
+    """rect_step_tiled over two tiles on one device: the frame's
+    RectResult bit for bit, every offset form launched, and the kernels
+    its wrappers stated."""
+    from rectdetect_tpu_torch.dist import tile as dtile
+    from rectdetect_tpu_torch.dist.mesh import TileGroup
+    _need_card()
+    bgr = _scene(96, 256).cuda()
+    g = TileGroup(["cuda:0"] * 2)
+    mods = (hopper_morph, hopper_merge_mask, hopper_blblur, hopper_links,
+            hopper_thin)
+    for m in mods:
+        m.offset_launches = 0
+    got = _count_kernels(lambda: dtile.rect_step_tiled(g, g.split(bgr),
+                                                       TAN_AOV))
+    assert all(m.offset_launches == 2 for m in mods)
+    want = rect_frame(bgr, TAN_AOV)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int(want.valid.sum()) > 0

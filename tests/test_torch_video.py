@@ -127,16 +127,35 @@ def test_vidpoly_and_videotest_write_every_frame(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", ["--batch=4", "--streams=2", "--tiles=2",
                                   "--extended"])
 def test_vidrect_flags_not_ported(flag, tmp_path, monkeypatch, capsys):
-    """--batch, --streams and --tiles exit with "not ported yet";
-    --extended is ported and runs EXTENDED_CONFIG over every frame."""
+    """--batch and --streams exit with "not ported yet"; --extended is
+    ported and runs EXTENDED_CONFIG over every frame; --tiles=2 is ported
+    and runs the width-tiled detector over every frame (two tiles on the
+    host with `cpu`)."""
     from rectdetect_tpu_torch.apps import vidrect
     from rectdetect_tpu_torch.pipeline import video
-    if flag != "--extended":
+    if flag in ("--batch=4", "--streams=2"):
         with pytest.raises(SystemExit, match="not ported yet"):
             vidrect.main(["vidrect", "cpu", "in.avi", "out.avi", flag])
         return
     monkeypatch.chdir(tmp_path)
     _write_video("in.avi", 2, 72, 96)
+    if flag == "--tiles=2":
+        groups = []
+        real_tiled = video.TiledVideoRectDetector.__init__
+
+        def spy_tiled(self, tan_aov, group, **kw):
+            groups.append(group)
+            real_tiled(self, tan_aov, group, **kw)
+
+        monkeypatch.setattr(video.TiledVideoRectDetector, "__init__",
+                            spy_tiled)
+        assert vidrect.main(["vidrect", "cpu", "in.avi", "out.avi", "72",
+                             flag]) == 0
+        assert "2 frames" in capsys.readouterr().out
+        assert _count_frames("out.avi") == 2
+        assert [[str(d) for d in g.devices] for g in groups] == \
+            [["cpu", "cpu"]]
+        return
     seen = []
     real = video.VideoRectDetector.__init__
 

@@ -74,6 +74,12 @@ labels, the substitution the other fixtures make.
 `gaps`: the windows around each pixel where the port's edge_bin differs
 from the JAX package's on the photographs (make_gaps), so that a test can
 trace each one to an XLA:CPU ulp gap without JAX.
+
+`tiles`: the width-tiled path (dist/tile.py) on small frames, with the
+JAX package on 4 forced host devices (set before JAX is imported), into
+tests/data/tiles.npz (make_tiles):
+
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py tiles
 """
 
 from __future__ import annotations
@@ -108,10 +114,18 @@ def main(argv=None) -> int:
     makers = {"poly": make_poly, "rect": make_rect, "hyp": make_hyp,
               "frame": make_frame, "calib": make_calib,
               "photos": make_photos, "gaps": make_gaps,
-              "extended": make_extended, "photos_ext": make_photos_ext}
+              "extended": make_extended, "photos_ext": make_photos_ext,
+              "tiles": make_tiles}
     which = argv[1:2] or list(makers)
     if which[0] not in makers:
         sys.exit(f"unknown fixture {which[0]!r}: one of {sorted(makers)}")
+    if "tiles" in which:
+        # the tiled path's shard_map needs TILE_DEVICES devices; XLA reads
+        # the flag when JAX starts
+        flags = os.environ.get("XLA_FLAGS", "")
+        os.environ["XLA_FLAGS"] = (
+            f"{flags} --xla_force_host_platform_device_count="
+            f"{TILE_DEVICES}").strip()
     out = argv[2] if len(argv) > 2 else None
     for name in which:
         makers[name](out or os.path.join(ROOT, "tests", "data",
@@ -128,7 +142,8 @@ FIXTURES = {"poly": "poly_720p_synth.npz",
             "photos": "photo_corpus.npz",
             "gaps": "photo_gaps.npz",
             "extended": "extended.npz",
-            "photos_ext": "photo_corpus_ext.npz"}
+            "photos_ext": "photo_corpus_ext.npz",
+            "tiles": "tiles.npz"}
 
 
 def make_poly(out: str) -> None:
@@ -1287,6 +1302,254 @@ def make_gaps(out: str) -> None:
     data["meta"] = np.asarray(json.dumps(meta))
     np.savez_compressed(out, **data)
     print(f"{out}: {len(rows)} pixels {rows}, {os.path.getsize(out)} bytes")
+
+
+TILE_DEVICES = 4
+# the tiled cases: (name, frame height, width, scene seed, tiles, front-end
+# halo); "multihop" has 16-wide tiles, narrower than blblur's 56-column halo
+TILE_CASES = (("t4", 48, 128, 7, 4, 16), ("t2", 48, 128, 7, 2, 16),
+              ("multihop", 40, 64, 11, 4, 12))
+# the offset forms' cases: (x0, w_total) of a 40 x 70 map; 0/None is the
+# whole frame, -12 a left tile's halo, 19 and 37 odd interior columns, 53
+# a right tile (53 + 70 = w_total)
+OFFSETS = ((0, None), (-12, 90), (19, 101), (37, 141), (53, 123))
+TILE_CFG = dict(max_groups=16)
+TILE_TAN = math.tan(math.radians(72.0) / 2)
+
+
+def _offset_inputs(seed: int = 5):
+    """The offset forms' inputs, (40, 70) each, from a numpy seed."""
+    r = np.random.default_rng(seed)
+    h, w = 40, 70
+    edge = (r.random((h, w)) < 0.3).astype(np.int32)
+    packed = ((r.integers(0, 1024, (h, w)) << 22)
+              | (r.integers(0, 1024, (h, w)) << 12)
+              | r.integers(0, 4096, (h, w))).astype(np.int32)
+    blur_edge = (r.random((h, w)) < 0.2).astype(np.int32)
+    lbl = np.where(r.random((h, w)) < 0.25, r.integers(1, 50, (h, w)),
+                   np.where(r.random((h, w)) < 0.5, -1, 0)).astype(np.int32)
+    colours = r.integers(0, 3, (h // 4, w // 5)).repeat(4, 0).repeat(5, 1)
+    colours = np.where(r.random((h, w)) < 0.05, 3, colours).astype(np.int32)
+    mask = (r.random((h, w)) < 0.1).astype(np.int32)
+    return dict(edge=edge, packed=packed, blur_edge=blur_edge, lbl=lbl,
+                colours=colours, mask=mask)
+
+
+def _snake(h: int, w: int) -> np.ndarray:
+    """A boustrophedon: full rows joined by alternating end columns, one
+    component crossing every seam about h / 2 times
+    (tests/test_tile_tail.py)."""
+    pix = np.zeros((h, w), np.int32)
+    for r_, y in enumerate(range(2, h - 2, 2)):
+        pix[y, 1:w - 1] = 1
+        col = w - 2 if r_ % 2 == 0 else 1
+        if y + 2 < h - 2:
+            pix[y + 1, col] = 1
+    return pix
+
+
+def _result_arrays(prefix, res, data):
+    for f in ("c2", "c3", "value", "status", "valid"):
+        data[f"{prefix}/{f}"] = np.asarray(getattr(res, f))
+
+
+def make_tiles(out: str) -> None:
+    """The JAX package's width-tiled path under shard_map on TILE_DEVICES
+    forced host devices, jitted, into tests/data/tiles.npz:
+      * offset/*: strings_chain (rect, poly_branch; bridge2 0/1), blblur
+        (3 and 10 rounds), junction_merge_mask and label_merge of
+        _offset_inputs at each of OFFSETS;
+      * <case>/*, for each of TILE_CASES: the frame (bench.synth_frame),
+        the single-chip front end (packed0, edge_thin, edge_bin) and the
+        tiled one (edge_frontend_tiled), ccl_tiled of the tiled strings,
+        every tiled tail stage from the single-chip front-end products
+        (tests/test_tile_tail.py's sequence), rect_tail_tiled on them,
+        rect_step_tiled and (t4) poly_step_tiled and
+        rect_step_tiled_gather on the frame;
+      * snake/*: the boustrophedon through ccl_tiled (a binary map) and
+        label_merge_tiled (two colours);
+      * meta: the frames, seeds, tiles, halos, config and, per CCL output,
+        whether the JAX CPU path's fixed-pass labels equal
+        label_components_converged."""
+    import functools
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from bench import synth_frame
+    from rectdetect_tpu.config import PipelineConfig
+    from rectdetect_tpu.dist import mesh as dmesh
+    from rectdetect_tpu.dist import tile as dtile
+    from rectdetect_tpu.ops import ccl, morphology, regions
+    from rectdetect_tpu.pipeline.frontend import edge_frontend
+
+    if len(jax.devices()) < TILE_DEVICES:
+        sys.exit(f"needs {TILE_DEVICES} host devices, JAX has "
+                 f"{len(jax.devices())}: run `tiles` in a process of its "
+                 "own")
+    cfg = PipelineConfig(**TILE_CFG)
+    data, meta = {}, {"config": f"PipelineConfig(**{TILE_CFG})",
+                      "tan_aov": "tan(radians(72) / 2)",
+                      "devices": TILE_DEVICES, "jax": jax.__version__,
+                      "cases": {}, "converged": {}}
+
+    # the offset forms
+    inp = _offset_inputs()
+    data.update({f"offset/in/{k}": v for k, v in inp.items()})
+    for j, (x0, wt) in enumerate(OFFSETS):
+        o = dict(x0=x0, w_total=wt)
+        for v in ("rect", "poly_branch"):
+            for b2 in (0, 1):
+                data[f"offset/{j}/strings/{v}/{b2}"] = np.asarray(jax.jit(
+                    lambda e: morphology.strings_chain(
+                        e, v, bridge2=bool(b2), **o))(inp["edge"]))
+        for iters in (3, 10):
+            data[f"offset/{j}/blblur/{iters}"] = np.asarray(jax.jit(
+                lambda p, e: regions.blblur(p, e, iters, **o))(
+                    inp["packed"], inp["blur_edge"]))
+        data[f"offset/{j}/merge_mask"] = np.asarray(jax.jit(
+            lambda s_: regions.junction_merge_mask(s_, **o))(inp["lbl"]))
+        data[f"offset/{j}/label_merge"] = np.asarray(jax.jit(
+            lambda p, m, e: regions.label_merge(p, m, e, **o))(
+                inp["colours"], inp["mask"], inp["lbl"]))
+    meta["offsets"] = [list(o) for o in OFFSETS]
+
+    tail_keys = ("strings", "glabel", "weak", "blurred", "despeck", "strong",
+                 "mask", "seg", "bmark", "boundary")
+
+    def conv_flag(name, lbl, pix, bgc):
+        want = jax.jit(lambda p: ccl.label_components_converged(p, bgc))(pix)
+        meta["converged"][name] = bool(
+            (np.asarray(lbl) == np.asarray(want)).all())
+
+    for name, h, w, seed, nt, halo in TILE_CASES:
+        m = dmesh.make_mesh(1, nt)
+        bgr = synth_frame(h, w, seed=seed)
+        data[f"{name}/bgr"] = bgr
+        fe = jax.jit(lambda b: edge_frontend(b, cfg))(jnp.asarray(bgr))
+        for k in ("packed0", "edge_thin", "edge_bin"):
+            data[f"{name}/{k}"] = np.asarray(getattr(fe, k))
+
+        @functools.partial(shard_map, mesh=m,
+                           in_specs=P(None, "tile", None),
+                           out_specs=(P(None, "tile"), P(None, "tile")),
+                           check_vma=False)
+        def front(t):
+            return dtile.edge_frontend_tiled(t, halo, cfg)
+
+        et_t, eb_t = jax.jit(front)(jnp.asarray(bgr))
+        data[f"{name}/tiled_edge_thin"] = np.asarray(et_t)
+        data[f"{name}/tiled_edge_bin"] = np.asarray(eb_t)
+
+        @functools.partial(
+            shard_map, mesh=m, in_specs=(P(None, "tile"),) * 3,
+            out_specs={k: P(None, "tile") for k in tail_keys},
+            check_vma=False)
+        def tail(pk, et, eb):
+            s_ = dtile.strings_chain_tiled(eb, "rect",
+                                           bridge2=cfg.bridge_gap2)
+            glabel = dtile.ccl_tiled(s_, 0, cfg=cfg)
+            st = dtile.calc_strength_tiled(et, glabel, cfg.strength_scale)
+            weak = dtile.filter_strength_tiled(glabel, st, cfg.strength_weak)
+            blurred = dtile.blblur_tiled(pk, (weak > 0).astype(jnp.int32),
+                                         cfg.blblur_iters)
+            despeck = dtile.quantize_despeckle_tiled(blurred, et, cfg)
+            strong = dtile.filter_strength_tiled(weak, st,
+                                                 cfg.strength_strong)
+            mask = dtile.junction_merge_mask_tiled(strong)
+            seg = dtile.label_merge_tiled(despeck, mask, strong, cfg)
+            sizes = dtile.label_sizes_tiled(seg)
+            seg2 = dtile.despeckle2_tiled(seg, sizes, cfg.despeckle2_thre)
+            bmark = dtile.mark_boundary_tiled(seg2)
+            boundary = dtile.ccl_tiled(bmark, -1, cfg=cfg)
+            return dict(strings=s_, glabel=glabel, weak=weak,
+                        blurred=blurred, despeck=despeck, strong=strong,
+                        mask=mask, seg=seg2, bmark=bmark, boundary=boundary)
+
+        maps = jax.jit(tail)(fe.packed0, fe.edge_thin, fe.edge_bin)
+        for k in tail_keys:
+            data[f"{name}/tail/{k}"] = np.asarray(maps[k])
+        conv_flag(f"{name}/glabel", maps["glabel"], maps["strings"], 0)
+        conv_flag(f"{name}/boundary", maps["boundary"], maps["bmark"], -1)
+
+        @functools.partial(shard_map, mesh=m,
+                           in_specs=(P(None, "tile"),) * 3, out_specs=P(),
+                           check_vma=False)
+        def rtail(pk, et, eb):
+            return dtile.rect_tail_tiled(pk, et, eb, TILE_TAN, cfg)
+
+        _result_arrays(f"{name}/rect_tail", jax.jit(rtail)(
+            fe.packed0, fe.edge_thin, fe.edge_bin), data)
+
+        @functools.partial(shard_map, mesh=m,
+                           in_specs=P(None, "tile", None), out_specs=P(),
+                           check_vma=False)
+        def rstep(t):
+            return dtile.rect_step_tiled(t, TILE_TAN, halo, cfg)
+
+        _result_arrays(f"{name}/rect_step", jax.jit(rstep)(
+            jnp.asarray(bgr)), data)
+        if name == "t4":
+            @functools.partial(shard_map, mesh=m,
+                               in_specs=P(None, "tile", None),
+                               out_specs=P(), check_vma=False)
+            def gstep(t):
+                return dtile.rect_step_tiled_gather(t, TILE_TAN, halo, cfg)
+
+            _result_arrays(f"{name}/rect_gather", jax.jit(gstep)(
+                jnp.asarray(bgr)), data)
+
+            @functools.partial(shard_map, mesh=m,
+                               in_specs=P(None, "tile", None),
+                               out_specs=P(), check_vma=False)
+            def pstep(t):
+                return dtile.poly_step_tiled(t, cfg, halo=halo)
+
+            arena, lsid = jax.jit(pstep)(jnp.asarray(bgr))
+            a = {k: np.asarray(v) for k, v in arena._asdict().items()}
+            for k, v in a.items():
+                data[f"{name}/poly/{k}"] = v
+            data[f"{name}/poly/lsid"] = np.asarray(lsid)
+        meta["cases"][name] = {
+            "frame": f"bench.synth_frame({h}, {w}, seed={seed})",
+            "tiles": nt, "front_halo": halo, "strings_halo": 12,
+            "blblur_halo": 5 * cfg.blblur_iters + 6, "merge_mask_halo": 12,
+            "tiled_front_end_differs_from_single_chip": {
+                "edge_thin": int((np.asarray(et_t)
+                                  != np.asarray(fe.edge_thin)).sum()),
+                "edge_bin": int((np.asarray(eb_t)
+                                 != np.asarray(fe.edge_bin)).sum())}}
+
+    # the boustrophedon through ccl_tiled and label_merge_tiled
+    h, w = 40, 64
+    m = dmesh.make_mesh(1, TILE_DEVICES)
+    pix = _snake(h, w)
+    packed = np.where(pix > 0, 9, 7).astype(np.int32)
+    zeros = np.zeros((h, w), np.int32)
+    data["snake/pix"] = pix
+
+    @functools.partial(shard_map, mesh=m, in_specs=(P(None, "tile"),) * 3,
+                       out_specs=(P(None, "tile"), P(None, "tile")),
+                       check_vma=False)
+    def snake(p, pk, z):
+        return (dtile.ccl_tiled(p, 0, cfg=cfg),
+                dtile.label_merge_tiled(pk, z, z, cfg))
+
+    lbl, seg = jax.jit(snake)(pix, packed, zeros)
+    data["snake/ccl"] = np.asarray(lbl)
+    data["snake/label_merge"] = np.asarray(seg)
+    conv_flag("snake/ccl", lbl, pix, 0)
+    meta["snake"] = {"frame": f"{h}x{w} boustrophedon (_snake)",
+                     "tiles": TILE_DEVICES,
+                     "label_merge_colours": "9 on the snake, 7 elsewhere; "
+                                            "no mask, no edges"}
+    data["meta"] = np.asarray(json.dumps(meta))
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez_compressed(out, **data)
+    print(f"{out}: {os.path.getsize(out)} bytes; {json.dumps(meta)}")
 
 
 if __name__ == "__main__":
