@@ -111,7 +111,23 @@ the final line):
      overflow flags: a difference below them fails), and the tiled and
      single frame medians in turns; poly_step_tiled at 720p over 4 tiles
      equal to poly_frame; TiledVideoRectDetector over 6 720p frames, each
-     poll equal to direct rect_step_tiled and rect_frame calls.
+     poll equal to direct rect_step_tiled and rect_frame calls;
+  9. the stream axis, every mesh entry on the one card: the batch forms of
+     K1 and K2 (one launch for b frames, grid z = frame) at b = 4 on the
+     720p frames of seeds 0-3, bit-equal to four b = 1 calls and within
+     2e-4 of the plain versions, device ms in turns with the four single
+     calls (their own records on the kernels line); rect_frames and
+     poly_frames at B = 4 driven with the launch counts (122 = 32 B -
+     2 (B - 1) and 22 = 7 B - 2 (B - 1) kernels), every frame bit-equal to
+     its per-frame call, frames/s in turns with per-frame calls;
+     rect_frames_sharded and poly_frames_sharded over a 4 x 1 mesh on 8
+     frames, bit-equal to per-frame calls; the StreamSupervisor: 8
+     streams over 4 entries with entry 2 failing after its first frame
+     (quarantined, its streams re-placed, every collected frame equal to
+     rect_frame) and the default worker loop's frames/s over 2 streams
+     beside direct calls; `python -m rectdetect_tpu_torch.dist.multihost_sim
+     2 1 720x1280 cuda` (two ranks on the card over gloo, both parity
+     lines, its own time limit); dryrun_multichip over 2 x 2 entries.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -121,6 +137,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -166,6 +183,10 @@ EXT_TURN_FRAMES = 10
 # turn of its frame times
 TILED_BIG = (2160, 3840)
 TILED_TURN_FRAMES = 5
+# phase 9's batch (frames per rect_frames call; the sharded runs take
+# twice as many) and the multi-process simulation's time limit in seconds
+STREAM_BATCH = 4
+SIM_TIMEOUT = 300
 
 
 def fail(msg: str):
@@ -270,7 +291,19 @@ def build_kernels(build_mod, src, out_dir, names):
                           *objs], capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         fail(f"the kernels of {src} do not link: {res.stderr}")
-    return ctypes.CDLL(out)
+    lib = ctypes.CDLL(out)
+    lib.frame_counts = {name: takes_frame_count(src, name) for name in names}
+    return lib
+
+
+def takes_frame_count(src, name) -> bool:
+    """Whether csrc file `name` of the directory `src` has the batch form's
+    entry point (a frame count after h, w: edge_front and thin since the
+    stream-axis slice, not before)."""
+    with open(os.path.join(src, f"{name}.cu")) as f:
+        text = f.read()
+    return re.search(r'extern "C" int rd_\w+\([^)]*int h,\s*int w, int b,',
+                     text) is not None
 
 
 def stream_of(torch):
@@ -346,17 +379,20 @@ def rsqrt_mismatches(torch, build_mod):
 
 
 def bind_thin(torch, lib):
-    """thin_fn(em, vec, mode) through lib's rd_thin."""
+    """thin_fn(em, vec, mode) through lib's rd_thin (one frame)."""
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rd_thin.argtypes = [P, P, P, I, I, I, F, I, P]
+    frames = getattr(lib, "frame_counts", {}).get("thin", True)
+    lib.rd_thin.argtypes = [P, P, P, I, I, *([I] if frames else []), I, F,
+                            I, P]
     lib.rd_thin.restype = ctypes.c_int
 
     def thin_fn(em, vec, mode):
         h, w = em.shape
         out = torch.empty_like(em)
         err = lib.rd_thin(em.data_ptr(), vec.data_ptr(), out.data_ptr(), h,
-                          w, int(mode == "cubic"), 0.99, 0, stream_of(torch))
+                          w, *([1] if frames else []), int(mode == "cubic"),
+                          0.99, 0, stream_of(torch))
         if err:
             fail(f"rd_thin of {lib._name} did not launch (error {err})")
         return out
@@ -450,10 +486,12 @@ def bind_distinct_bids(torch, lib):
 
 
 def bind_edge_front(torch, lib):
-    """edge_front_fn(labb) -> (em, vec) through lib's rd_edge_front."""
+    """edge_front_fn(labb) -> (em, vec) through lib's rd_edge_front (one
+    frame)."""
     import ctypes
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rd_edge_front.argtypes = [P, P, P, I, I, P]
+    frames = getattr(lib, "frame_counts", {}).get("edge_front", True)
+    lib.rd_edge_front.argtypes = [P, P, P, I, I, *([I] if frames else []), P]
     lib.rd_edge_front.restype = ctypes.c_int
 
     def edge_front_fn(labb):
@@ -461,7 +499,8 @@ def bind_edge_front(torch, lib):
         em = torch.empty((h, w), dtype=torch.float32, device=labb.device)
         vec = torch.empty((h, w, 2), dtype=torch.float32, device=labb.device)
         err = lib.rd_edge_front(labb.data_ptr(), em.data_ptr(),
-                                vec.data_ptr(), h, w, stream_of(torch))
+                                vec.data_ptr(), h, w,
+                                *([1] if frames else []), stream_of(torch))
         if err:
             fail(f"rd_edge_front of {lib._name} did not launch (error {err})")
         return em, vec
@@ -1353,6 +1392,254 @@ def tiled(torch, dev, card, bgr, drive, counters, record, records):
           f"calls: {ok} ({sum(len(p) for p in polls)} rectangles)")
     if not ok:
         fail("TiledVideoRectDetector: a poll differs from the direct call")
+    return out
+
+
+def same_rect_lists(a, b) -> bool:
+    """Two live_rects lists equal, corners bit for bit."""
+    return len(a) == len(b) and all(
+        x["status"] == y["status"] and x["value"] == y["value"]
+        and np.array_equal(x["c2"], y["c2"]) and np.array_equal(x["c3"],
+                                                                y["c3"])
+        for x, y in zip(a, b))
+
+
+def streams(torch, dev, card, drive, counters, record, records):
+    """Phase 9, the stream axis, every mesh entry on the one card: the
+    batch forms of K1 and K2 at b = STREAM_BATCH on 720p frames (seeds
+    0-3), bit-equal to b = 1 calls and within FLOAT_ATOL of the plain
+    versions, device ms in turns with four single calls (their own records
+    on the kernels line); rect_frames and poly_frames at B = STREAM_BATCH
+    driven with the launch counts (32 B - 2 (B - 1) and 7 B - 2 (B - 1)),
+    bit-equal to per-frame calls, frames/s in turns with per-frame calls;
+    rect_frames_sharded and poly_frames_sharded over a 4 x 1 mesh on 8
+    frames, bit-equal to per-frame calls; the StreamSupervisor: 8 streams
+    over 4 entries, entry 2 failing after its first frame, quarantined
+    and its streams re-placed, every collected frame equal to rect_frame,
+    and the default worker loop's frames/s over 2 streams beside direct
+    calls; multihost_sim with two ranks on the card over gloo; the dry run
+    over a 2 x 2 mesh."""
+    from bench import synth_frame
+    from rectdetect_tpu_torch.apps.common import TAN_AOV
+    from rectdetect_tpu_torch.config import DEFAULT_CONFIG
+    from rectdetect_tpu_torch.dist.dryrun import dryrun_multichip
+    from rectdetect_tpu_torch.dist.mesh import make_mesh
+    from rectdetect_tpu_torch.dist.stream import (StreamSupervisor,
+                                                  poly_frames_sharded,
+                                                  rect_frames_sharded)
+    from rectdetect_tpu_torch.ops import _build, hopper_grad, hopper_thin
+    from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
+    from rectdetect_tpu_torch.pipeline.poly import poly_frame, poly_frames
+    from rectdetect_tpu_torch.pipeline.rect import (live_rects, rect_frame,
+                                                    rect_frames)
+
+    cfg = DEFAULT_CONFIG
+    b = STREAM_BATCH
+    out = {"card": card}
+    host = [synth_frame(H, W, seed=s) for s in range(2 * b)]
+    frames = torch.from_numpy(np.stack(host)).to(dev)
+    batch = frames[:b]
+
+    # the batch forms of K1 and K2
+    labb = edge_frontend(batch, cfg).labb.contiguous()
+    em, vec = hopper_grad.edge_front(labb)
+    em_p, vec_p = hopper_grad.edge_front_plain(labb)
+    thin = hopper_thin.thinthres(em, vec)
+    thin_p = hopper_thin.thin_plain(em, vec)
+    singles = [hopper_grad.edge_front(labb[i]) for i in range(b)]
+    thin_1 = [hopper_thin.thinthres(em[i], vec[i]) for i in range(b)]
+    torch.cuda.synchronize()
+    ef_equal = all(torch.equal(em[i], e) and torch.equal(vec[i], v)
+                   for i, (e, v) in enumerate(singles))
+    th_equal = all(torch.equal(thin[i], t) for i, t in enumerate(thin_1))
+    ef_err = max((em - em_p).abs().max().item(),
+                 (vec - vec_p).abs().max().item())
+    th_err = (thin - thin_p).abs().max().item()
+    out["batch_forms"] = {"edge_front_equal_to_single_calls": ef_equal,
+                          "thinthres_equal_to_single_calls": th_equal,
+                          "edge_front_max_abs_err": ef_err,
+                          "thinthres_max_abs_err": th_err}
+    if not (ef_equal and th_equal):
+        fail("a batch form of K1 or K2 differs from its single-frame calls")
+    if not (ef_err <= FLOAT_ATOL and th_err <= FLOAT_ATOL):
+        fail(f"a batch form differs from its plain version: {ef_err}, "
+             f"{th_err} > {FLOAT_ATOL}")
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    record(f"edge_front[b={b}]", "edge_front.cu",
+           "rectdetect_tpu/ops/pallas_grad.py:48", ef_err,
+           lambda: hopper_grad.edge_front(labb),
+           cuda_ms(torch, lambda: hopper_grad.edge_front_plain(labb), 3),
+           nb(labb, em, vec), 25 * H * W * b, label="phase 9")
+    record(f"thinthres[b={b}]", "thin.cu",
+           "rectdetect_tpu/ops/pallas_thin.py:43", th_err,
+           lambda: hopper_thin.thinthres(em, vec),
+           cuda_ms(torch, lambda: hopper_thin.thin_plain(em, vec), 3),
+           nb(em, vec, thin), 2 * em.numel(), label="phase 9")
+    turns = {}
+    for name, one_call, four_calls in (
+            ("edge_front", lambda: hopper_grad.edge_front(labb),
+             lambda: [hopper_grad.edge_front(labb[i]) for i in range(b)]),
+            ("thinthres", lambda: hopper_thin.thinthres(em, vec),
+             lambda: [hopper_thin.thinthres(em[i], vec[i])
+                      for i in range(b)])):
+        t = {"order": f"b={b}, {b} x b=1, {b} x b=1, b={b}", f"b={b}": [],
+             f"{b} x b=1": []}
+        for key, fn in ((f"b={b}", one_call), (f"{b} x b=1", four_calls),
+                        (f"{b} x b=1", four_calls), (f"b={b}", one_call)):
+            t[key].append(device_ms(torch, _build, fn, turns=1)[0][0])
+        turns[name] = t
+    out["batch_forms"]["device_ms_in_turns"] = turns
+    phase(f"phase 9 batch forms at b={b}, 720p: {json.dumps(out['batch_forms'])}"
+          f"; card {card}")
+
+    # rect_frames and poly_frames at B = b
+    want = [rect_frame(frames[i], TAN_AOV, cfg) for i in range(2 * b)]
+    want_p = [poly_frame(frames[i], cfg) for i in range(2 * b)]
+    res = drive(f"rect_frames (phase 9, 720p, B={b})", list(counters),
+                lambda: rect_frames(batch, TAN_AOV, cfg),
+                RECT_FRAME_KERNELS * b - 2 * (b - 1))
+    for rec in records:
+        if rec["name"] in (f"edge_front[b={b}]", f"thinthres[b={b}]"):
+            rec["launches"] = counters[rec["name"].split("[")[0]].launches
+    arena, lsid = drive(f"poly_frames (phase 9, 720p, B={b})",
+                        ["edge_front", "thinthres", "strings_chain",
+                         "label_components", "mkpl"],
+                        lambda: poly_frames(batch, cfg),
+                        POLY_FRAME_KERNELS * b - 2 * (b - 1))
+    rect_eq = all(same_result(torch, type(res)(*(f[i] for f in res)), w)
+                  for i, w in enumerate(want[:b]))
+    poly_eq = all(torch.equal(lsid[i], l) and all(
+        torch.equal(getattr(arena, f)[i], getattr(a, f))
+        for f in a._fields) for i, (a, l) in enumerate(want_p[:b]))
+    times = turns_of(torch, {
+        f"rect_frames(B={b})": lambda: rect_frames(batch, TAN_AOV, cfg),
+        f"{b} x rect_frame": lambda: [rect_frame(batch[i], TAN_AOV, cfg)
+                                      for i in range(b)]}, 5)
+    rates = {k: b * 1000.0 / statistics.median(v) for k, v in times.items()}
+    out["frames"] = {"rect_frames_equal": rect_eq, "poly_frames_equal":
+                     poly_eq, "valid": [int(w.valid.sum()) for w in want[:b]],
+                     "ms": times, "frames_per_s": rates}
+    phase(f"phase 9 rect_frames and poly_frames at B={b}, 720p: "
+          f"{json.dumps(out['frames'])}; card {card}")
+    if not (rect_eq and poly_eq):
+        fail("rect_frames or poly_frames differs from the per-frame calls")
+
+    # the sharded frames over a 4 x 1 mesh of the card
+    mesh = make_mesh(4, 1, [dev] * 4)
+    res_s = rect_frames_sharded(frames, TAN_AOV, mesh, cfg)
+    arena_s, lsid_s = poly_frames_sharded(frames, mesh, cfg)
+    torch.cuda.synchronize()
+    sh_rect = all(same_result(torch, type(res_s)(*(f[i] for f in res_s)), w)
+                  for i, w in enumerate(want))
+    sh_poly = all(torch.equal(lsid_s[i], l) and all(
+        torch.equal(getattr(arena_s, f)[i], getattr(a, f))
+        for f in a._fields) for i, (a, l) in enumerate(want_p))
+    times = turns_of(torch, {
+        "rect_frames_sharded (4 x 1, 8 frames)": lambda: rect_frames_sharded(
+            frames, TAN_AOV, mesh, cfg),
+        "8 x rect_frame": lambda: [rect_frame(frames[i], TAN_AOV, cfg)
+                                   for i in range(2 * b)]}, 3)
+    out["sharded"] = {
+        "rect_equal": sh_rect, "poly_equal": sh_poly, "ms": times,
+        "frames_per_s": {k: 2 * b * 1000.0 / statistics.median(v)
+                         for k, v in times.items()}}
+    phase(f"phase 9 rect_frames_sharded and poly_frames_sharded over a 4 x 1 "
+          f"mesh, 8 720p frames: {json.dumps(out['sharded'])}; card {card}")
+    if not (sh_rect and sh_poly):
+        fail("a sharded result differs from the per-frame calls")
+
+    # the supervisor: entry 2 of 4 fails after its first frame
+    rects = [live_rects(w) for w in want]
+    default_run = StreamSupervisor(TAN_AOV, cfg, devices=[dev])._run
+    cur, used = {}, [0]
+
+    def flaky_run(bgr, device):
+        if sup._assign[cur["sid"]] == 2:
+            used[0] += 1
+            if used[0] > 1:
+                raise RuntimeError("injected card fault on entry 2")
+        return default_run(bgr, device)
+
+    sup = StreamSupervisor(TAN_AOV, cfg, devices=[dev] * 4,
+                           run_fn=flaky_run)
+    n_streams, placed, collected, dropped, wrong = 8, [], 0, 0, 0
+    for rnd in range(2):
+        for sid in range(n_streams):
+            cur["sid"] = sid
+            sup.submit(sid, host[sid])
+        placed.append(dict(sup._assign))
+        for sid in range(n_streams):
+            got = sup.collect(sid)
+            if got is None:
+                dropped += 1
+            else:
+                collected += 1
+                wrong += not same_rect_lists(got, rects[sid])
+    sup_row = {"failures": sup.failures, "healthy_entries": len(
+        sup.healthy_devices), "placement_by_round": placed,
+        "collected": collected, "dropped": dropped, "differ": wrong}
+    ok = ([f[0] for f in sup.failures] == [2] and wrong == 0
+          and 2 not in sup._assign.values() and collected > 0)
+    # the default loop's frames/s over 2 streams, beside direct calls
+    sup2 = StreamSupervisor(TAN_AOV, cfg, devices=[dev])
+    rounds = 10
+    rate = {"supervisor loop (2 streams)": [], "direct calls": []}
+    loop_ok = True
+    for turn in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if turn in (1, 2):
+            for r in range(rounds):
+                for sid in range(2):
+                    sup2.submit(sid, host[(r + sid) % len(host)])
+                for sid in range(2):
+                    got = sup2.collect(sid)
+                    loop_ok &= got is not None and same_rect_lists(
+                        got, rects[(r + sid) % len(host)])
+            key = "supervisor loop (2 streams)"
+        else:
+            for r in range(rounds):
+                for sid in range(2):
+                    live_rects(rect_frame(torch.from_numpy(
+                        host[(r + sid) % len(host)]).to(dev), TAN_AOV, cfg))
+            key = "direct calls"
+        rate[key].append(2 * rounds / (time.perf_counter() - t0))
+    sup_row.update(loop_equal=loop_ok, frames_per_s_in_turns=rate)
+    out["supervisor"] = sup_row
+    phase(f"phase 9 StreamSupervisor, 8 streams over 4 entries of the card: "
+          f"{json.dumps(sup_row, default=str)}; card {card}")
+    if not (ok and loop_ok):
+        fail("the StreamSupervisor did not quarantine entry 2 cleanly or "
+             "served a frame that differs from rect_frame")
+
+    # two ranks on the card over gloo
+    t0 = time.perf_counter()
+    try:
+        sim = subprocess.run(
+            [sys.executable, "-m", "rectdetect_tpu_torch.dist.multihost_sim",
+             "2", "1", f"{H}x{W}", "cuda"], cwd=ROOT, capture_output=True,
+            text=True, timeout=SIM_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"multihost_sim did not end within {SIM_TIMEOUT} s")
+    lines = [ln for ln in sim.stdout.splitlines() if ln.startswith("[rank")]
+    for ln in lines:
+        phase(f"phase 9 multihost_sim {ln}; card {card}")
+    parity = [ln for ln in lines if "parity vs rect_frame: OK" in ln
+              and "(own OK)" in ln]
+    tiled_ok = [ln for ln in lines if "equal to rect_frame: True" in ln]
+    phase(f"phase 9 multihost_sim 2 ranks x 1 device, 720p, over gloo: exit "
+          f"{sim.returncode} in {time.perf_counter() - t0:.1f} s")
+    if sim.returncode != 0 or len(parity) != 2 or len(tiled_ok) != 2:
+        fail(f"multihost_sim failed (exit {sim.returncode}):\n"
+             f"{sim.stdout[-3000:]}\n{sim.stderr[-3000:]}")
+
+    # the dry run over a 2 x 2 mesh of the card
+    out["dryrun"] = dryrun_multichip([dev] * 4)
+    phase(f"phase 9 dryrun_multichip: {json.dumps(out['dryrun'])}; "
+          f"card {card}")
     return out
 
 
@@ -2320,6 +2607,9 @@ def main() -> int:
 
     # ---- 8. the width-tiled path ---------------------------------------
     tiled(torch, dev, card, bgr, drive, counters, record, records)
+
+    # ---- 9. the stream axis ---------------------------------------------
+    streams(torch, dev, card, drive, counters, record, records)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,9 +14,16 @@ Usage: python -m rectdetect_tpu_torch.apps.vidrect [device] [input] [output] [AO
   devices device..device+N-1 (halo-exchanged stencils, cross-tile CCLs;
   dist/tile.py), or N tiles on the host with `cpu`; for resolutions (4K)
   where one device cannot hold the frame pipeline at rate.
+  --batch=N: throughput mode: groups of N frames through rect_frames (the
+  front end once per group).  The last group runs at its own size: the JAX
+  CLI pads it to reuse a compiled batch shape, and the port has none.
+  --streams=N: N copies of the input served as N streams by a
+  StreamSupervisor (dist/stream.py) over every visible CUDA device, or on
+  the host with `cpu`; prints the aggregate frames/s and writes stream 0.
 It applies the plan file's capacities (plan_torch.txt in the working
-directory, runtime/calibrate.py) and warns when the first frame does not
-fit them.  Not ported yet: --batch and --streams.
+directory, runtime/calibrate.py) and warns when the first frame of the
+single-stream loop does not fit them.  --tiles cannot be combined with
+--batch or --streams, nor --trace with either.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import sys
 
 from rectdetect_tpu_torch.apps import common
 
-NOT_PORTED = ("--batch=", "--streams=")
+FLAGS = ("--tiles=", "--batch=", "--streams=")
 
 
 def _count(argv, flag: str) -> int:
@@ -42,12 +49,10 @@ def _count(argv, flag: str) -> int:
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
     tiles = _count(argv, "--tiles=")
-    if tiles > 1 and (_count(argv, "--streams=") > 1
-                      or _count(argv, "--batch=") > 1):
+    streams = _count(argv, "--streams=")
+    batch = _count(argv, "--batch=")
+    if tiles > 1 and (streams > 1 or batch > 1):
         sys.exit("--tiles cannot be combined with --streams/--batch")
-    for a in argv[1:]:
-        if a.startswith(NOT_PORTED):
-            sys.exit(f"{a.split('=')[0]} is not ported yet")
     trace_dir = None
     extended = False
     kept = []
@@ -56,9 +61,11 @@ def main(argv=None) -> int:
             trace_dir = a.split("=", 1)[1] or None
         elif a == "--extended":
             extended = True
-        elif not a.startswith("--tiles="):
+        elif not a.startswith(FLAGS):
             kept.append(a)
     argv = kept
+    if trace_dir and (streams > 1 or batch > 1):
+        sys.exit("--trace only supports the single-stream loop")
     if len(argv) < 2:
         sys.stderr.write(
             f"Usage : {argv[0]} [device number | cpu] [input video file] "
@@ -105,6 +112,14 @@ def main(argv=None) -> int:
     cfg = load_calibrated_config(
         ih, iw, dev, EXTENDED_CONFIG if extended else DEFAULT_CONFIG,
         verbose=True)
+    meter = FpsMeter()
+    if streams > 1:
+        pump.close()
+        return _run_streams(argv[2] if len(argv) >= 3 else None, writer,
+                            winname, dev, tan_aov, cfg, streams, meter)
+    if batch > 1:
+        return _run_batched(pump, writer, winname, dev, tan_aov, cfg, batch,
+                            meter)
     if group is not None:
         from rectdetect_tpu_torch.pipeline.video import TiledVideoRectDetector
         det = TiledVideoRectDetector(tan_aov, group, cfg=cfg)
@@ -112,7 +127,6 @@ def main(argv=None) -> int:
               f"({', '.join(str(d) for d in group.devices)})")
     else:
         det = VideoRectDetector(tan_aov, cfg=cfg, device=dev)
-    meter = FpsMeter()
 
     frame = pump.next(timeout_ms=5000)
     if frame is None:
@@ -162,10 +176,110 @@ def tile_group(dev, tiles: int):
     return TileGroup([torch.device("cuda", did + i) for i in range(tiles)])
 
 
+def _show(writer, winname, frame, meter) -> bool:
+    """Write or show one annotated frame; False when the window asks to
+    stop."""
+    import cv2
+    if writer is not None:
+        writer.write(frame)
+        fps = meter.tick()
+        if fps is not None:
+            print(f"{fps:.3g} fps")
+        return True
+    cv2.imshow(winname, frame)
+    return (cv2.waitKey(1) & 0xFF) not in (27, 13)
+
+
+def _close(writer) -> None:
+    import cv2
+    if writer is not None:
+        writer.release()
+    else:
+        cv2.destroyAllWindows()
+
+
+def _run_batched(pump, writer, winname, dev, tan_aov, cfg, batch,
+                 meter) -> int:
+    """Throughput mode: `batch` frames at a time through rect_frames."""
+    import numpy as np
+    import torch
+
+    from rectdetect_tpu_torch.pipeline.rect import rect_frames
+
+    shown, going = 0, True
+    while going:
+        group = []
+        while len(group) < batch:
+            f = pump.next(timeout_ms=5000)
+            if f is None:
+                going = False
+                break
+            group.append(f)
+        if not group:
+            break
+        res = rect_frames(torch.from_numpy(np.stack(group)).to(dev),
+                          tan_aov, cfg)
+        c2, stat, ok = (t.cpu().numpy() for t in (res.c2, res.status,
+                                                  res.valid))
+        for bi, frame in enumerate(group):
+            rects = [{"c2": c2[bi, i], "status": int(stat[bi, i])}
+                     for i in range(c2.shape[1]) if ok[bi, i]]
+            common.draw_rects(frame, rects, common.RECT_STYLE_VIDEO)
+            shown += 1
+            if not _show(writer, winname, frame, meter):
+                going = False
+                break
+    pump.close()
+    _close(writer)
+    print(f"{shown} frames")
+    return 0
+
+
+def _run_streams(path, writer, winname, dev, tan_aov, cfg, n_streams,
+                 meter) -> int:
+    """Multi-stream serving: N copies of the input served across the
+    devices by the fault-tolerant StreamSupervisor; stream 0's frames are
+    annotated and written or shown, the aggregate frames/s printed."""
+    import torch
+
+    from rectdetect_tpu_torch.dist.mesh import visible_devices
+    from rectdetect_tpu_torch.dist.stream import StreamSupervisor
+    from rectdetect_tpu_torch.runtime.native import FramePump
+
+    devices = [torch.device("cpu")] if dev.type == "cpu" \
+        else visible_devices()
+    pumps = [FramePump(path) for _ in range(n_streams)]
+    sup = StreamSupervisor(tan_aov, cfg=cfg, devices=devices)
+    print(f"{n_streams} streams over {len(sup.healthy_devices)} devices")
+    done, going = 0, True
+    while going:
+        frames = [p.next(timeout_ms=5000) for p in pumps]
+        if any(f is None for f in frames):
+            break
+        for sid, f in enumerate(frames):
+            sup.submit(sid, f)
+        for sid in range(n_streams):
+            rects = sup.collect(sid)
+            done += 1
+            if sid == 0 and rects is not None:
+                common.draw_rects(frames[0], rects, common.RECT_STYLE_VIDEO)
+                if writer is not None:
+                    writer.write(frames[0])
+                elif not _show(None, winname, frames[0], meter):
+                    going = False
+            fps = meter.tick()
+            if fps is not None:
+                print(f"{fps:.3g} frames/s aggregate")
+    for p in pumps:
+        p.close()
+    _close(writer)
+    print(f"{done} frames served")
+    return 0
+
+
 def _steady_loop(pump, det, writer, winname, first, meter) -> int:
     """Enqueue frame n, then draw and show frame n-1's rectangles; at the
     end of the stream drain the last frame.  Returns the frames shown."""
-    import cv2
     shown, prev = 0, first
     while prev is not None:
         frame = pump.next(timeout_ms=5000)
@@ -174,22 +288,11 @@ def _steady_loop(pump, det, writer, winname, first, meter) -> int:
         rects = det.poll()                 # frame n-1's results
         common.draw_rects(prev, rects, common.RECT_STYLE_VIDEO)
         shown += 1
-        if writer is not None:
-            writer.write(prev)
-            fps = meter.tick()
-            if fps is not None:
-                print(f"{fps:.3g} fps")
-        else:
-            cv2.imshow(winname, prev)
-            if (cv2.waitKey(1) & 0xFF) in (27, 13):
-                break
+        if not _show(writer, winname, prev, meter):
+            break
         prev = frame
-
-    if writer is not None:
-        writer.release()
     pump.close()
-    if writer is None:
-        cv2.destroyAllWindows()
+    _close(writer)
     return shown
 
 

@@ -250,7 +250,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// blocks of despeckle2_kernel the card holds at once, per device
+// blocks of despeckle2_kernel the card holds at once, per device.
+// Threads of one process (the per-device workers of dist/stream.py) may
+// fill the cache at once: each writes the same value for its device, the
+// occupancy of this kernel there, so any read sees 0 (and queries) or it
 int resident_blocks() {
   static int cached[64] = {0};
   int dev = 0;

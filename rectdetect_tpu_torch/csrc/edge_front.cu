@@ -20,6 +20,10 @@
 // uses --fmad=false so that nvcc fuses nothing else: every float op
 // rounds as in the plain version.  Staging changes where a value is read,
 // not how it rounds.
+//
+// Batch form: b frames of h x w stacked on a leading axis, one grid with
+// blockIdx.z = frame; frame z reads and writes only its own plane (its
+// reflect-101 stays inside it), so b = 1 is the single-frame kernel.
 
 #include "common.cuh"
 
@@ -79,6 +83,11 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) float qnt[3][kRows][kCols];
   const int tid = threadIdx.y * kTileCols + threadIdx.x;
   const int y0 = blockIdx.y * kTileRows, x0 = blockIdx.x * kTileCols;
+  // this block's frame
+  const size_t plane = (size_t)h * w;
+  labb += blockIdx.z * plane * 3;
+  em += blockIdx.z * plane;
+  vec += blockIdx.z * plane;
 
   // stage: staged pixel (r, c) is frame pixel (mirror(y0 - 2 + r),
   // mirror(x0 - 4 + c)) (rows and columns past h + 1 and w + 1, and
@@ -209,11 +218,16 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// labb: (b, h, w, 3) float32; em: (b, h, w); vec: (b, h, w, 2); 1 <= b <=
+// 65535 (gridDim.z)
 extern "C" int rd_edge_front(const void* labb, void* em, void* vec, int h,
-                             int w, void* stream) {
+                             int w, int b, void* stream) {
+  if (b < 1 || b > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((w + kTileCols - 1) / kTileCols,
-                  (h + kTileRows - 1) / kTileRows);
-  // rows start on 16 bytes
+                  (h + kTileRows - 1) / kTileRows, b);
+  // rows start on 16 bytes: the base is aligned and a row is 12 w bytes;
+  // with w % 4 == 0 a frame is 12 h w bytes, a multiple of 16 too, so every
+  // frame's base is aligned when the first one is
   const int vec4 = w % 4 == 0 && reinterpret_cast<size_t>(labb) % 16 == 0;
   edge_front_kernel<<<grid, dim3(kTileCols, kThreadRows), 0,
                       (cudaStream_t)stream>>>(

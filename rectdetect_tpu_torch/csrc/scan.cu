@@ -432,7 +432,10 @@ __global__ void __launch_bounds__(kTotalThreads)
   }
 }
 
-// blocks of seg_total_kernel the card holds at once, per device
+// blocks of seg_total_kernel the card holds at once, per device.
+// Threads of one process (the per-device workers of dist/stream.py) may
+// fill the cache at once: each writes the same value for its device, the
+// occupancy of this kernel there, so any read sees 0 (and queries) or it
 int total_resident_blocks() {
   static int cached[64] = {0};
   int dev = 0;

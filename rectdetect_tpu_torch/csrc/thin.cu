@@ -34,6 +34,11 @@
 // in frame columns, so its rounding depends on the column: a width tile of
 // the width-tiled path (dist/tile.py) passes its frame column gx0 (0 for a
 // whole frame), and the taps stay local.
+//
+// Batch form: b frames of h x w stacked on a leading axis, one grid with
+// blockIdx.z = frame; frame z reads and writes only its own plane (its
+// reflect-101 stays inside it), so b = 1 is the single-frame kernel and gx0
+// is every frame's column offset.
 
 #include "common.cuh"
 
@@ -123,6 +128,11 @@ __global__ void __launch_bounds__(kThreads)
   const int x0 = blockIdx.x * kTileCols;
   const int y0 = blockIdx.y * kTileRows;
   const int tid = threadIdx.y * kTileCols + threadIdx.x;
+  // this block's frame
+  const size_t plane = (size_t)h * w;
+  em += blockIdx.z * plane;
+  vec += blockIdx.z * plane;
+  out += blockIdx.z * plane;
   // every load of a thread is issued before its first store, so a warp
   // has kLoads loads in flight rather than one
   float ld[kLoads];
@@ -176,13 +186,15 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// vec: (h, w, 2) float32, 8-byte aligned; h, w >= 5; gx0: the frame column
-// of local column 0 (0 for a whole frame)
+// em, out: (b, h, w) float32; vec: (b, h, w, 2) float32, 8-byte aligned;
+// h, w >= 5; 1 <= b <= 65535 (gridDim.z); gx0: the frame column of local
+// column 0 (0 for a whole frame)
 extern "C" int rd_thin(const void* em, const void* vec, void* out, int h,
-                       int w, int cubic, float slack, int gx0,
+                       int w, int b, int cubic, float slack, int gx0,
                        void* stream) {
+  if (b < 1 || b > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((w + kTileCols - 1) / kTileCols,
-                  (h + kTileRows - 1) / kTileRows);
+                  (h + kTileRows - 1) / kTileRows, b);
   thin_kernel<<<grid, dim3(kTileCols, kRowsPerPass), 0,
                 (cudaStream_t)stream>>>((const float*)em, (const float2*)vec,
                                         (float*)out, h, w, cubic, slack,

@@ -1,5 +1,5 @@
-"""The tile axis of the width-tiled detection path (port of the tile part
-of rectdetect_tpu/dist/mesh.py).
+"""The stream and tile axes of the multi-device paths (port of
+rectdetect_tpu/dist/mesh.py).
 
 The JAX package shards a frame's width over the "tile" axis of a device
 mesh and runs dist/tile.py inside shard_map, one program per chip, with
@@ -8,8 +8,13 @@ process: a `TileGroup` holds one torch.device per tile (a device may
 repeat: all the tiles of a one-card host run on that card), every stage
 is a loop over the tiles with one tensor per tile on its tile's device,
 and the collectives are the explicit functions below on those lists.  A
-copy between tiles goes to the receiving tile's device.  The stream axis
-(`make_mesh`'s "stream") is not ported.
+copy between tiles goes to the receiving tile's device.
+
+The stream axis is frame data parallelism: `make_mesh(n_stream, n_tile)`
+is an n_stream x n_tile grid of devices whose row i is the TileGroup of
+stream i, and `stream_split` cuts a stack of frames into one contiguous
+block per row (the JAX package's stream_sharding).  dist/stream.py runs
+each row's block on its own device.
 """
 
 from __future__ import annotations
@@ -79,3 +84,63 @@ class TileGroup:
                 copies[dev] = t.to(dev)
             out.append(copies[dev])
         return out
+
+
+def visible_devices() -> list:
+    """Every visible CUDA device, in index order."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+class StreamMesh:
+    """The (stream, tile) mesh: rows[i] is the TileGroup of stream i."""
+
+    def __init__(self, rows):
+        self.rows = [TileGroup(r) for r in rows]
+        if not self.rows or len({r.n_tiles for r in self.rows}) != 1:
+            raise ValueError("a StreamMesh needs rows of one length")
+
+    @property
+    def n_stream(self) -> int:
+        return len(self.rows)
+
+    @property
+    def n_tile(self) -> int:
+        return self.rows[0].n_tiles
+
+    @property
+    def devices(self) -> list:
+        """The entries, row by row."""
+        return [d for r in self.rows for d in r.devices]
+
+    @property
+    def first(self) -> torch.device:
+        return self.rows[0].devices[0]
+
+    def stream_split(self, frames) -> list:
+        """frames (B,H,W,3) cut into n_stream contiguous blocks of
+        B / n_stream frames, block i on row i's first device; B must divide
+        evenly, as under shard_map."""
+        frames = torch.as_tensor(frames)
+        b = frames.shape[0]
+        if b % self.n_stream:
+            raise ValueError(f"{b} frames not divisible by {self.n_stream} "
+                             f"streams")
+        return [blk.to(r.devices[0]).contiguous()
+                for blk, r in zip(frames.chunk(self.n_stream), self.rows)]
+
+    def gather(self, blocks: list) -> torch.Tensor:
+        """The rows' blocks concatenated on the leading axis, on the first
+        device (the out_specs=P("stream") result)."""
+        return torch.cat([x.to(self.first) for x in blocks])
+
+
+def make_mesh(n_stream: int, n_tile: int = 1, devices=None) -> StreamMesh:
+    """An n_stream x n_tile mesh over the first n_stream * n_tile of
+    `devices` (default: every visible CUDA device); a device may repeat."""
+    devices = [torch.device(d) for d in
+               (devices if devices is not None else visible_devices())]
+    need = n_stream * n_tile
+    if len(devices) < need:
+        raise ValueError(f"need {need} devices, have {len(devices)}")
+    return StreamMesh([devices[i * n_tile:(i + 1) * n_tile]
+                       for i in range(n_stream)])

@@ -9,6 +9,10 @@ a fresh checkout builds everything it needs and a rebuilt source never
 loads a stale library.  Where that directory cannot be written, as in an
 installed copy, the build raises and names it.
 
+The library is built and loaded once, under a lock, and every counter
+below changes under a lock: the per-device worker threads of
+dist/stream.py launch kernels from several threads of one process.
+
 `--fmad=false` stops nvcc from fusing multiply-adds of its own accord: the
 kernels fuse exactly where the jitted JAX reference does, with explicit
 fmaf (ops/fp.py).  The default -prec-div/-prec-sqrt keep division and sqrt
@@ -22,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -39,8 +44,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argument types (pointers, ints, float, stream)
 SIGNATURES = {
-    "rd_edge_front": (_P, _P, _P, _I, _I, _P),
-    "rd_thin": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "rd_edge_front": (_P, _P, _P, _I, _I, _I, _P),
+    "rd_thin": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "rd_strings_chain": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rd_label_components": (_P, _P, _I, _I, _I, _P),
     "rd_mkpl": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -72,6 +77,10 @@ ptxas_log: dict[str, str] = {}
 # `kernels` argument of launch); chip_smoke.py holds their sum equal to
 # the library's own count, launch_count()
 expected_kernels: dict[str, int] = {}
+# the build and the load (reentrant: lib() builds under it)
+_lib_lock = threading.RLock()
+# expected_kernels and the wrappers' module counters (count)
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -100,6 +109,11 @@ def library_path() -> Path:
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless this exact build exists; returns the
     library path."""
+    with _lib_lock:
+        return _build(verbose)
+
+
+def _build(verbose: bool) -> Path:
     global build_seconds
     out = library_path()
     if out.exists():
@@ -112,7 +126,9 @@ def build(verbose: bool = False) -> Path:
     if not os.access(out.parent, os.W_OK):
         raise RuntimeError(f"the kernel build directory {out.parent} is not "
                            "writable; run the port from a writable checkout")
-    tag = os.getpid()
+    # object names unique to this process and thread: other processes may
+    # build the same directory at once
+    tag = f"{os.getpid()}.{threading.get_ident()}"
     nvcc = _nvcc()
     extra = ["-Xptxas=-v"] if verbose else []
     t0 = time.perf_counter()
@@ -151,17 +167,20 @@ def build(verbose: bool = False) -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, args in SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
-        for name, (args, res) in QUERIES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = list(args)
-            fn.restype = res
-        _lib = handle
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, args in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+            for name, (args, res) in QUERIES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(args)
+                fn.restype = res
+            _lib = handle
     return _lib
 
 
@@ -190,6 +209,21 @@ def check(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+# the largest frame count of a batch-form launch (gridDim.z)
+MAX_FRAMES = 65535
+
+
+def frames(lead: tuple, name: str) -> int:
+    """The frame count of a batch-form kernel's input with leading shape
+    `lead`: () for one frame, (B,) for B frames, 1 <= B <= MAX_FRAMES."""
+    if lead == ():
+        return 1
+    if len(lead) != 1 or not 1 <= lead[0] <= MAX_FRAMES:
+        raise ValueError(f"{name}: expected one frame or a leading axis of "
+                         f"1..{MAX_FRAMES} frames, got {lead}")
+    return lead[0]
+
+
 def launch(name: str, device: torch.device, *args, kernels: int = 1) -> None:
     """Call C entry point `name` on `device`'s current stream; raise on a
     nonzero cudaError_t.  `kernels`: the launches the entry makes for these
@@ -200,7 +234,15 @@ def launch(name: str, device: torch.device, *args, kernels: int = 1) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    expected_kernels[name] = expected_kernels.get(name, 0) + kernels
+    with _count_lock:
+        expected_kernels[name] = expected_kernels.get(name, 0) + kernels
+
+
+def count(namespace: dict, name: str) -> None:
+    """Add one to the counter `name` of a wrapper module (its globals()),
+    under the counters' lock."""
+    with _count_lock:
+        namespace[name] += 1
 
 
 def launch_count() -> int:

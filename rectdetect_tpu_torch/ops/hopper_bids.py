@@ -49,7 +49,6 @@ def distinct_bids_plain(boundary: torch.Tensor) -> list[torch.Tensor]:
 
 def distinct_bids(boundary: torch.Tensor) -> list[torch.Tensor]:
     """boundary (H,W) int32 ids, -1 background -> 4 slot maps (H,W) int32."""
-    global launches
     if not _build.on_cuda(boundary):
         return distinct_bids_plain(boundary)
     h, w = boundary.shape
@@ -57,5 +56,5 @@ def distinct_bids(boundary: torch.Tensor) -> list[torch.Tensor]:
     out = torch.empty((4, h, w), dtype=torch.int32, device=boundary.device)
     _build.launch("rd_distinct_bids", boundary.device, boundary.data_ptr(),
                   out.data_ptr(), h, w)
-    launches += 1
+    _build.count(globals(), "launches")
     return list(out.unbind(0))

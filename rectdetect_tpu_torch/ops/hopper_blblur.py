@@ -50,7 +50,6 @@ def blblur_fused(packed: torch.Tensor, edge: torch.Tensor, iters: int,
                  fuse: int, x0: int = 0,
                  w_total: int | None = None) -> torch.Tensor:
     """The kernel with `fuse` rounds per launch (CUDA tensors only)."""
-    global launches, offset_launches
     if fuse not in TILES:
         raise ValueError(f"fuse must be one of {sorted(TILES)}, got {fuse}")
     h, w = packed.shape
@@ -64,9 +63,9 @@ def blblur_fused(packed: torch.Tensor, edge: torch.Tensor, iters: int,
                   arms.data_ptr(), h, w, int(iters), int(fuse), int(x0),
                   w if w_total is None else int(w_total),
                   kernels=launch_count(iters, fuse) if h and w else 0)
-    launches += 1
+    _build.count(globals(), "launches")
     if x0 != 0 or w_total is not None:
-        offset_launches += 1
+        _build.count(globals(), "offset_launches")
     return out
 
 

@@ -30,7 +30,6 @@ launches = 0
 
 def label_components(pix: torch.Tensor, bgc: int = 0) -> torch.Tensor:
     """pix (H,W) int32 -> labels (H,W) int32."""
-    global launches
     if not _build.on_cuda(pix):
         return label_components_plain(pix, bgc)
     h, w = pix.shape
@@ -38,5 +37,5 @@ def label_components(pix: torch.Tensor, bgc: int = 0) -> torch.Tensor:
     out = torch.empty_like(pix)
     _build.launch("rd_label_components", pix.device, pix.data_ptr(),
                   out.data_ptr(), h, w, int(bgc), kernels=3 if h and w else 0)
-    launches += 1
+    _build.count(globals(), "launches")
     return out

@@ -33,7 +33,6 @@ def reduce_groups(segs: torch.Tensor, valid: torch.Tensor,
     """segs (G,K,2,2) float32, valid (G,K) bool -> (corners (G,4,2)
     float32, ok (G,) bool), as quad.reduce_groups.  K and max_vertices at
     most 64."""
-    global launches
     if not _build.on_cuda(segs, valid):
         return quad.reduce_groups(segs, valid, max_vertices)
     g, k = valid.shape
@@ -48,5 +47,5 @@ def reduce_groups(segs: torch.Tensor, valid: torch.Tensor,
                   corners.data_ptr(), ok.data_ptr(), g, k, max_vertices,
                   fp.f32(quad.SHORT_RATIO * quad.SHORT_RATIO),
                   kernels=1 if g else 0)
-    launches += 1
+    _build.count(globals(), "launches")
     return corners, ok

@@ -40,7 +40,6 @@ def label_merge(packed: torch.Tensor, mask: torch.Tensor,
     (H,W) int32 (> 0 blocks) -> (H,W) int32 region labels (local flat
     indices).  x0: the global x of column 0, w_total: the frame's width
     (None: W)."""
-    global launches, offset_launches
     if not _build.on_cuda(packed, mask, edge_label):
         return label_merge_plain(packed, mask, edge_label, x0, w_total)
     h, w = packed.shape
@@ -52,7 +51,7 @@ def label_merge(packed: torch.Tensor, mask: torch.Tensor,
                   mask.data_ptr(), edge_label.data_ptr(), out.data_ptr(), h, w,
                   int(x0), w if w_total is None else int(w_total),
                   kernels=3 if h and w else 0)
-    launches += 1
+    _build.count(globals(), "launches")
     if x0 != 0 or w_total is not None:
-        offset_launches += 1
+        _build.count(globals(), "offset_launches")
     return out

@@ -32,7 +32,6 @@ def junction_merge_mask(strong_lbl: torch.Tensor, x0: int = 0,
     """strong_lbl (H,W) int32 (labels > 0 are edges) -> mask (H,W) int32
     0/1.  x0: the global x of column 0, w_total: the frame's width (None:
     W)."""
-    global launches, offset_launches
     if not _build.on_cuda(strong_lbl):
         return junction_merge_mask_plain(strong_lbl, x0, w_total)
     h, w = strong_lbl.shape
@@ -41,7 +40,7 @@ def junction_merge_mask(strong_lbl: torch.Tensor, x0: int = 0,
     _build.launch("rd_merge_mask", strong_lbl.device, strong_lbl.data_ptr(),
                   out.data_ptr(), h, w, int(x0),
                   w if w_total is None else int(w_total))
-    launches += 1
+    _build.count(globals(), "launches")
     if x0 != 0 or w_total is not None:
-        offset_launches += 1
+        _build.count(globals(), "offset_launches")
     return out

@@ -55,7 +55,6 @@ def mkpl_subdivide(arena: SegmentArena, label: torch.Tensor,
     """(arena, dense label image, number image, ...) -> (arena, lsid
     (H,W) int32), as mkpl.mkpl_subdivide.  The input arena is not
     modified."""
-    global launches
     if not _build.on_cuda(label, number, comp.idx, arena.sx):
         return mkpl_subdivide_plain(arena, label, number, minerror, n_iters,
                                     comp)
@@ -84,7 +83,7 @@ def mkpl_subdivide(arena: SegmentArena, label: torch.Tensor,
                   count.data_ptr(), scratch.data_ptr(), lsid.data_ptr(),
                   slots, cap, n, w, max(0, n_iters - 1),
                   int(minerror * FIX))
-    launches += 1
+    _build.count(globals(), "launches")
     out = {f: fields[i].view(torch.float32) for i, f in enumerate(_FLOATS)}
     out.update({f: fields[len(_FLOATS) + i] for i, f in enumerate(_INTS)})
     return arena._replace(count=count.reshape(()), **out), lsid.reshape(h, w)

@@ -39,7 +39,6 @@ def strings_chain(edge_bin: torch.Tensor, variant: str,
                   w_total: int | None = None):
     """edge_bin (H,W) int32 0/1 -> strings map (H,W) int32 0/1.  x0: the
     global x of column 0, w_total: the frame's width (None: W)."""
-    global launches, offset_launches
     if not _build.on_cuda(edge_bin):
         return strings_chain_plain(edge_bin, variant, bridge2, x0, w_total)
     if variant not in _VARIANTS:
@@ -51,7 +50,7 @@ def strings_chain(edge_bin: torch.Tensor, variant: str,
                   out.data_ptr(), h, w, _VARIANTS[variant], int(bool(bridge2)),
                   int(x0), w if w_total is None else int(w_total),
                   kernels=KERNELS)
-    launches += 1
+    _build.count(globals(), "launches")
     if x0 != 0 or w_total is not None:
-        offset_launches += 1
+        _build.count(globals(), "offset_launches")
     return out

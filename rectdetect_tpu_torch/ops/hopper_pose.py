@@ -31,7 +31,6 @@ def pose_estimate(corners: torch.Tensor, iw: int, ih: int, tan_aov: float,
                   cg_iters: int = 12, ls_iters: int = 10):
     """corners (G,4,2) float32 -> (c2 (G,4,2), c3 (G,4,3), value (G,)), as
     pose.pose_estimate."""
-    global launches
     if not _build.on_cuda(corners):
         return pose.pose_estimate(corners, iw, ih, tan_aov, cg_iters,
                                   ls_iters)
@@ -47,5 +46,5 @@ def pose_estimate(corners: torch.Tensor, iw: int, ih: int, tan_aov: float,
     _build.launch("rd_pose", dev, corners.data_ptr(), c2.data_ptr(),
                   c3.data_ptr(), value.data_ptr(), g, fp.f32(iw / 2),
                   fp.f32(ih / 2), focal, int(cg_iters), int(ls_iters))
-    launches += 1
+    _build.count(globals(), "launches")
     return c2, c3, value

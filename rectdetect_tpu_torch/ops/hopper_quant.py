@@ -33,7 +33,6 @@ def quantize_despeckle(packed: torch.Tensor, edge_mag: torch.Tensor,
                        n0: int = 24, n1: int = 24,
                        n2: int = 24) -> torch.Tensor:
     """packed (H,W) int32, edge_mag (H,W) float32 -> (H,W) int32."""
-    global launches
     if not _build.on_cuda(packed, edge_mag):
         return quantize_despeckle_plain(packed, edge_mag, n0, n1, n2)
     h, w = packed.shape
@@ -43,5 +42,5 @@ def quantize_despeckle(packed: torch.Tensor, edge_mag: torch.Tensor,
     _build.launch("rd_quant_despeckle", packed.device, packed.data_ptr(),
                   edge_mag.data_ptr(), out.data_ptr(), h, w, int(n0),
                   int(n1), int(n2), kernels=KERNELS)
-    launches += 1
+    _build.count(globals(), "launches")
     return out

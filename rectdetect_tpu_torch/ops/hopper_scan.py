@@ -89,7 +89,6 @@ def _check(key, val, cap: int) -> int:
 def seg_scan_sorted(key: torch.Tensor, val: torch.Tensor, op: str = "satsum",
                     cap: int = 2 ** 30) -> torch.Tensor:
     """key, val (S,) int32 -> (S,) int32 segmented inclusive scan."""
-    global launches
     if op not in _OPS:
         raise ValueError(f"unknown scan op {op!r}")
     if not _build.on_cuda(key, val):
@@ -102,7 +101,7 @@ def seg_scan_sorted(key: torch.Tensor, val: torch.Tensor, op: str = "satsum",
     _build.launch("rd_seg_scan", key.device, key.data_ptr(), val.data_ptr(),
                   out.data_ptr(), scratch.data_ptr(), s, _OPS[op], cap,
                   kernels=3 if s else 0)
-    launches += 1
+    _build.count(globals(), "launches")
     return out
 
 
@@ -113,7 +112,6 @@ def seg_total_sorted(key: torch.Tensor, val: torch.Tensor,
     run's end value spread over the run) gives (ops/pallas_scan.py:169-179):
     min(cap, the run's sum), and at a run's first element the larger of
     that and its own value; in one launch."""
-    global launches
     if not _build.on_cuda(key, val):
         return seg_total_plain(key, val, cap)
     s = _check(key, val, cap)
@@ -124,5 +122,5 @@ def seg_total_sorted(key: torch.Tensor, val: torch.Tensor,
     _build.launch("rd_seg_total", key.device, key.data_ptr(), val.data_ptr(),
                   out.data_ptr(), scratch.data_ptr(), s, cap,
                   kernels=TOTAL_KERNELS if s else 0)
-    launches += 1
+    _build.count(globals(), "launches")
     return out

@@ -14,6 +14,11 @@ JAX package's tiled front end samples in tile columns). Its bound is device
 memory (16 B per pixel), its time is set by the float work and the
 shared-memory reads of the taps.
 
+A leading frame axis ((B,H,W) and (B,H,W,2)) is one launch of the batch
+form (grid z = frame, each frame's reflect-101 inside its own plane, x0
+the same for every frame), the counterpart of the JAX package's vmap over
+the Pallas kernel in rect_frames.
+
 `thinthres` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; there is no other path.
 """
@@ -31,6 +36,8 @@ offset_launches = 0
 
 def thin_plain(em: torch.Tensor, vec: torch.Tensor, mode: str = "thres",
                slack: float = 0.99, x0: int = 0):
+    """thin.thinthres / thin.thincubic (element-wise over a leading frame
+    axis)."""
     if mode == "thres":
         return thin.thinthres(em, vec, x0)
     if mode == "cubic":
@@ -40,16 +47,17 @@ def thin_plain(em: torch.Tensor, vec: torch.Tensor, mode: str = "thres",
 
 def thinthres(em: torch.Tensor, vec: torch.Tensor, mode: str = "thres",
               slack: float = 0.99, x0: int = 0):
-    """em (H,W) f32, vec (H,W,2) f32 -> thinned magnitude (H,W) f32.  x0:
-    the frame column of column 0."""
-    global launches, offset_launches
+    """em ([B,]H,W) f32, vec ([B,]H,W,2) f32 -> thinned magnitude ([B,]H,W)
+    f32; B frames in one launch.  x0: the frame column of column 0."""
     if not _build.on_cuda(em, vec):
         return thin_plain(em, vec, mode, slack, x0)
     if mode not in ("thres", "cubic"):
         raise ValueError(f"unknown thinning mode {mode!r}")
-    h, w = em.shape
-    _build.check(em, "em", torch.float32, (h, w))
-    _build.check(vec, "vec", torch.float32, (h, w, 2))
+    lead = tuple(em.shape[:-2])
+    h, w = em.shape[-2:]
+    b = _build.frames(lead, "em")
+    _build.check(em, "em", torch.float32, (*lead, h, w))
+    _build.check(vec, "vec", torch.float32, (*lead, h, w, 2))
     if vec.data_ptr() % 8:
         raise ValueError("vec: the kernel reads it as float2, so it must be "
                          "8-byte aligned")
@@ -57,9 +65,9 @@ def thinthres(em: torch.Tensor, vec: torch.Tensor, mode: str = "thres",
         raise ValueError(f"thinning needs a frame of at least 5x5, got {h}x{w}")
     out = torch.empty_like(em)
     _build.launch("rd_thin", em.device, em.data_ptr(), vec.data_ptr(),
-                  out.data_ptr(), h, w, int(mode == "cubic"), float(slack),
+                  out.data_ptr(), h, w, b, int(mode == "cubic"), float(slack),
                   int(x0))
-    launches += 1
+    _build.count(globals(), "launches")
     if x0 != 0:
-        offset_launches += 1
+        _build.count(globals(), "offset_launches")
     return out

@@ -14,6 +14,7 @@ from rectdetect_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
 from rectdetect_tpu_torch.ops import ccl, polyline
 from rectdetect_tpu_torch.ops.hopper_ccl import label_components
 from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
+from rectdetect_tpu_torch.pipeline.rect import stack_results
 
 
 def poly_frame(bgr: torch.Tensor, cfg: PipelineConfig = DEFAULT_CONFIG,
@@ -30,8 +31,33 @@ def poly_frame(bgr: torch.Tensor, cfg: PipelineConfig = DEFAULT_CONFIG,
     EXTENDED_CONFIG accuracy extension) repairs the filter's output
     (ccl.rescue_filtered), and bridge_gap2 runs the polyline's K3 with its
     bridge2 stage."""
-    h, w = bgr.shape[:2]
-    fe = edge_frontend(bgr, cfg)
+    if bgr.dim() != 3:
+        raise ValueError("poly_frame takes one (H,W,3) frame; poly_frames "
+                         "takes a (B,H,W,3) stack")
+    return _poly_tail(edge_frontend(bgr, cfg), cfg, minerror, size_thre,
+                      strength)
+
+
+def poly_frames(frames: torch.Tensor, cfg: PipelineConfig = DEFAULT_CONFIG,
+                minerror: float = 1.0, size_thre: int = 20,
+                strength: int = 500):
+    """poly_frame on a (B,H,W,3) uint8 stack -> (SegmentArena with a
+    leading B axis on every field, lsid (B,H,W) int32); each frame's slice
+    equals poly_frame on that frame bit for bit.  The front end runs once
+    on the stack (K1 and K2 one launch each), the rest frame by frame."""
+    if frames.dim() != 4 or frames.shape[0] < 1:
+        raise ValueError(f"poly_frames takes a (B,H,W,3) stack, got "
+                         f"{tuple(frames.shape)}")
+    fe = edge_frontend(frames, cfg)
+    outs = [_poly_tail(type(fe)(*(f[i] for f in fe)), cfg, minerror,
+                       size_thre, strength) for i in range(frames.shape[0])]
+    return (stack_results([a for a, _ in outs]),
+            torch.stack([lsid for _, lsid in outs]))
+
+
+def _poly_tail(fe, cfg, minerror, size_thre, strength):
+    """poly_frame after the front end, on one frame's EdgeFrontend."""
+    h, w = fe.edge_bin.shape
     lbl = label_components(fe.edge_bin, 0)
     st = ccl.calc_strength(fe.edge_thin, lbl, cfg.strength_scale)
     filtered = ccl.filter_strength(lbl, st, strength)

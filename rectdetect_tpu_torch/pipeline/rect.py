@@ -1,5 +1,6 @@
 """The rect pipeline: frame -> detected rectangles with their 3D pose (port
-of rectdetect_tpu/pipeline/rect.py:rect_frame, one frame at a time).
+of rectdetect_tpu/pipeline/rect.py: rect_frame, and rect_frames for a
+stack of frames).
 
 Mirrors oclrect.c:262-381 and executeCPUTask (oclrect.c:1049-1226): the
 weak/strong edge labels (strings morphology, kernel K3; exact labels, K4;
@@ -308,14 +309,38 @@ def rect_geometry_tail(strong_bin: torch.Tensor, boundary: torch.Tensor,
 def rect_frame(bgr: torch.Tensor, tan_aov: float,
                cfg: PipelineConfig = DEFAULT_CONFIG) -> RectResult:
     """BGR (H,W,3) uint8 frame, on the CPU or a CUDA device -> RectResult.
-    The JAX package's batched form (rect_frames, (B,H,W,3)) is not ported."""
+    A (B,H,W,3) stack goes to rect_frames."""
     if bgr.dim() != 3:
-        raise NotImplementedError("rect_frame takes one (H,W,3) frame; the "
-                                  "batched rect_frames is not ported yet")
+        raise NotImplementedError("rect_frame takes one (H,W,3) frame; "
+                                  "rect_frames takes a (B,H,W,3) stack")
     hyp = rect_hypotheses(bgr, cfg)
     ih, iw = bgr.shape[:2]
     return rect_geometry(hyp.segs, hyp.valid, hyp.status, iw, ih, tan_aov,
                          cfg)
+
+
+def stack_results(results):
+    """A list of per-frame NamedTuples -> one of the same type whose fields
+    are the frames' fields stacked on a leading axis."""
+    return type(results[0])(*(torch.stack(f) for f in zip(*results)))
+
+
+def rect_frames(frames: torch.Tensor, tan_aov: float,
+                cfg: PipelineConfig = DEFAULT_CONFIG) -> RectResult:
+    """Batched throughput mode (the JAX package's rect_frames): frames
+    (B,H,W,3) uint8, on the CPU or a CUDA device -> RectResult with a
+    leading B axis; each frame's slice equals rect_frame on that frame bit
+    for bit.  The front end runs once on the stack (K1 and K2 one launch
+    each for all B frames); the tail runs frame by frame on the same device
+    and stream: its slot lists and capacities are per frame, and the
+    polyline stage reads the device from the host (ops/polyline.py)."""
+    if frames.dim() != 4 or frames.shape[0] < 1:
+        raise ValueError(f"rect_frames takes a (B,H,W,3) stack, got "
+                         f"{tuple(frames.shape)}")
+    fe = edge_frontend(frames, cfg)
+    return stack_results([
+        rect_tail(fe.packed0[i], fe.edge_thin[i], fe.edge_bin[i], tan_aov,
+                  cfg) for i in range(frames.shape[0])])
 
 
 def stage_maps(bgr: torch.Tensor, cfg: PipelineConfig = DEFAULT_CONFIG):

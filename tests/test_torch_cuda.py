@@ -45,7 +45,12 @@ both variants with and without bridge2, merge_mask, blblur at every fused
 round count, the links CCL; K2 at a frame column within ATOL, edge_thin
 > 0 equal) bit-equal to their plain versions at left, odd interior and
 right offsets, and rect_step_tiled over two tiles on one card bit-equal
-to rect_frame; launches are read from the kernel library's own counter
+to rect_frame; the batch forms of K1 and K2 (one launch for four frames)
+bit-equal to single calls from 16x64 to 720x1280, rect_frames and
+poly_frames at B = 4 bit-equal to per-frame calls with K1 and K2 launched
+once, rect_frames_sharded over two entries of the card and the
+StreamSupervisor's worker loop (a failing entry quarantined) equal to
+rect_frame; launches are read from the kernel library's own counter
 (`_build.launch_count`).
 """
 
@@ -1316,3 +1321,146 @@ def test_rect_step_tiled_on_one_card_equals_rect_frame():
     for f in got._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert int(want.valid.sum()) > 0
+
+
+# the stream axis: the batch forms of K1 and K2 (grid z = frame), on a
+# width that takes edge_front's float4 staging (200) and one that does not
+# (53), and a frame of one tile
+BATCH_CARD_SHAPES = [(37, 200), (37, 53), (16, 64), (720, 1280)]
+
+
+@pytest.mark.parametrize("h,w", BATCH_CARD_SHAPES)
+def test_batch_forms_of_edge_front_and_thin_equal_single_calls(h, w):
+    """edge_front and thinthres on a (4, H, W) stack: one kernel each for
+    the four frames, every frame bit-equal to its own b = 1 call (and to
+    the plain version within ATOL), in both thinning modes and at a frame
+    column."""
+    _need_card()
+    labb = torch.stack([_blurred_lab(h, w, seed=s) for s in range(4)]).cuda()
+    n0 = _build.launch_count()
+    em, vec = hopper_grad.edge_front(labb)
+    torch.cuda.synchronize()
+    assert _build.launch_count() == n0 + 1
+    assert em.shape == (4, h, w) and vec.shape == (4, h, w, 2)
+    em_p, vec_p = hopper_grad.edge_front_plain(labb)
+    torch.testing.assert_close(em, em_p, rtol=0, atol=ATOL)
+    torch.testing.assert_close(vec, vec_p, rtol=0, atol=ATOL)
+    for i in range(4):
+        em1, vec1 = hopper_grad.edge_front(labb[i])
+        assert torch.equal(em[i], em1) and torch.equal(vec[i], vec1), i
+    for mode, x0 in (("thres", 0), ("cubic", 0), ("thres", 307)):
+        n0 = _build.launch_count()
+        got = hopper_thin.thinthres(em, vec, mode=mode, x0=x0)
+        torch.cuda.synchronize()
+        assert _build.launch_count() == n0 + 1
+        want = hopper_thin.thin_plain(em, vec, mode=mode, x0=x0)
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+        assert torch.equal(got > 0, want > 0)
+        for i in range(4):
+            assert torch.equal(got[i], hopper_thin.thinthres(
+                em[i], vec[i], mode=mode, x0=x0)), (mode, i)
+    with pytest.raises(ValueError):
+        hopper_grad.edge_front(labb[None])
+
+
+def test_rect_frames_and_poly_frames_on_card_equal_per_frame_calls():
+    """rect_frames and poly_frames at B = 4: every frame bit-equal to its
+    own call, K1 and K2 launched once for the four frames (the library's
+    counter: the per-frame calls' kernels less 2 (B - 1)), and the same
+    results as on the CPU."""
+    from rectdetect_tpu_torch.pipeline.poly import poly_frames
+    from rectdetect_tpu_torch.pipeline.rect import rect_frames
+    _need_card()
+    frames = torch.stack([_scene(seed=s) for s in range(4)])
+    gpu = frames.cuda()
+    singles, n_single = [], 0
+    for i in range(4):
+        n0 = _build.launch_count()
+        singles.append(rect_frame(gpu[i], TAN_AOV))
+        torch.cuda.synchronize()
+        n_single += _build.launch_count() - n0
+    hopper_grad.launches = hopper_thin.launches = 0
+    res = _count_kernels(lambda: rect_frames(gpu, TAN_AOV))
+    assert (hopper_grad.launches, hopper_thin.launches) == (1, 1)
+    for i, want in enumerate(singles):
+        for f in want._fields:
+            assert torch.equal(getattr(res, f)[i], getattr(want, f)), (f, i)
+    n0 = _build.launch_count()
+    rect_frames(gpu, TAN_AOV)
+    torch.cuda.synchronize()
+    assert _build.launch_count() - n0 == n_single - 2 * 3
+    cpu = rect_frame(frames[1], TAN_AOV)
+    assert torch.equal(res.valid[1].cpu(), cpu.valid)
+    torch.testing.assert_close(res.c2[1].cpu(), cpu.c2, rtol=0, atol=ATOL)
+    n0 = _build.launch_count()
+    arena, lsid = poly_frames(gpu, PipelineConfig())
+    torch.cuda.synchronize()
+    n_batch = _build.launch_count() - n0
+    n0 = _build.launch_count()
+    for i in range(4):
+        a1, l1 = poly_frame(gpu[i], PipelineConfig())
+        assert torch.equal(lsid[i], l1), i
+        for f in a1._fields:
+            assert torch.equal(getattr(arena, f)[i], getattr(a1, f)), (f, i)
+    torch.cuda.synchronize()
+    assert n_batch == _build.launch_count() - n0 - 2 * 3
+
+
+def test_stream_supervisor_and_sharded_frames_on_card():
+    """rect_frames_sharded over a 2 x 1 mesh of the one card equal to
+    per-frame calls; the StreamSupervisor's default worker loop on two
+    entries of the card, every frame equal to rect_frame's live_rects;
+    an entry whose run_fn fails after its first frame is quarantined, its
+    frame in flight dropped and its streams re-placed."""
+    from rectdetect_tpu_torch.dist.mesh import make_mesh
+    from rectdetect_tpu_torch.dist.stream import (StreamSupervisor,
+                                                  rect_frames_sharded)
+    from rectdetect_tpu_torch.pipeline.rect import live_rects
+    _need_card()
+    frames = torch.stack([_scene(seed=s) for s in range(4)])
+    want = [rect_frame(frames[i].cuda(), TAN_AOV) for i in range(4)]
+    res = rect_frames_sharded(frames, TAN_AOV,
+                              make_mesh(2, 1, ["cuda:0"] * 2))
+    for i in range(4):
+        for f in want[i]._fields:
+            assert torch.equal(getattr(res, f)[i], getattr(want[i], f))
+
+    def same(got, sid):
+        exp = live_rects(want[sid])
+        assert len(got) == len(exp)
+        for x, y in zip(got, exp):
+            np.testing.assert_array_equal(x["c2"], y["c2"])
+            assert x["status"] == y["status"] and x["value"] == y["value"]
+
+    sup = StreamSupervisor(TAN_AOV, devices=["cuda:0"] * 2)
+    for _ in range(2):
+        for sid in range(4):
+            assert sup.submit(sid, frames[sid].numpy())
+        for sid in range(4):
+            same(sup.collect(sid), sid)
+    assert not sup.failures
+
+    default_run = sup._run
+    cur, used = {}, [0]
+
+    def run_fn(bgr, device):
+        if flaky._assign[cur["sid"]] == 1:
+            used[0] += 1
+            if used[0] > 1:
+                raise RuntimeError("injected card fault")
+        return default_run(bgr, device)
+
+    flaky = StreamSupervisor(TAN_AOV, devices=["cuda:0"] * 2, run_fn=run_fn)
+    dropped = 0
+    for _ in range(2):
+        for sid in range(4):
+            cur["sid"] = sid
+            assert flaky.submit(sid, frames[sid].numpy())
+        for sid in range(4):
+            got = flaky.collect(sid)
+            if got is None:
+                dropped += 1
+            else:
+                same(got, sid)
+    assert [f[0] for f in flaky.failures] == [1] and dropped == 1
+    assert set(flaky._assign.values()) == {0}

@@ -127,18 +127,49 @@ def test_vidpoly_and_videotest_write_every_frame(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", ["--batch=4", "--streams=2", "--tiles=2",
                                   "--extended"])
 def test_vidrect_flags_not_ported(flag, tmp_path, monkeypatch, capsys):
-    """--batch and --streams exit with "not ported yet"; --extended is
-    ported and runs EXTENDED_CONFIG over every frame; --tiles=2 is ported
-    and runs the width-tiled detector over every frame (two tiles on the
-    host with `cpu`)."""
+    """Every flag is ported and runs over every frame on the host with
+    `cpu`: --batch=4 groups the frames through rect_frames (the last group
+    at its own size), --streams=2 serves two copies of the video through a
+    StreamSupervisor on [cpu] and writes stream 0, --tiles=2 runs the
+    width-tiled detector (two tiles on the host), --extended runs
+    EXTENDED_CONFIG."""
     from rectdetect_tpu_torch.apps import vidrect
-    from rectdetect_tpu_torch.pipeline import video
-    if flag in ("--batch=4", "--streams=2"):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            vidrect.main(["vidrect", "cpu", "in.avi", "out.avi", flag])
-        return
+    from rectdetect_tpu_torch.dist import stream
+    from rectdetect_tpu_torch.pipeline import rect, video
     monkeypatch.chdir(tmp_path)
     _write_video("in.avi", 2, 72, 96)
+    if flag == "--batch=4":
+        sizes = []
+        real_frames = rect.rect_frames
+
+        def spy_frames(frames, tan_aov, cfg):
+            sizes.append(tuple(frames.shape))
+            return real_frames(frames, tan_aov, cfg)
+
+        monkeypatch.setattr(rect, "rect_frames", spy_frames)
+        assert vidrect.main(["vidrect", "cpu", "in.avi", "out.avi", "72",
+                             flag]) == 0
+        assert "2 frames" in capsys.readouterr().out
+        assert _count_frames("out.avi") == 2
+        assert sizes == [(2, 72, 96, 3)]
+        return
+    if flag == "--streams=2":
+        sups = []
+        real_sup = stream.StreamSupervisor.__init__
+
+        def spy_sup(self, tan_aov, **kw):
+            sups.append(kw["devices"])
+            real_sup(self, tan_aov, **kw)
+
+        monkeypatch.setattr(stream.StreamSupervisor, "__init__", spy_sup)
+        assert vidrect.main(["vidrect", "cpu", "in.avi", "out.avi", "72",
+                             flag]) == 0
+        out = capsys.readouterr().out
+        assert "2 streams over 1 devices" in out and \
+            "4 frames served" in out
+        assert _count_frames("out.avi") == 2
+        assert [[str(d) for d in s] for s in sups] == [["cpu"]]
+        return
     if flag == "--tiles=2":
         groups = []
         real_tiled = video.TiledVideoRectDetector.__init__

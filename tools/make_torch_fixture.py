@@ -80,6 +80,12 @@ JAX package on 4 forced host devices (set before JAX is imported), into
 tests/data/tiles.npz (make_tiles):
 
     JAX_PLATFORMS=cpu python tools/make_torch_fixture.py tiles
+
+`streams`: the stream axis (batched rect_frames, dist/stream.py) on
+8 frames of 48x64, with the JAX package on 8 forced host devices, into
+tests/data/streams.npz (make_streams):
+
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py streams
 """
 
 from __future__ import annotations
@@ -115,17 +121,18 @@ def main(argv=None) -> int:
               "frame": make_frame, "calib": make_calib,
               "photos": make_photos, "gaps": make_gaps,
               "extended": make_extended, "photos_ext": make_photos_ext,
-              "tiles": make_tiles}
+              "tiles": make_tiles, "streams": make_streams}
     which = argv[1:2] or list(makers)
     if which[0] not in makers:
         sys.exit(f"unknown fixture {which[0]!r}: one of {sorted(makers)}")
-    if "tiles" in which:
-        # the tiled path's shard_map needs TILE_DEVICES devices; XLA reads
+    forced = {"tiles": TILE_DEVICES, "streams": STREAM_DEVICES}
+    if which[0] in forced:
+        # the sharded paths' shard_map needs this many devices; XLA reads
         # the flag when JAX starts
         flags = os.environ.get("XLA_FLAGS", "")
         os.environ["XLA_FLAGS"] = (
             f"{flags} --xla_force_host_platform_device_count="
-            f"{TILE_DEVICES}").strip()
+            f"{forced[which[0]]}").strip()
     out = argv[2] if len(argv) > 2 else None
     for name in which:
         makers[name](out or os.path.join(ROOT, "tests", "data",
@@ -143,7 +150,8 @@ FIXTURES = {"poly": "poly_720p_synth.npz",
             "gaps": "photo_gaps.npz",
             "extended": "extended.npz",
             "photos_ext": "photo_corpus_ext.npz",
-            "tiles": "tiles.npz"}
+            "tiles": "tiles.npz",
+            "streams": "streams.npz"}
 
 
 def make_poly(out: str) -> None:
@@ -1546,6 +1554,125 @@ def make_tiles(out: str) -> None:
                      "tiles": TILE_DEVICES,
                      "label_merge_colours": "9 on the snake, 7 elsewhere; "
                                             "no mask, no edges"}
+    data["meta"] = np.asarray(json.dumps(meta))
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez_compressed(out, **data)
+    print(f"{out}: {os.path.getsize(out)} bytes; {json.dumps(meta)}")
+
+
+STREAM_DEVICES = 8
+# the stream cases: 8 frames of tests/conftest.py's synth_scene (seeds
+# 0-7, the frames of tests/test_dist.py:69-82), the first 4 batched, all 8
+# sharded over a (4, 1) mesh
+STREAM_FRAMES = 8
+STREAM_BATCH = 4
+STREAM_HW = (48, 64)
+STREAM_CFG = dict(max_groups=16)
+
+
+def make_streams(out: str) -> None:
+    """The JAX package's stream axis on STREAM_DEVICES forced host devices,
+    jitted, into tests/data/streams.npz:
+      * frames: synth_scene(48, 64, seed=s), s = 0..7;
+      * fe/*: edge_frontend under vmap on the first 4 frames (packed0,
+        edge_thin, edge_bin) and edgevec of its blurred L plane (vec);
+      * batch/*: rect_frames on the first 4 frames;
+      * sharded/*: rect_frames_sharded on all 8 over a (4, 1) mesh;
+      * poly/*: poly_frames_sharded on all 8 over the same mesh (arena
+        fields and lsid, defaults minerror 1, size_thre 20, strength 500);
+      * single/<i>/*, single_poly/<i>/*: rect_frame and poly_frame of each
+        frame alone;
+      * meta: the config, and per frame whether the batched and sharded
+        results equal the per-frame ones (valid, status and lsid equal,
+        c2, value and the arena's endpoints within 1e-4), and the pixels
+        (frame, y, x) where a component of that vec exceeds 1 in
+        magnitude: XLA:CPU's rsqrt is not correctly rounded, and there K2's
+        sample offset can cross its clamp (ops/thin.py)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from rectdetect_tpu.config import PipelineConfig
+    from rectdetect_tpu.dist.mesh import make_mesh
+    from rectdetect_tpu.dist.stream import (poly_frames_sharded,
+                                            rect_frames_sharded)
+    from rectdetect_tpu.ops import gradient
+    from rectdetect_tpu.pipeline.frontend import edge_frontend
+    from rectdetect_tpu.pipeline.poly import poly_frame
+    from rectdetect_tpu.pipeline.rect import rect_frame, rect_frames
+    from tests.conftest import synth_scene
+
+    if len(jax.devices()) < STREAM_DEVICES:
+        sys.exit(f"needs {STREAM_DEVICES} host devices, JAX has "
+                 f"{len(jax.devices())}: run `streams` in a process of its "
+                 "own")
+    cfg = PipelineConfig(**STREAM_CFG)
+    h, w = STREAM_HW
+    frames = np.stack([synth_scene(h=h, w=w, seed=s)
+                       for s in range(STREAM_FRAMES)])
+    data = {"frames": frames}
+    meta = {"config": f"PipelineConfig(**{STREAM_CFG})",
+            "tan_aov": "tan(radians(72) / 2)",
+            "frames": f"tests/conftest.py synth_scene({h}, {w}, seed=s), "
+                      f"s = 0..{STREAM_FRAMES - 1}",
+            "batch": STREAM_BATCH, "mesh": [4, 1],
+            "devices": STREAM_DEVICES, "jax": jax.__version__,
+            "poly_args": {"minerror": 1.0, "size_thre": 20,
+                          "strength": 500}}
+    tan = TILE_TAN
+    fb = jnp.asarray(frames[:STREAM_BATCH])
+    fe = jax.jit(jax.vmap(lambda f: edge_frontend(f, cfg)))(fb)
+    for k in ("packed0", "edge_thin", "edge_bin"):
+        data[f"fe/{k}"] = np.asarray(getattr(fe, k))
+    vec = np.asarray(jax.jit(jax.vmap(
+        lambda f: gradient.edgevec(edge_frontend(f, cfg).labb[..., 0])))(fb))
+    data["fe/vec"] = vec
+    meta["jax_vec_above_one"] = [
+        [int(v) for v in p] for p in np.argwhere(np.abs(vec).max(-1) > 1.0)]
+    _result_arrays("batch", rect_frames(fb, tan, cfg), data)
+    mesh = make_mesh(4, 1)
+    _result_arrays("sharded", rect_frames_sharded(jnp.asarray(frames), tan,
+                                                  mesh, cfg), data)
+    arena, lsid = poly_frames_sharded(jnp.asarray(frames), mesh, cfg)
+    for k, v in arena._asdict().items():
+        data[f"poly/{k}"] = np.asarray(v)
+    data["poly/lsid"] = np.asarray(lsid)
+
+    def same_rect(prefix, i, single):
+        v = data[f"{prefix}/valid"][i]
+        return bool(
+            (v == single["valid"]).all()
+            and (data[f"{prefix}/status"][i] == single["status"]).all()
+            and np.allclose(data[f"{prefix}/c2"][i][v], single["c2"][v],
+                            rtol=0, atol=1e-4)
+            and np.allclose(data[f"{prefix}/value"][i][v],
+                            single["value"][v], rtol=0, atol=1e-4))
+
+    meta["per_frame"] = []
+    for i in range(STREAM_FRAMES):
+        f = jnp.asarray(frames[i])
+        res = rect_frame(f, tan, cfg)
+        single = {k: np.asarray(getattr(res, k))
+                  for k in ("c2", "c3", "value", "status", "valid")}
+        for k, v in single.items():
+            data[f"single/{i}/{k}"] = v
+        a1, l1 = poly_frame(f, cfg)
+        a1 = {k: np.asarray(v) for k, v in a1._asdict().items()}
+        for k, v in a1.items():
+            data[f"single_poly/{i}/{k}"] = v
+        data[f"single_poly/{i}/lsid"] = np.asarray(l1)
+        poly_same = bool((np.asarray(l1) == data["poly/lsid"][i]).all())
+        for k, v in a1.items():
+            got = data[f"poly/{k}"][i]
+            poly_same &= bool(np.allclose(got, v, rtol=0, atol=1e-4)
+                              if v.dtype.kind == "f" else (got == v).all())
+        row = {"frame": i,
+               "batch_equals_single": same_rect("batch", i, single)
+               if i < STREAM_BATCH else None,
+               "sharded_equals_single": same_rect("sharded", i, single),
+               "poly_sharded_equals_single": poly_same,
+               "valid": int(single["valid"].sum())}
+        meta["per_frame"].append(row)
     data["meta"] = np.asarray(json.dumps(meta))
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez_compressed(out, **data)
