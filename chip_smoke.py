@@ -115,13 +115,17 @@ the final line):
   9. the stream axis, every mesh entry on the one card: the batch forms of
      K1 and K2 (one launch for b frames, grid z = frame) at b = 4 on the
      720p frames of seeds 0-3, bit-equal to four b = 1 calls and within
-     2e-4 of the plain versions, device ms in turns with the four single
-     calls (their own records on the kernels line); rect_frames and
-     poly_frames at B = 4 driven with the launch counts (122 = 32 B -
-     2 (B - 1) and 22 = 7 B - 2 (B - 1) kernels), every frame bit-equal to
-     its per-frame call, frames/s in turns with per-frame calls;
-     rect_frames_sharded and poly_frames_sharded over a 4 x 1 mesh on 8
-     frames, bit-equal to per-frame calls; the StreamSupervisor: 8
+     2e-4 of the plain versions, and the batch forms of the rect tail's
+     dense kernels (K3 rect, blblur, quant_despeckle, merge_mask, the
+     links CCL, despeckle2) on those frames' own maps, bit-equal to four
+     b = 1 calls and to their plain versions; device ms in turns with the
+     four single calls (their own records on the kernels line);
+     rect_frames and poly_frames at B = 4 driven with the launch counts
+     (68 = 32 B - 20 (B - 1) and 22 = 7 B - 2 (B - 1) kernels), every
+     frame bit-equal to its per-frame call, frames/s in turns with
+     per-frame calls; rect_frames_sharded over a 4 x 1 mesh on 8 frames
+     driven with its count (176 = 4 rows x 44), it and
+     poly_frames_sharded bit-equal to per-frame calls; the StreamSupervisor: 8
      streams over 4 entries with entry 2 failing after its first frame
      (quarantined, its streams re-placed, every collected frame equal to
      rect_frame) and the default worker loop's frames/s over 2 streams
@@ -174,6 +178,10 @@ OPS_PER_S = 67e12
 # kernels per 720p frame of the smoke run by the library's counter
 POLY_FRAME_KERNELS = 7
 RECT_FRAME_KERNELS = 32
+# of those, the kernels rect_frames launches once for its whole stack: K1,
+# K2, K3 (rect), blblur's 11, quant_despeckle, merge_mask, the links CCL's
+# 3 and despeckle2
+RECT_STACK_KERNELS = 20
 # frames of the video phase
 VIDEO_FRAMES = 30
 # frames a turn of phase 7's frame times (default, extended, extended,
@@ -299,7 +307,8 @@ def build_kernels(build_mod, src, out_dir, names):
 def takes_frame_count(src, name) -> bool:
     """Whether csrc file `name` of the directory `src` has the batch form's
     entry point (a frame count after h, w: edge_front and thin since the
-    stream-axis slice, not before)."""
+    stream axis; morph, blblur, quant_despeckle, merge_mask, links_ccl
+    and despeckle2 since the batched rect tail; not before)."""
     with open(os.path.join(src, f"{name}.cu")) as f:
         text = f.read()
     return re.search(r'extern "C" int rd_\w+\([^)]*int h,\s*int w, int b,',
@@ -401,10 +410,13 @@ def bind_thin(torch, lib):
 
 
 def bind_despeckle2(torch, lib):
-    """despeckle2_fn(label, thre) through lib's rd_despeckle2."""
+    """despeckle2_fn(label, thre) through lib's rd_despeckle2 (one
+    frame)."""
     import ctypes
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rd_despeckle2.argtypes = [P, P, P, I, I, I, P]
+    frames = getattr(lib, "frame_counts", {}).get("despeckle2", True)
+    lib.rd_despeckle2.argtypes = [P, P, P, I, I, *([I] if frames else []),
+                                  I, P]
     lib.rd_despeckle2.restype = ctypes.c_int
 
     def despeckle2_fn(label, thre):
@@ -412,7 +424,9 @@ def bind_despeckle2(torch, lib):
         out = torch.empty_like(label)
         sizes = torch.empty((h * w,), dtype=torch.int32, device=label.device)
         err = lib.rd_despeckle2(label.data_ptr(), sizes.data_ptr(),
-                                out.data_ptr(), h, w, thre, stream_of(torch))
+                                out.data_ptr(), h, w,
+                                *([1] if frames else []), thre,
+                                stream_of(torch))
         if err:
             fail(f"rd_despeckle2 of {lib._name} did not launch (error "
                  f"{err})")
@@ -422,17 +436,20 @@ def bind_despeckle2(torch, lib):
 
 
 def bind_merge_mask(torch, lib):
-    """merge_mask_fn(strong) through lib's rd_merge_mask."""
+    """merge_mask_fn(strong) through lib's rd_merge_mask (one frame)."""
     import ctypes
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rd_merge_mask.argtypes = [P, P, I, I, I, I, P]
+    frames = getattr(lib, "frame_counts", {}).get("merge_mask", True)
+    lib.rd_merge_mask.argtypes = [P, P, I, I, *([I] if frames else []), I,
+                                  I, P]
     lib.rd_merge_mask.restype = ctypes.c_int
 
     def merge_mask_fn(strong):
         h, w = strong.shape
         out = torch.empty_like(strong)
-        err = lib.rd_merge_mask(strong.data_ptr(), out.data_ptr(), h, w, 0,
-                                w, stream_of(torch))
+        err = lib.rd_merge_mask(strong.data_ptr(), out.data_ptr(), h, w,
+                                *([1] if frames else []), 0, w,
+                                stream_of(torch))
         if err:
             fail(f"rd_merge_mask of {lib._name} did not launch (error {err})")
         return out
@@ -1408,12 +1425,16 @@ def streams(torch, dev, card, drive, counters, record, records):
     """Phase 9, the stream axis, every mesh entry on the one card: the
     batch forms of K1 and K2 at b = STREAM_BATCH on 720p frames (seeds
     0-3), bit-equal to b = 1 calls and within FLOAT_ATOL of the plain
-    versions, device ms in turns with four single calls (their own records
-    on the kernels line); rect_frames and poly_frames at B = STREAM_BATCH
-    driven with the launch counts (32 B - 2 (B - 1) and 7 B - 2 (B - 1)),
-    bit-equal to per-frame calls, frames/s in turns with per-frame calls;
-    rect_frames_sharded and poly_frames_sharded over a 4 x 1 mesh on 8
-    frames, bit-equal to per-frame calls; the StreamSupervisor: 8 streams
+    versions, and of K3, blblur, quant_despeckle, merge_mask, the links
+    CCL and despeckle2 on those frames' maps, bit-equal to b = 1 calls
+    and their plain versions; device ms in turns with four single calls
+    (their own records on the kernels line); rect_frames and poly_frames
+    at B = STREAM_BATCH driven with the launch counts (32 B -
+    RECT_STACK_KERNELS (B - 1) and 7 B - 2 (B - 1)), bit-equal to
+    per-frame calls, frames/s in turns with per-frame calls;
+    rect_frames_sharded driven with its count, it and
+    poly_frames_sharded over a 4 x 1 mesh on 8 frames bit-equal to
+    per-frame calls; the StreamSupervisor: 8 streams
     over 4 entries, entry 2 failing after its first frame, quarantined
     and its streams re-placed, every collected frame equal to rect_frame,
     and the default worker loop's frames/s over 2 streams beside direct
@@ -1427,11 +1448,16 @@ def streams(torch, dev, card, drive, counters, record, records):
     from rectdetect_tpu_torch.dist.stream import (StreamSupervisor,
                                                   poly_frames_sharded,
                                                   rect_frames_sharded)
-    from rectdetect_tpu_torch.ops import _build, hopper_grad, hopper_thin
+    from rectdetect_tpu_torch.ops import (_build, hopper_blblur,
+                                          hopper_despeckle2, hopper_grad,
+                                          hopper_links, hopper_merge_mask,
+                                          hopper_morph, hopper_quant,
+                                          hopper_thin, regions)
     from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
     from rectdetect_tpu_torch.pipeline.poly import poly_frame, poly_frames
     from rectdetect_tpu_torch.pipeline.rect import (live_rects, rect_frame,
-                                                    rect_frames)
+                                                    rect_frames,
+                                                    strength_labels)
 
     cfg = DEFAULT_CONFIG
     b = STREAM_BATCH
@@ -1478,13 +1504,87 @@ def streams(torch, dev, card, drive, counters, record, records):
            lambda: hopper_thin.thinthres(em, vec),
            cuda_ms(torch, lambda: hopper_thin.thin_plain(em, vec), 3),
            nb(em, vec, thin), 2 * em.numel(), label="phase 9")
+    forms = [("edge_front", lambda: hopper_grad.edge_front(labb),
+              lambda: [hopper_grad.edge_front(labb[i]) for i in range(b)]),
+             ("thinthres", lambda: hopper_thin.thinthres(em, vec),
+              lambda: [hopper_thin.thinthres(em[i], vec[i])
+                       for i in range(b)])]
+
+    # the batch forms of the rect tail's dense kernels on the stack's own
+    # maps, each bit-equal to b single calls and to its plain version
+    fe_b = edge_frontend(batch, cfg)
+    s_b = hopper_morph.strings_chain(fe_b.edge_bin, "rect")
+    weak_b, strong_b = (torch.stack(m) for m in zip(*(
+        strength_labels(s_b[i], fe_b.edge_thin[i], cfg) for i in range(b))))
+    weak_bin = (weak_b > 0).to(torch.int32)
+    iters, n, thre = cfg.blblur_iters, cfg.quantize_levels, \
+        cfg.despeckle2_thre
+    blurred = hopper_blblur.blblur(fe_b.packed0, weak_bin, iters)
+    despeck = hopper_quant.quantize_despeckle(blurred, fe_b.edge_thin, n, n,
+                                              n)
+    mask = hopper_merge_mask.junction_merge_mask(strong_b)
+    seg0 = hopper_links.label_merge(despeck, mask, strong_b)
+    seg = hopper_despeckle2.sizes_despeckle2(seg0, thre)
+    hw = b * H * W
+    # record name, counter, source, replaces, kernel, plain version,
+    # inputs, the kernel's output on them, kernels a call, ops (as phase 3
+    # counts them for one frame, times b)
+    tail = [
+        ("strings_chain", "strings_chain", "morph.cu",
+         "rectdetect_tpu/ops/pallas_morph.py:40",
+         lambda e: hopper_morph.strings_chain(e, "rect"),
+         lambda e: hopper_morph.strings_chain_plain(e, "rect"),
+         (fe_b.edge_bin,), s_b, hopper_morph.KERNELS, hw),
+        ("blblur", "blblur", "blblur.cu",
+         "rectdetect_tpu/ops/pallas_blblur.py:223",
+         lambda p, e: hopper_blblur.blblur(p, e, iters),
+         lambda p, e: regions.blblur(p, e, iters), (fe_b.packed0, weak_bin),
+         blurred, hopper_blblur.launch_count(iters),
+         2 * hw + 2 * iters * 3 * 3 * hw),
+        ("quantize_despeckle", "quant_despeckle", "quant_despeckle.cu",
+         "rectdetect_tpu/ops/pallas_morph.py:157",
+         lambda p, e: hopper_quant.quantize_despeckle(p, e, n, n, n),
+         lambda p, e: regions.quantize_despeckle(p, e, n, n, n),
+         (blurred, fe_b.edge_thin), despeck, hopper_quant.KERNELS, 15 * hw),
+        ("junction_merge_mask", "merge_mask", "merge_mask.cu",
+         "rectdetect_tpu/ops/pallas_morph.py:391",
+         hopper_merge_mask.junction_merge_mask, regions.junction_merge_mask,
+         (strong_b,), mask, 1, hw),
+        ("label_merge", "label_merge", "links_ccl.cu",
+         "rectdetect_tpu/ops/pallas_ccl.py:471", hopper_links.label_merge,
+         regions.label_merge, (despeck, mask, strong_b), seg0, 3, hw),
+        ("sizes_despeckle2", "despeckle2", "despeckle2.cu",
+         "rectdetect_tpu/ops/pallas_morph.py:597",
+         lambda l: hopper_despeckle2.sizes_despeckle2(l, thre),
+         lambda l: regions.sizes_despeckle2(l, thre), (seg0,), seg,
+         hopper_despeckle2.KERNELS, 2 * hw)]
+    tail_rows, tail_counter = {}, {}
+    for name, key, src, replaces, kernel, plain, args, got, k, ops in tail:
+        singles = [kernel(*(a[i] for a in args)) for i in range(b)]
+        want = plain(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(got[i], x) for i, x in enumerate(singles))
+        ndiff = int((got != want).sum())
+        tail_rows[name] = {"equal_to_single_calls": same,
+                           "pixels_differ_from_plain": ndiff}
+        if not same:
+            fail(f"the batch form of {name} differs from its single-frame "
+                 "calls")
+        if ndiff:
+            fail(f"the batch form of {name} differs from its plain version "
+                 f"at {ndiff} pixels")
+        tail_counter[f"{name}[b={b}]"] = key
+        record(f"{name}[b={b}]", src, replaces, 0.0,
+               lambda kernel=kernel, args=args: kernel(*args),
+               cuda_ms(torch, lambda plain=plain, args=args: plain(*args), 3),
+               nb(*args, got), ops, kernels=k, label="phase 9")
+        forms.append((name, lambda kernel=kernel, args=args: kernel(*args),
+                      lambda kernel=kernel, args=args: [
+                          kernel(*(a[i] for a in args)) for i in range(b)]))
+    out["batch_forms"]["rect_tail"] = tail_rows
+
     turns = {}
-    for name, one_call, four_calls in (
-            ("edge_front", lambda: hopper_grad.edge_front(labb),
-             lambda: [hopper_grad.edge_front(labb[i]) for i in range(b)]),
-            ("thinthres", lambda: hopper_thin.thinthres(em, vec),
-             lambda: [hopper_thin.thinthres(em[i], vec[i])
-                      for i in range(b)])):
+    for name, one_call, four_calls in forms:
         t = {"order": f"b={b}, {b} x b=1, {b} x b=1, b={b}", f"b={b}": [],
              f"{b} x b=1": []}
         for key, fn in ((f"b={b}", one_call), (f"{b} x b=1", four_calls),
@@ -1498,12 +1598,18 @@ def streams(torch, dev, card, drive, counters, record, records):
     # rect_frames and poly_frames at B = b
     want = [rect_frame(frames[i], TAN_AOV, cfg) for i in range(2 * b)]
     want_p = [poly_frame(frames[i], cfg) for i in range(2 * b)]
+    hopper_morph.batch_launches = 0
     res = drive(f"rect_frames (phase 9, 720p, B={b})", list(counters),
                 lambda: rect_frames(batch, TAN_AOV, cfg),
-                RECT_FRAME_KERNELS * b - 2 * (b - 1))
+                RECT_FRAME_KERNELS * b - RECT_STACK_KERNELS * (b - 1))
+    tail_counter.update({f"edge_front[b={b}]": "edge_front",
+                         f"thinthres[b={b}]": "thinthres"})
     for rec in records:
-        if rec["name"] in (f"edge_front[b={b}]", f"thinthres[b={b}]"):
-            rec["launches"] = counters[rec["name"].split("[")[0]].launches
+        if rec["name"] == f"strings_chain[b={b}]":
+            # K3 also runs once a frame (poly_branch) inside the polylines
+            rec["launches"] = hopper_morph.batch_launches
+        elif rec["name"] in tail_counter:
+            rec["launches"] = counters[tail_counter[rec["name"]]].launches
     arena, lsid = drive(f"poly_frames (phase 9, 720p, B={b})",
                         ["edge_front", "thinthres", "strings_chain",
                          "label_components", "mkpl"],
@@ -1527,9 +1633,15 @@ def streams(torch, dev, card, drive, counters, record, records):
     if not (rect_eq and poly_eq):
         fail("rect_frames or poly_frames differs from the per-frame calls")
 
-    # the sharded frames over a 4 x 1 mesh of the card
+    # the sharded frames over a 4 x 1 mesh of the card: each row one
+    # rect_frames call on its 2 frames
     mesh = make_mesh(4, 1, [dev] * 4)
-    res_s = rect_frames_sharded(frames, TAN_AOV, mesh, cfg)
+    rows, per_row = 4, 2 * b // 4
+    res_s = drive(f"rect_frames_sharded (phase 9, 720p, 4 x 1, {2 * b} "
+                  "frames)", list(counters),
+                  lambda: rect_frames_sharded(frames, TAN_AOV, mesh, cfg),
+                  rows * (RECT_FRAME_KERNELS * per_row
+                          - RECT_STACK_KERNELS * (per_row - 1)))
     arena_s, lsid_s = poly_frames_sharded(frames, mesh, cfg)
     torch.cuda.synchronize()
     sh_rect = all(same_result(torch, type(res_s)(*(f[i] for f in res_s)), w)

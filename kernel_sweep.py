@@ -273,15 +273,19 @@ def hyp_entry(torch, lib):
 
 
 def morph_entry(torch, lib):
-    """strings_fn(edge, variant) through lib's rd_strings_chain."""
+    """strings_fn(edge, variant) through lib's rd_strings_chain (one
+    frame)."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rd_strings_chain.argtypes = [P, P, I, I, I, I, I, I, P]
+    frames = getattr(lib, "frame_counts", {}).get("morph", True)
+    lib.rd_strings_chain.argtypes = [P, P, I, I, *([I] if frames else []),
+                                     I, I, I, I, P]
     lib.rd_strings_chain.restype = ctypes.c_int
 
     def strings_fn(edge, variant):
         h, w = edge.shape
         out = torch.empty_like(edge)
         if lib.rd_strings_chain(edge.data_ptr(), out.data_ptr(), h, w,
+                                *([1] if frames else []),
                                 {"rect": 0, "poly_branch": 1}[variant], 0,
                                 0, w, chip_smoke.stream_of(torch)):
             fail("a K3 build did not launch")
@@ -292,16 +296,19 @@ def morph_entry(torch, lib):
 
 def quant_entry(torch, lib):
     """quant_fn(packed, emag, n0, n1, n2) through lib's
-    rd_quant_despeckle."""
+    rd_quant_despeckle (one frame)."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rd_quant_despeckle.argtypes = [P, P, P, I, I, I, I, I, P]
+    frames = getattr(lib, "frame_counts", {}).get("quant_despeckle", True)
+    lib.rd_quant_despeckle.argtypes = [P, P, P, I, I,
+                                       *([I] if frames else []), I, I, I, P]
     lib.rd_quant_despeckle.restype = ctypes.c_int
 
     def quant_fn(packed, emag, n0, n1, n2):
         h, w = packed.shape
         out = torch.empty_like(packed)
         if lib.rd_quant_despeckle(packed.data_ptr(), emag.data_ptr(),
-                                  out.data_ptr(), h, w, n0, n1, n2,
+                                  out.data_ptr(), h, w,
+                                  *([1] if frames else []), n0, n1, n2,
                                   chip_smoke.stream_of(torch)):
             fail("a quant_despeckle build did not launch")
         return out

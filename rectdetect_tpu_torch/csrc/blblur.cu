@@ -45,6 +45,11 @@
 //    pallas_blblur.py:37-38: exact for n <= 4095 d).  A tap count of 0
 //    keeps the input pixel.
 //
+// The batch form takes b frames of (h, w) one after the other in every
+// buffer: grid z of both kernels is the frame, whose planes (packed, edge,
+// arms, out, tmp) sit at the offset z h w, so every arm, tile and halo
+// stays inside its own frame, and each launch serves all b frames.
+//
 // Integer arithmetic only, so the result equals the plain version exactly.
 // F (1, 2, 5 or 10) and its tile are compile-time choices, timed against
 // each other by chip_smoke.py.  The kernel stays well above the memory
@@ -114,6 +119,9 @@ __global__ void __launch_bounds__(kArmW* kArmRows)
                 int h, int w, int gx0, int wt) {
   // bit c of rowm[r] / bit r of colm[c]: the edge at tile row r, column c
   __shared__ unsigned long long rowm[kArmT], colm[kArmT];
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  edge += plane;
+  arms += plane;
   const int bx = blockIdx.x * kArmW - kArmHalo;
   const int by = blockIdx.y * kArmH - kArmHalo;
   const int lane = threadIdx.x, warp = threadIdx.y;
@@ -298,6 +306,10 @@ __global__ void __launch_bounds__(kThreadsX* kThreadsY)
   uint16_t* hi[2] = {(uint16_t*)((unsigned*)smem + 2 * NL),
                      (uint16_t*)((unsigned*)smem + 2 * NL) + NH};
   uint16_t* arm = hi[1] + NH;
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  in += plane;
+  arms += plane;
+  out += plane;
 
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
   if (tid < 16) magic[tid] = tid == 0 ? 0u : (1u << kDivN) / tid + 1u;
@@ -357,7 +369,7 @@ __global__ void __launch_bounds__(kThreadsX* kThreadsY)
 
 template <int F, int TH, int TW>
 cudaError_t launch_fused(const int* in, const uint16_t* arms, int* out, int h,
-                         int w, int rounds, cudaStream_t s) {
+                         int w, int b, int rounds, cudaStream_t s) {
   constexpr int smem = Tile<F, TH, TW>::kSmem;
   static bool attr = false;
   if (!attr) {
@@ -367,7 +379,7 @@ cudaError_t launch_fused(const int* in, const uint16_t* arms, int* out, int h,
     if (e != cudaSuccess) return e;
     attr = true;
   }
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
+  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, b);
   blblur_fused<F, TH, TW>
       <<<grid, dim3(kThreadsX, kThreadsY), smem, s>>>(in, arms, out, h, w,
                                                       rounds);
@@ -378,19 +390,20 @@ cudaError_t launch_fused(const int* in, const uint16_t* arms, int* out, int h,
 // rounds 1..F from a launch of the fused kernel with F rounds' halo; the
 // tiles (TH, TW) are ops/hopper_blblur.py:TILES
 cudaError_t fused(int fuse, const int* in, const uint16_t* arms, int* out,
-                  int h, int w, int rounds, cudaStream_t s) {
+                  int h, int w, int b, int rounds, cudaStream_t s) {
   switch (fuse) {
-    case 1: return launch_fused<1, 32, 128>(in, arms, out, h, w, rounds, s);
-    case 2: return launch_fused<2, 24, 128>(in, arms, out, h, w, rounds, s);
-    case 5: return launch_fused<5, 48, 96>(in, arms, out, h, w, rounds, s);
-    case 10: return launch_fused<10, 32, 48>(in, arms, out, h, w, rounds, s);
+    case 1: return launch_fused<1, 32, 128>(in, arms, out, h, w, b, rounds, s);
+    case 2: return launch_fused<2, 24, 128>(in, arms, out, h, w, b, rounds, s);
+    case 5: return launch_fused<5, 48, 96>(in, arms, out, h, w, b, rounds, s);
+    case 10:
+      return launch_fused<10, 32, 48>(in, arms, out, h, w, b, rounds, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t arm_pass(const int* edge, uint16_t* arms, int h, int w, int gx0,
-                     int wt, cudaStream_t s) {
-  blblur_arms<<<dim3((w + kArmW - 1) / kArmW, (h + kArmH - 1) / kArmH),
+cudaError_t arm_pass(const int* edge, uint16_t* arms, int h, int w,
+                     int b, int gx0, int wt, cudaStream_t s) {
+  blblur_arms<<<dim3((w + kArmW - 1) / kArmW, (h + kArmH - 1) / kArmH, b),
                 dim3(kArmW, kArmRows), 0, s>>>(edge, arms, h, w, gx0, wt);
   rd::count_launch();
   return cudaGetLastError();
@@ -398,29 +411,33 @@ cudaError_t arm_pass(const int* edge, uint16_t* arms, int h, int w, int gx0,
 
 }  // namespace
 
-// out and tmp: (h, w) int32 buffers, neither aliasing packed; arms: (h, w)
+// packed, edge: (b, h, w) int32, 1 <= b <= 65535 (gridDim.z); out and
+// tmp: (b, h, w) int32 buffers, neither aliasing packed; arms: (b, h, w)
 // uint16 scratch; gx0: the frame column of local column 0, wt: the frame's
-// width (0 and w for a whole frame).  1 + ceil(iters / fuse) launches, the
-// last into out.
+// width (0 and w for a whole frame).  1 + ceil(iters / fuse) launches for
+// all b frames, the last into out.
 extern "C" int rd_blblur(const void* packed, const void* edge, void* out,
-                         void* tmp, void* arms, int h, int w, int iters,
-                         int fuse, int gx0, int wt, void* stream) {
+                         void* tmp, void* arms, int h, int w, int b,
+                         int iters, int fuse, int gx0, int wt,
+                         void* stream) {
+  if (b < 1 || b > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (h <= 0 || w <= 0) return 0;
   if (iters <= 0)
-    return (int)cudaMemcpyAsync(out, packed, sizeof(int) * (size_t)h * w,
+    return (int)cudaMemcpyAsync(out, packed,
+                                sizeof(int) * (size_t)b * h * w,
                                 cudaMemcpyDeviceToDevice, s);
   if (fuse != 1 && fuse != 2 && fuse != 5 && fuse != 10)
     return (int)cudaErrorInvalidValue;
   uint16_t* A = (uint16_t*)arms;
-  cudaError_t e = arm_pass((const int*)edge, A, h, w, gx0, wt, s);
+  cudaError_t e = arm_pass((const int*)edge, A, h, w, b, gx0, wt, s);
   if (e != cudaSuccess) return (int)e;
   const int n = (iters + fuse - 1) / fuse;
   const int* src = (const int*)packed;
   for (int i = 0; i < n; ++i) {
     int* dst = (int*)((n - 1 - i) % 2 == 0 ? out : tmp);
     const int rounds = i == n - 1 ? iters - fuse * (n - 1) : fuse;
-    e = fused(fuse, src, A, dst, h, w, rounds, s);
+    e = fused(fuse, src, A, dst, h, w, b, rounds, s);
     if (e != cudaSuccess) return (int)e;
     src = dst;
   }

@@ -35,6 +35,14 @@
 // a large region's size line from L2 once (loads that bypass L1 send one
 // request a warp to that one line; PERF.md section 6).
 //
+// The batch form takes b frames of (h, w) one after the other in label,
+// sizes and out.  Its grid is capped at the co-resident blocks as before,
+// so the frames are not a grid dimension: the work items are the b
+// frames' tiles, frame by frame, walked by the same loops between the
+// same two barriers.  A tile of frame z reads and writes only that
+// frame's planes, at the offset z h w: its window's border is its own
+// frame's, and its labels index its own frame's size table.
+//
 // The grid barrier is cooperative_groups' grid sync under
 // cudaLaunchCooperativeKernel, rather than a counter of our own: the
 // launch itself refuses a grid that cannot be co-resident, so a barrier
@@ -73,13 +81,19 @@ struct Shared {
   int count[kSlots];
 };
 
+// a tile's origin in its frame, and the offset of that frame's planes
 struct Tile {
   int x0, y0;
+  size_t plane;
 };
 
-__device__ __forceinline__ Tile tile_of(int t, int tiles_x) {
-  const int ty = t / tiles_x;
-  return {(t - ty * tiles_x) * kTileCols, ty * kTileRows};
+// work item t: tile t % per_frame of frame t / per_frame
+__device__ __forceinline__ Tile tile_of(int t, int tiles_x, int per_frame,
+                                        int n) {
+  const int z = t / per_frame;
+  const int i = t - z * per_frame;
+  const int ty = i / tiles_x;
+  return {(i - ty * tiles_x) * kTileCols, ty * kTileRows, (size_t)z * n};
 }
 
 __device__ __forceinline__ int clamp_label(int l, int n) {
@@ -102,7 +116,7 @@ __device__ void load_window(Shared& s, const int* __restrict__ label,
     const int r = i / kWinCols;
     const int y = t.y0 - 1 + r, x = t.x0 - 1 + (i - r * kWinCols);
     v[j] = i < kWinSize && y >= 0 && y < h && x >= 0 && x < w
-               ? label[y * w + x]
+               ? label[t.plane + y * w + x]
                : 0;
   }
 #pragma unroll
@@ -167,7 +181,7 @@ __device__ __forceinline__ int own_label(const Shared& s, int k, int n) {
 __global__ void __launch_bounds__(kThreads)
     despeckle2_kernel(const int* __restrict__ label, int* __restrict__ sizes,
                       int* __restrict__ out, int h, int w, int thre,
-                      int tiles_x, int tiles) {
+                      int tiles_x, int per_frame, int tiles) {
   __shared__ Shared s;
   const cg::grid_group grid = cg::this_grid();
   const int n = h * w;
@@ -178,15 +192,16 @@ __global__ void __launch_bounds__(kThreads)
 
   // A: each label of the tile zeroed once
   for (int i = 0; i < mine; ++i) {
-    const Tile t = tile_of(b + i * g, tiles_x);
+    const Tile t = tile_of(b + i * g, tiles_x, per_frame, n);
+    int* const sz = sizes + t.plane;
     __syncthreads();
     load_window(s, label, t, h, w);
     __syncthreads();
     count_tile(s, t, h, w, n, spill);
-    if (tid < kSlots && s.key[tid] != kEmpty) sizes[s.key[tid]] = 0;
+    if (tid < kSlots && s.key[tid] != kEmpty) sz[s.key[tid]] = 0;
 #pragma unroll
     for (int k = 0; k < kPasses; ++k) {
-      if (spill[k]) sizes[own_label(s, k, n)] = 0;
+      if (spill[k]) sz[own_label(s, k, n)] = 0;
     }
   }
   grid.sync();
@@ -194,7 +209,8 @@ __global__ void __launch_bounds__(kThreads)
   // B: the counts added, the tiles in reverse (the last one's table and
   // spills are still here)
   for (int i = mine - 1; i >= 0; --i) {
-    const Tile t = tile_of(b + i * g, tiles_x);
+    const Tile t = tile_of(b + i * g, tiles_x, per_frame, n);
+    int* const sz = sizes + t.plane;
     if (i != mine - 1) {
       __syncthreads();
       load_window(s, label, t, h, w);
@@ -202,11 +218,11 @@ __global__ void __launch_bounds__(kThreads)
       count_tile(s, t, h, w, n, spill);
     }
     if (tid < kSlots && s.key[tid] != kEmpty) {
-      atomicAdd(sizes + s.key[tid], s.count[tid]);
+      atomicAdd(sz + s.key[tid], s.count[tid]);
     }
 #pragma unroll
     for (int k = 0; k < kPasses; ++k) {
-      if (spill[k]) atomicAdd(sizes + own_label(s, k, n), spill[k]);
+      if (spill[k]) atomicAdd(sz + own_label(s, k, n), spill[k]);
     }
   }
   grid.sync();
@@ -214,7 +230,8 @@ __global__ void __launch_bounds__(kThreads)
   // C: the absorption, the tiles forwards (the first one's window is
   // still here)
   for (int i = 0; i < mine; ++i) {
-    const Tile t = tile_of(b + i * g, tiles_x);
+    const Tile t = tile_of(b + i * g, tiles_x, per_frame, n);
+    int* const sz = sizes + t.plane;
     if (i != 0) {
       __syncthreads();
       load_window(s, label, t, h, w);
@@ -230,22 +247,22 @@ __global__ void __launch_bounds__(kThreads)
       const int* p = s.win + (ty + 1) * kWinCols + threadIdx.x + 1;
       const int lb = *p;
       int best_lb = lb;
-      if (sizes[clamp_label(lb, n)] <= thre) {
+      if (sz[clamp_label(lb, n)] <= thre) {
         int best_sz = 0;
         for (int dy = -1; dy <= 1; ++dy) {
           for (int dx = -1; dx <= 1; ++dx) {
             const int yy = y + dy, xx = x + dx;
             if (yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
             const int cl = p[dy * kWinCols + dx];
-            const int sz = sizes[clamp_label(cl, n)];
-            if (sz > best_sz) {
-              best_sz = sz;
+            const int size = sz[clamp_label(cl, n)];
+            if (size > best_sz) {
+              best_sz = size;
               best_lb = cl;
             }
           }
         }
       }
-      out[y * w + x] = best_lb;
+      out[t.plane + y * w + x] = best_lb;
     }
   }
 }
@@ -272,18 +289,24 @@ int resident_blocks() {
 
 }  // namespace
 
-// sizes: (h*w,) int32 scratch, any contents
+// label, out: (b, h, w) int32, 1 <= b <= 65535; sizes: (b*h*w,) int32
+// scratch, any contents
 extern "C" int rd_despeckle2(const void* label, void* sizes, void* out, int h,
-                             int w, int thre, void* stream) {
+                             int w, int b, int thre, void* stream) {
+  if (b < 1 || b > 65535) return (int)cudaErrorInvalidValue;
   int tiles_x = (w + kTileCols - 1) / kTileCols;
-  int tiles = tiles_x * ((h + kTileRows - 1) / kTileRows);
+  int per_frame = tiles_x * ((h + kTileRows - 1) / kTileRows);
+  if ((long long)per_frame * b > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  int tiles = per_frame * b;
   const int resident = resident_blocks();
   if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
   const int blocks = tiles < resident ? tiles : resident;
   const int* lab = (const int*)label;
   int* sz = (int*)sizes;
   int* o = (int*)out;
-  void* args[] = {&lab, &sz, &o, &h, &w, &thre, &tiles_x, &tiles};
+  void* args[] = {&lab, &sz, &o, &h, &w, &thre, &tiles_x, &per_frame,
+                  &tiles};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       (const void*)despeckle2_kernel, dim3(blocks),
       dim3(kTileCols, kRowsPerPass), args, 0, (cudaStream_t)stream);

@@ -43,6 +43,12 @@
 // column 0 is frame column gx0 of a frame wt wide, and the links test
 // interior(y, x + gx0) against wt; the whole frame is gx0 = 0, wt = w.
 // Only the links see the offset.
+//
+// The batch form takes b frames of (h, w) one after the other in every
+// buffer: the tile pass's grid z and the seam and flatten passes' grid y
+// are the frame, whose planes sit at the offset z h w.  Labels stay flat
+// indices of the frame's own plane (0..h w - 1), so each frame's
+// union-find runs on its own parent array, and no link crosses frames.
 
 #include "tile_ccl.cuh"
 
@@ -88,6 +94,11 @@ __global__ void __launch_bounds__(kTW* kTH)
   __shared__ bool s_edge[kTH][kTW];
   __shared__ int s_par[kTH * kTW];
   __shared__ unsigned s_right[kTH];  // right links of each row, by lane
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  packed += plane;
+  mask += plane;
+  edge += plane;
+  parent += plane;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int x0 = blockIdx.x * kTW, y0 = blockIdx.y * kTH;
   const int x = x0 + tx, y = y0 + ty;
@@ -142,6 +153,11 @@ __global__ void seam_kernel(const int* __restrict__ packed,
                             const int* __restrict__ mask,
                             const int* __restrict__ edge, int* parent, int h,
                             int w, int gx0, int wt) {
+  const size_t plane = (size_t)blockIdx.y * h * w;
+  packed += plane;
+  mask += plane;
+  edge += plane;
+  parent += plane;
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   const int nv = (w - 1) / kTW * h;  // right links across column seams
   const int nh = (h - 1) / kTH * w;  // lower links across row seams
@@ -192,12 +208,14 @@ __global__ void seam_kernel(const int* __restrict__ packed,
 
 }  // namespace
 
-// out: (h, w) int32, the parent array and then the labels; gx0: the frame
-// column of local column 0, wt: the frame's width (0 and w for a whole
-// frame)
+// packed, mask, edge: (b, h, w) int32, 1 <= b <= 65535 (gridDim.z and
+// gridDim.y); out: (b, h, w) int32, the parent arrays and then the labels;
+// gx0: the frame column of local column 0, wt: the frame's width (0 and w
+// for a whole frame)
 extern "C" int rd_label_merge(const void* packed, const void* mask,
-                              const void* edge, void* out, int h, int w,
-                              int gx0, int wt, void* stream) {
+                              const void* edge, void* out, int h,
+                              int w, int b, int gx0, int wt, void* stream) {
+  if (b < 1 || b > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int n = h * w;
   if (n <= 0) return 0;
@@ -205,14 +223,15 @@ extern "C" int rd_label_merge(const void* packed, const void* mask,
   const int* M = (const int*)mask;
   const int* E = (const int*)edge;
   int* L = (int*)out;
-  tile_kernel<<<dim3((w + kTW - 1) / kTW, (h + kTH - 1) / kTH),
+  tile_kernel<<<dim3((w + kTW - 1) / kTW, (h + kTH - 1) / kTH, b),
                 dim3(kTW, kTH), 0, s>>>(P, M, E, L, h, w, gx0, wt);
   rd::count_launch();
+  // per frame
   const int seams = (w - 1) / kTW * h + (h - 1) / kTH * w;
-  seam_kernel<<<max(1, (seams + 255) / 256), 256, 0, s>>>(P, M, E, L, h, w,
-                                                          gx0, wt);
+  seam_kernel<<<dim3(max(1, (seams + 255) / 256), b), 256, 0, s>>>(
+      P, M, E, L, h, w, gx0, wt);
   rd::count_launch();
-  rd::flatten_kernel<<<(n + 255) / 256, 256, 0, s>>>(L, n);
+  rd::flatten_kernel<<<dim3((n + 255) / 256, b), 256, 0, s>>>(L, n);
   rd::count_launch();
   return (int)cudaGetLastError();
 }

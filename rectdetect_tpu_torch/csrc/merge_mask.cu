@@ -40,6 +40,9 @@
 //             shifts of row unions a word;
 //   store     out = ring & ~(d64 | d16), one 128-byte warp write per tile
 //             word, each lane its own pixel.
+// The batch form takes b frames of (h, w) one after the other: grid z is
+// the frame, and a block reads and writes its own frame's plane only, at
+// the offset z h w, so no dilation reaches across frames.
 // The halo is 8 rows and 8 pixels: 7 for the d^2 < 64 disk and 1 for the
 // junction's stencil.  Words beyond the window read 0, which disturbs only
 // the window's outer bits, at least 24 pixels from the tile.
@@ -118,6 +121,9 @@ __global__ void __launch_bounds__(kThreads)
                       int h, int w, int gx0, int wt) {
   __shared__ unsigned s_nz[kWin], s_any[kWin], s_end[kWin], s_core[kWin];
   __shared__ unsigned s_out[kTileWordsAll];
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  lbl += plane;
+  out += plane;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ty0 = blockIdx.y * kTileRows;
   const int tw0 = blockIdx.x * kTileWords;
@@ -211,12 +217,14 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// gx0: the frame column of local column 0, wt: the frame's width (0 and w
-// for a whole frame)
-extern "C" int rd_merge_mask(const void* lbl, void* out, int h, int w,
-                             int gx0, int wt, void* stream) {
+// lbl, out: (b, h, w) int32, 1 <= b <= 65535 (gridDim.z); gx0: the frame
+// column of local column 0, wt: the frame's width (0 and w for a whole
+// frame)
+extern "C" int rd_merge_mask(const void* lbl, void* out, int h,
+                             int w, int b, int gx0, int wt, void* stream) {
+  if (b < 1 || b > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((w + 32 * kTileWords - 1) / (32 * kTileWords),
-                  (h + kTileRows - 1) / kTileRows);
+                  (h + kTileRows - 1) / kTileRows, b);
   merge_mask_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)lbl, (int*)out, h, w, gx0, wt);
   rd::count_launch();

@@ -51,10 +51,13 @@
 // whose local column 0 sits at frame column gx0: the interior masks and
 // stringify's checkerboard parity take the frame column (local + gx0)
 // and wt, and the loads and stores stay local; gx0 = 0, wt = w is the
-// whole frame.  Loads are one coalesced 128-byte warp read per
-// window word, turned into the word by __ballot_sync (every lane reaches
-// it: there is no early return); stores one 128-byte warp write per tile
-// word, each lane its own pixel.
+// whole frame.  The batch form takes b frames of (h, w) one after the
+// other: grid z is the frame, and a block reads and writes its own
+// frame's plane only, at the offset z h w, so each frame's first word
+// starts at its own column 0 and its border is its own.  Loads are one
+// coalesced 128-byte warp read per window word, turned into the word by
+// __ballot_sync (every lane reaches it: there is no early return); stores
+// one 128-byte warp write per tile word, each lane its own pixel.
 
 #include "common.cuh"
 
@@ -143,6 +146,9 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kWin = WR * kWinWords;
   constexpr int kLoads = (kWin + kWarps - 1) / kWarps;
   __shared__ unsigned s_a[kWin], s_b[kWin], s_c[kWin];
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  edge += plane;
+  out += plane;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ty0 = blockIdx.y * kTileRows;
   const int tw0 = blockIdx.x * kTileWords;
@@ -284,27 +290,29 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 template <int V, bool B2>
-static void launch_chain(const void* edge, void* out, int h, int w,
+static void launch_chain(const void* edge, void* out, int h, int w, int b,
                          int gx0, int wt, cudaStream_t s) {
   const dim3 grid((w + 32 * kTileWords - 1) / (32 * kTileWords),
-                  (h + kTileRows - 1) / kTileRows);
+                  (h + kTileRows - 1) / kTileRows, b);
   chain_kernel<V, B2><<<grid, kThreads, 0, s>>>((const int*)edge, (int*)out,
                                                 h, w, gx0, wt);
 }
 
-// variant: 0 = rect, 1 = poly_branch; bridge2: 0 or 1; gx0: the frame
-// column of local column 0, wt: the frame's width (0 and w for a whole
-// frame); one launch for any
-extern "C" int rd_strings_chain(const void* edge, void* out, int h, int w,
-                                int variant, int bridge2, int gx0, int wt,
-                                void* stream) {
+// edge, out: (b, h, w) int32, 1 <= b <= 65535 (gridDim.z); variant: 0 =
+// rect, 1 = poly_branch; bridge2: 0 or 1; gx0: the frame column of local
+// column 0, wt: the frame's width (0 and w for a whole frame); one launch
+// for any
+extern "C" int rd_strings_chain(const void* edge, void* out, int h,
+                                int w, int b, int variant, int bridge2,
+                                int gx0, int wt, void* stream) {
+  if (b < 1 || b > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == 0)
-    bridge2 ? launch_chain<0, true>(edge, out, h, w, gx0, wt, s)
-            : launch_chain<0, false>(edge, out, h, w, gx0, wt, s);
+    bridge2 ? launch_chain<0, true>(edge, out, h, w, b, gx0, wt, s)
+            : launch_chain<0, false>(edge, out, h, w, b, gx0, wt, s);
   else
-    bridge2 ? launch_chain<1, true>(edge, out, h, w, gx0, wt, s)
-            : launch_chain<1, false>(edge, out, h, w, gx0, wt, s);
+    bridge2 ? launch_chain<1, true>(edge, out, h, w, b, gx0, wt, s)
+            : launch_chain<1, false>(edge, out, h, w, b, gx0, wt, s);
   rd::count_launch();
   return (int)cudaGetLastError();
 }

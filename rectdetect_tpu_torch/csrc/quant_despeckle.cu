@@ -23,6 +23,11 @@
 // the square is below the best one's.  Results meet in shared memory for
 // one coalesced store; no thread leaves before a barrier.
 //
+// The batch form takes b frames of (h, w) one after the other: grid z is
+// the frame, and a block reads and writes its own frame's planes only, at
+// the offset z h w, so a window pixel beyond the frame's border is outside
+// the frame, never a pixel of the next one.
+//
 // Floats as the jitted JAX composition (ops/regions.py): the lattice snap
 // floor(fma(v, n, 0.5)) / n with a correctly rounded division; the distance
 // sqrtf((dL*dL + da*da) + db*db) with no fused multiply-add and a
@@ -100,6 +105,10 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ short s_list[kTileRows * kTileCols];
   __shared__ unsigned s_tab[3][kMaxLevels + 1];
   __shared__ int s_n;
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  packed += plane;
+  emag += plane;
+  out += plane;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int t = ty * kTileCols + tx;
   const int y0 = blockIdx.y * kTileRows - 1, x0 = blockIdx.x * kTileCols - 1;
@@ -211,11 +220,14 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// packed, emag, out: (b, h, w), 1 <= b <= 65535 (gridDim.z)
 extern "C" int rd_quant_despeckle(const void* packed, const void* emag,
-                                  void* out, int h, int w, int n0, int n1,
-                                  int n2, void* stream) {
+                                  void* out, int h,
+                                  int w, int b, int n0, int n1, int n2,
+                                  void* stream) {
+  if (b < 1 || b > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((w + kTileCols - 1) / kTileCols,
-                  (h + kTileRows - 1) / kTileRows);
+                  (h + kTileRows - 1) / kTileRows, b);
   quant_despeckle_kernel<<<grid, dim3(kTileCols, kRowsPerPass), 0,
                            (cudaStream_t)stream>>>(
       (const int*)packed, (const float*)emag, (int*)out, h, w, (float)n0,

@@ -46,16 +46,16 @@ _F = ctypes.c_float
 SIGNATURES = {
     "rd_edge_front": (_P, _P, _P, _I, _I, _I, _P),
     "rd_thin": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    "rd_strings_chain": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "rd_strings_chain": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "rd_label_components": (_P, _P, _I, _I, _I, _P),
     "rd_mkpl": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rd_seg_scan": (_P, _P, _P, _P, _I, _I, _I, _P),
     "rd_seg_total": (_P, _P, _P, _P, _I, _I, _P),
-    "rd_blblur": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "rd_quant_despeckle": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "rd_merge_mask": (_P, _P, _I, _I, _I, _I, _P),
-    "rd_label_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "rd_despeckle2": (_P, _P, _P, _I, _I, _I, _P),
+    "rd_blblur": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "rd_quant_despeckle": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "rd_merge_mask": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "rd_label_merge": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rd_despeckle2": (_P, _P, _P, _I, _I, _I, _I, _P),
     "rd_distinct_bids": (_P, _P, _I, _I, _P),
     "rd_hyp": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "rd_pose": (_P, _P, _P, _P, _I, _F, _F, _F, _I, _I, _P),
@@ -222,6 +222,28 @@ def frames(lead: tuple, name: str) -> int:
         raise ValueError(f"{name}: expected one frame or a leading axis of "
                          f"1..{MAX_FRAMES} frames, got {lead}")
     return lead[0]
+
+
+def frame_stack(t: torch.Tensor, name: str, dtype) -> tuple:
+    """(lead, b, h, w) of a batch-form kernel's (H,W) or (B,H,W) map,
+    checked as check() does: lead is () or (B,), b the frame count."""
+    if t.dim() < 2:
+        raise ValueError(f"{name}: expected an (H,W) or (B,H,W) map, got "
+                         f"{tuple(t.shape)}")
+    lead = tuple(t.shape[:-2])
+    h, w = t.shape[-2:]
+    b = frames(lead, name)
+    check(t, name, dtype, (*lead, h, w))
+    return lead, b, h, w
+
+
+def frame_columns(b: int, x0: int, w_total, w: int) -> tuple[int, int]:
+    """(x0, the frame's width) of a kernel's offset form; the offset form
+    takes one frame (the width-tiled path), so b > 1 refuses an offset."""
+    if b > 1 and (x0 != 0 or w_total is not None):
+        raise ValueError("x0 and w_total are the width-tiled path's offset "
+                         f"form, which takes one frame, not {b}")
+    return int(x0), w if w_total is None else int(w_total)
 
 
 def launch(name: str, device: torch.device, *args, kernels: int = 1) -> None:

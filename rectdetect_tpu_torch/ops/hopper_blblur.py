@@ -19,6 +19,11 @@ same launches with the tile's global x and the frame's width: the arm
 pass breaks the horizontal arms at the true frame border and tests the
 vertical corner against it; the fused launches do not change.
 
+A leading frame axis (B,H,W) is the batch form: the same 1 + ceil(iters /
+F) launches for all B frames (grid z = frame, every arm, tile and halo
+inside its own frame's plane), the counterpart of the JAX package's vmap
+over the Pallas kernel in rect_frames; the offset form takes one frame.
+
 `blblur` takes the plain version for CPU tensors and launches the kernel
 for CUDA tensors; there is no other path.
 """
@@ -52,16 +57,15 @@ def blblur_fused(packed: torch.Tensor, edge: torch.Tensor, iters: int,
     """The kernel with `fuse` rounds per launch (CUDA tensors only)."""
     if fuse not in TILES:
         raise ValueError(f"fuse must be one of {sorted(TILES)}, got {fuse}")
-    h, w = packed.shape
-    _build.check(packed, "packed", torch.int32, (h, w))
-    _build.check(edge, "edge", torch.int32, (h, w))
+    lead, b, h, w = _build.frame_stack(packed, "packed", torch.int32)
+    _build.check(edge, "edge", torch.int32, packed.shape)
+    gx0, wt = _build.frame_columns(b, x0, w_total, w)
     out = torch.empty_like(packed)
     tmp = torch.empty_like(packed)
-    arms = torch.empty((h, w), dtype=torch.int16, device=packed.device)
+    arms = torch.empty((*lead, h, w), dtype=torch.int16, device=packed.device)
     _build.launch("rd_blblur", packed.device, packed.data_ptr(),
                   edge.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                  arms.data_ptr(), h, w, int(iters), int(fuse), int(x0),
-                  w if w_total is None else int(w_total),
+                  arms.data_ptr(), h, w, b, int(iters), int(fuse), gx0, wt,
                   kernels=launch_count(iters, fuse) if h and w else 0)
     _build.count(globals(), "launches")
     if x0 != 0 or w_total is not None:
@@ -71,8 +75,9 @@ def blblur_fused(packed: torch.Tensor, edge: torch.Tensor, iters: int,
 
 def blblur(packed: torch.Tensor, edge: torch.Tensor, iters: int = 10,
            x0: int = 0, w_total: int | None = None) -> torch.Tensor:
-    """packed (H,W) int32 packed Lab, edge (H,W) int32 0/1 -> (H,W) int32.
-    x0: the global x of column 0, w_total: the frame's width (None: W)."""
+    """packed ([B,]H,W) int32 packed Lab, edge ([B,]H,W) int32 0/1 ->
+    ([B,]H,W) int32; B frames in the launches of one.  x0: the global x of
+    column 0, w_total: the frame's width (None: W)."""
     if not _build.on_cuda(packed, edge):
         return blblur_plain(packed, edge, iters, x0, w_total)
     return blblur_fused(packed, edge, iters, FUSE, x0, w_total)

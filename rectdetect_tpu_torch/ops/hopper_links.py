@@ -16,6 +16,12 @@ of the width-tiled path (dist/tile.py) is the same three launches with
 the tile's global x and the frame's width: only the links' interior
 test sees them.
 
+A leading frame axis (B,H,W) is the batch form: the same three launches
+for all B frames (the tile pass's grid z and the seam and flatten passes'
+grid y = frame), each frame's labels flat indices of its own plane, the
+counterpart of the JAX package's vmap over the Pallas kernel in
+rect_frames; the offset form takes one frame.
+
 `label_merge` takes the plain version (ops/regions.py: merge_pairs +
 label_links) for CPU tensors and launches the kernel for CUDA tensors;
 there is no other path.
@@ -36,21 +42,21 @@ offset_launches = 0
 def label_merge(packed: torch.Tensor, mask: torch.Tensor,
                 edge_label: torch.Tensor, x0: int = 0,
                 w_total: int | None = None) -> torch.Tensor:
-    """packed (H,W) int32 colours, mask (H,W) int32 merge mask, edge_label
-    (H,W) int32 (> 0 blocks) -> (H,W) int32 region labels (local flat
-    indices).  x0: the global x of column 0, w_total: the frame's width
-    (None: W)."""
+    """packed ([B,]H,W) int32 colours, mask ([B,]H,W) int32 merge mask,
+    edge_label ([B,]H,W) int32 (> 0 blocks) -> ([B,]H,W) int32 region
+    labels (flat indices of each frame's own plane); B frames in the
+    launches of one.  x0: the global x of column 0, w_total: the frame's
+    width (None: W)."""
     if not _build.on_cuda(packed, mask, edge_label):
         return label_merge_plain(packed, mask, edge_label, x0, w_total)
-    h, w = packed.shape
-    for t, name in ((packed, "packed"), (mask, "mask"),
-                    (edge_label, "edge_label")):
-        _build.check(t, name, torch.int32, (h, w))
+    _, b, h, w = _build.frame_stack(packed, "packed", torch.int32)
+    _build.check(mask, "mask", torch.int32, packed.shape)
+    _build.check(edge_label, "edge_label", torch.int32, packed.shape)
+    gx0, wt = _build.frame_columns(b, x0, w_total, w)
     out = torch.empty_like(packed)
     _build.launch("rd_label_merge", packed.device, packed.data_ptr(),
                   mask.data_ptr(), edge_label.data_ptr(), out.data_ptr(), h, w,
-                  int(x0), w if w_total is None else int(w_total),
-                  kernels=3 if h and w else 0)
+                  b, gx0, wt, kernels=3 if h and w else 0)
     _build.count(globals(), "launches")
     if x0 != 0 or w_total is not None:
         _build.count(globals(), "offset_launches")

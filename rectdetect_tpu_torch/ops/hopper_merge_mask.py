@@ -10,6 +10,11 @@ device memory (8 B per pixel).  The x0/w_total offset form of the
 width-tiled path (dist/tile.py) is the same launch with the tile's global x
 and the frame's width: only the junction's interior test sees them.
 
+A leading frame axis (B,H,W) is one launch of the batch form (grid z =
+frame; no dilation reaches across frames), the counterpart of the JAX
+package's vmap over the Pallas kernel in rect_frames; the offset form
+takes one frame.
+
 `junction_merge_mask` takes the plain version (ops/regions.py) for a CPU
 tensor and launches the kernel for a CUDA tensor; there is no other path.
 """
@@ -29,17 +34,16 @@ offset_launches = 0
 
 def junction_merge_mask(strong_lbl: torch.Tensor, x0: int = 0,
                         w_total: int | None = None) -> torch.Tensor:
-    """strong_lbl (H,W) int32 (labels > 0 are edges) -> mask (H,W) int32
-    0/1.  x0: the global x of column 0, w_total: the frame's width (None:
-    W)."""
+    """strong_lbl ([B,]H,W) int32 (labels > 0 are edges) -> mask ([B,]H,W)
+    int32 0/1; B frames in one launch.  x0: the global x of column 0,
+    w_total: the frame's width (None: W)."""
     if not _build.on_cuda(strong_lbl):
         return junction_merge_mask_plain(strong_lbl, x0, w_total)
-    h, w = strong_lbl.shape
-    _build.check(strong_lbl, "strong_lbl", torch.int32, (h, w))
+    _, b, h, w = _build.frame_stack(strong_lbl, "strong_lbl", torch.int32)
+    gx0, wt = _build.frame_columns(b, x0, w_total, w)
     out = torch.empty_like(strong_lbl)
     _build.launch("rd_merge_mask", strong_lbl.device, strong_lbl.data_ptr(),
-                  out.data_ptr(), h, w, int(x0),
-                  w if w_total is None else int(w_total))
+                  out.data_ptr(), h, w, b, gx0, wt)
     _build.count(globals(), "launches")
     if x0 != 0 or w_total is not None:
         _build.count(globals(), "offset_launches")

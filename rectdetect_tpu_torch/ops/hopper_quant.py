@@ -11,6 +11,11 @@ bound by device memory (8 B read and 4 B written per pixel).  Its floats
 are the jitted JAX composition's (ops/regions.py), so it equals the plain
 version (ops/regions.py:quantize_despeckle) exactly.
 
+A leading frame axis (B,H,W) is one launch of the batch form (grid z =
+frame; a pixel's 3x3 neighbours stop at its own frame's border), the
+counterpart of the JAX package's vmap over the Pallas kernel in
+rect_frames.
+
 `quantize_despeckle` takes the plain version for CPU tensors and launches
 the kernel for CUDA tensors; there is no other path.
 """
@@ -32,15 +37,15 @@ launches = 0
 def quantize_despeckle(packed: torch.Tensor, edge_mag: torch.Tensor,
                        n0: int = 24, n1: int = 24,
                        n2: int = 24) -> torch.Tensor:
-    """packed (H,W) int32, edge_mag (H,W) float32 -> (H,W) int32."""
+    """packed ([B,]H,W) int32, edge_mag ([B,]H,W) float32 -> ([B,]H,W)
+    int32; B frames in one launch."""
     if not _build.on_cuda(packed, edge_mag):
         return quantize_despeckle_plain(packed, edge_mag, n0, n1, n2)
-    h, w = packed.shape
-    _build.check(packed, "packed", torch.int32, (h, w))
-    _build.check(edge_mag, "edge_mag", torch.float32, (h, w))
+    _, b, h, w = _build.frame_stack(packed, "packed", torch.int32)
+    _build.check(edge_mag, "edge_mag", torch.float32, packed.shape)
     out = torch.empty_like(packed)
     _build.launch("rd_quant_despeckle", packed.device, packed.data_ptr(),
-                  edge_mag.data_ptr(), out.data_ptr(), h, w, int(n0),
+                  edge_mag.data_ptr(), out.data_ptr(), h, w, b, int(n0),
                   int(n1), int(n2), kernels=KERNELS)
     _build.count(globals(), "launches")
     return out

@@ -53,10 +53,7 @@ def thinthres(em: torch.Tensor, vec: torch.Tensor, mode: str = "thres",
         return thin_plain(em, vec, mode, slack, x0)
     if mode not in ("thres", "cubic"):
         raise ValueError(f"unknown thinning mode {mode!r}")
-    lead = tuple(em.shape[:-2])
-    h, w = em.shape[-2:]
-    b = _build.frames(lead, "em")
-    _build.check(em, "em", torch.float32, (*lead, h, w))
+    lead, b, h, w = _build.frame_stack(em, "em", torch.float32)
     _build.check(vec, "vec", torch.float32, (*lead, h, w, 2))
     if vec.data_ptr() % 8:
         raise ValueError("vec: the kernel reads it as float2, so it must be "

@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from rectdetect_tpu_torch.ops.shifts import NEIGH8, interior_mask, pad2d, shifted
+from rectdetect_tpu_torch.ops.shifts import (NEIGH8, interior_mask, pad2d,
+                                             per_frame, shifted)
 
 
 def _neighbor_count(nz: torch.Tensor) -> torch.Tensor:
@@ -140,13 +141,15 @@ def remove_branch(img, x0: int = 0, w_total: int | None = None):
     return _masked((nz & (cnt <= 2)).to(torch.int32), 1, x0, w_total)
 
 
+@per_frame
 def strings_chain(edge_bin, variant: str, bridge2: bool = False,
                   x0: int = 0, w_total: int | None = None):
     """The edge -> strings morphology prefix: "rect" = junction(positive)
     -> connect_rect -> stringify x2 (oclrect.c:265-272); "poly_branch" =
     junction -> connect_poly -> stringify x2 -> removeBranch
     (oclpolyline.c stages 1-4).  bridge2 inserts simple_connect2 after the
-    connect stage.  x0/w_total pass to every stage."""
+    connect stage.  x0/w_total pass to every stage.  ([B,]H,W): element-
+    wise over a leading frame axis."""
     o = (x0, w_total)
     if variant == "rect":
         c = simple_connect_rect(

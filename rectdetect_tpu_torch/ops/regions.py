@@ -8,7 +8,9 @@ quantize lattice) are exact.  These are the plain versions of kernels
 (ops/hopper_quant.py), #6 merge mask (ops/hopper_merge_mask.py), #9 links
 CCL (ops/hopper_links.py) and #8 despeckle2 (ops/hopper_despeckle2.py).
 The region merge's labels are the minimum flat index of each region, so
-every output here is an exact integer map.  `color_reassign`, which the
+every output here is an exact integer map.  The five plain versions take
+a leading frame axis ([B,]H,W), element-wise over it (shifts.per_frame),
+as the batch forms of their kernels do.  `color_reassign`, which the
 reference leaves out of its pipeline, has no kernel in either package.
 
 The border-sensitive functions take x0/w_total, the global x of local
@@ -35,7 +37,8 @@ import torch.nn.functional as F
 from rectdetect_tpu_torch.core import color
 from rectdetect_tpu_torch.ops import fp
 from rectdetect_tpu_torch.ops.morphology import simple_junction
-from rectdetect_tpu_torch.ops.shifts import interior_mask, pad2d, shifted
+from rectdetect_tpu_torch.ops.shifts import (interior_mask, pad2d, per_frame,
+                                             shifted)
 
 BLBLURSIZE = 4  # oclrect.cl:72
 
@@ -117,6 +120,7 @@ def _blblur_axis(packed: torch.Tensor, edge: torch.Tensor,
     return torch.where(wsum == 0, packed, blurred)
 
 
+@per_frame
 def blblur(packed: torch.Tensor, edge: torch.Tensor, iters: int = 10,
            x0: int = 0, w_total: int | None = None) -> torch.Tensor:
     """Edge-limited blur: `iters` rounds of a horizontal then a vertical
@@ -170,6 +174,7 @@ def despeckle(packed: torch.Tensor, edge_mag: torch.Tensor) -> torch.Tensor:
     return torch.where(on_edge, best, packed)
 
 
+@per_frame
 def quantize_despeckle(packed: torch.Tensor, edge_mag: torch.Tensor,
                        n0: int = 24, n1: int = 24,
                        n2: int = 24) -> torch.Tensor:
@@ -213,6 +218,7 @@ def merge_mask(junction: torch.Tensor) -> torch.Tensor:
     return (m & ~clear).to(torch.int32)
 
 
+@per_frame
 def junction_merge_mask(strong_lbl: torch.Tensor, x0: int = 0,
                         w_total: int | None = None) -> torch.Tensor:
     """simple_junction(positive_only) + merge_mask: the plain version of
@@ -276,6 +282,7 @@ def label_links(mh: torch.Tensor, mv: torch.Tensor) -> torch.Tensor:
         label = new
 
 
+@per_frame
 def label_merge(packed: torch.Tensor, mask: torch.Tensor,
                 edge_label: torch.Tensor, x0: int = 0,
                 w_total: int | None = None) -> torch.Tensor:
@@ -317,6 +324,7 @@ def despeckle2(label: torch.Tensor, sizes: torch.Tensor,
     return torch.where(sz_at <= thre, best_lb, label).to(torch.int32)
 
 
+@per_frame
 def sizes_despeckle2(label: torch.Tensor, thre: int = 16) -> torch.Tensor:
     """calcSize + despeckle2 (oclrect.cl:336-371): the plain version of
     kernel #8 (ops/hopper_despeckle2.py).  The JAX package's run-length

@@ -11,6 +11,8 @@ Boundary conventions of the reference:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -69,3 +71,20 @@ def interior_mask(h: int, w: int, margin: int, device=None, x0: int = 0,
     if lo < hi:
         m[margin:h - margin, lo:hi] = True
     return m
+
+
+def per_frame(fn):
+    """A plain single-frame function of (H,W) maps, taking a leading frame
+    axis too: with a (B,H,W) first argument, every tensor argument is cut
+    frame by frame and the B results are stacked (element-wise over the
+    frames, as the JAX package's vmap; a loop, since the plain versions
+    are references)."""
+    @functools.wraps(fn)
+    def over_frames(first, *args, **kwargs):
+        if first.dim() != 3:
+            return fn(first, *args, **kwargs)
+        return torch.stack([
+            fn(first[i], *(a[i] if isinstance(a, torch.Tensor) else a
+                           for a in args), **kwargs)
+            for i in range(first.shape[0])])
+    return over_frames

@@ -84,15 +84,36 @@ def weak_strong_labels(edge_bin: torch.Tensor, edge_thin: torch.Tensor,
     its bridge2 stage.  The labels come from the exact K4; the JAX
     package's CPU path labels with a fixed-pass CCL and its TPU path with
     capped pieces, which the exact labels are the converged form of."""
-    rounds = cfg.strength_rescue_rounds
-    if not cfg.sparse_factor or not (rounds or cfg.rect_strength_dense):
+    s = rect_strings(edge_bin, cfg)
+    weak, strong = strength_labels(s, edge_thin, cfg)
+    if return_strings:
+        return weak, strong, s
+    return weak, strong
+
+
+def rect_strings(edge_bin: torch.Tensor,
+                 cfg: PipelineConfig = DEFAULT_CONFIG) -> torch.Tensor:
+    """The K3 part of weak_strong_labels: the "rect" strings of edge_bin
+    ([B,]H,W) int32 0/1, bridge2 under bridge_gap2; a stack is one
+    launch."""
+    if not cfg.sparse_factor or not (cfg.strength_rescue_rounds or
+                                     cfg.rect_strength_dense):
         raise NotImplementedError("the port runs the dense strength pair "
                                   "or, with rescue rounds, the staged form "
                                   "(sparse_factor > 0; rect_strength_dense=1 "
                                   "without rescue rounds)")
-    ih, iw = edge_bin.shape
+    return strings_chain(edge_bin, "rect", cfg.bridge_gap2)
+
+
+def strength_labels(s: torch.Tensor, edge_thin: torch.Tensor,
+                    cfg: PipelineConfig = DEFAULT_CONFIG):
+    """The labels-and-strength part of weak_strong_labels, one frame: K4's
+    labels of the strings map s (H,W) and the strength filters over them
+    (slot lists at the frame's own capacity).  Returns (weak_lbl,
+    strong_lbl)."""
+    rounds = cfg.strength_rescue_rounds
+    ih, iw = s.shape
     sp = max(4096, ih * iw // cfg.sparse_factor)
-    s = strings_chain(edge_bin, "rect", cfg.bridge_gap2)
     lbl = label_components(s, 0)
     if rounds:
         scomp = compact_mask((s != 0).reshape(-1), sp)
@@ -107,8 +128,6 @@ def weak_strong_labels(edge_bin: torch.Tensor, edge_thin: torch.Tensor,
         weak, strong = ccl.strength_filter_pair_dense(
             edge_thin, lbl, sp, cfg.strength_weak, cfg.strength_strong,
             cfg.strength_scale)
-    if return_strings:
-        return weak, strong, s
     return weak, strong
 
 
@@ -117,7 +136,8 @@ def region_smoothing(packed0: torch.Tensor, weak_lbl: torch.Tensor,
                      cfg: PipelineConfig = DEFAULT_CONFIG):
     """Edge-limited blur + quantize + despeckle (oclrect.c:286-303) of the
     packed-Lab plane, limited by the weak edges.  Returns (blurred,
-    despeck), (H,W) int32 packed Lab each."""
+    despeck), ([B,]H,W) int32 packed Lab each; a stack of B frames is one
+    call of each kernel."""
     weak_bin = (weak_lbl > 0).to(torch.int32)
     blurred = blblur(packed0, weak_bin, cfg.blblur_iters)
     n = cfg.quantize_levels
@@ -130,8 +150,9 @@ def region_merge(despeck: torch.Tensor, strong_lbl: torch.Tensor,
     """Merge masks, region CCL and small-region cleanup (oclrect.c:314-336):
     the merge mask of the strong edges (#6), the exact region labels over
     the merge links (#9), then regions of <= despeckle2_thre pixels absorbed
-    (#8).  Returns (mask, seg), (H,W) int32 each; seg holds min-flat-index
-    region labels."""
+    (#8).  Returns (mask, seg), ([B,]H,W) int32 each; seg holds
+    min-flat-index region labels of each frame; a stack of B frames is one
+    call of each kernel."""
     mask = junction_merge_mask(strong_lbl)
     seg = label_merge(despeck, mask, strong_lbl)
     return mask, sizes_despeckle2(seg, cfg.despeckle2_thre)
@@ -226,18 +247,37 @@ def tail_hypotheses(packed0: torch.Tensor, edge_thin: torch.Tensor,
                     edge_bin: torch.Tensor,
                     cfg: PipelineConfig = DEFAULT_CONFIG) -> RectHypotheses:
     """rect_hypotheses from the front-end's products (packed Lab, the
-    thinned edge magnitude and its binary map)."""
-    weak_lbl, strong_lbl = weak_strong_labels(edge_bin, edge_thin, cfg)
+    thinned edge magnitude and its binary map), one frame."""
+    return tail_hypotheses_frames(packed0[None], edge_thin[None],
+                                  edge_bin[None], cfg)[0]
+
+
+def tail_hypotheses_frames(packed0: torch.Tensor, edge_thin: torch.Tensor,
+                           edge_bin: torch.Tensor,
+                           cfg: PipelineConfig = DEFAULT_CONFIG
+                           ) -> list[RectHypotheses]:
+    """tail_hypotheses of a (B,H,W) stack of front-end products, one
+    RectHypotheses a frame.  The dense stages run once on the stack: K3
+    (rect_strings), region_smoothing (#12, #5) and region_merge (#6, #9,
+    #8).  What rests on slot lists and per-frame capacities runs frame by
+    frame: the labels and strength filters, the boundary labels, the
+    polylines and the hypotheses."""
+    strings = rect_strings(edge_bin, cfg)
+    weak_lbl, strong_lbl = (torch.stack(m) for m in zip(*(
+        strength_labels(s, et, cfg) for s, et in zip(strings, edge_thin))))
     _, despeck = region_smoothing(packed0, weak_lbl, edge_thin, cfg)
-    mask, seg = region_merge(despeck, strong_lbl, cfg)
-    boundary, bcomp = boundary_labels(seg, cfg)
-    ih, iw = seg.shape
-    arena, lsid, comp = polyline_execute(
-        (strong_lbl > 0).to(torch.int32), cfg.minerror_rect,
-        cfg.size_thre_rect, cfg.ls_cap_for(iw, ih), cfg, return_comp=True)
-    segs, valid, status = hypotheses(arena, lsid, boundary, iw, ih, cfg,
-                                     comp, bcomp)
-    return RectHypotheses(mask, seg, boundary, lsid, segs, valid, status)
+    masks, segs = region_merge(despeck, strong_lbl, cfg)
+    ih, iw = edge_bin.shape[-2:]
+    out = []
+    for mask, seg, strong in zip(masks, segs, strong_lbl):
+        boundary, bcomp = boundary_labels(seg, cfg)
+        arena, lsid, comp = polyline_execute(
+            (strong > 0).to(torch.int32), cfg.minerror_rect,
+            cfg.size_thre_rect, cfg.ls_cap_for(iw, ih), cfg,
+            return_comp=True)
+        hyp = hypotheses(arena, lsid, boundary, iw, ih, cfg, comp, bcomp)
+        out.append(RectHypotheses(mask, seg, boundary, lsid, *hyp))
+    return out
 
 
 def rect_geometry(segs: torch.Tensor, valid: torch.Tensor,
@@ -330,17 +370,24 @@ def rect_frames(frames: torch.Tensor, tan_aov: float,
     """Batched throughput mode (the JAX package's rect_frames): frames
     (B,H,W,3) uint8, on the CPU or a CUDA device -> RectResult with a
     leading B axis; each frame's slice equals rect_frame on that frame bit
-    for bit.  The front end runs once on the stack (K1 and K2 one launch
-    each for all B frames); the tail runs frame by frame on the same device
-    and stream: its slot lists and capacities are per frame, and the
-    polyline stage reads the device from the host (ops/polyline.py)."""
+    for bit.  The dense stages run once on the stack, one launch of each
+    kernel's batch form for all B frames: the front end (K1, K2), K3's
+    rect strings, region_smoothing (blblur #12, quant_despeckle #5) and
+    region_merge (merge_mask #6, the links CCL #9, despeckle2 #8).  The
+    rest runs frame by frame on the same device and stream: the labels
+    and strength filters, the boundary labels, the polylines, the
+    hypotheses and the geometry rest on slot lists and capacities of a
+    frame, and the polyline stage reads the device from the host
+    (ops/polyline.py)."""
     if frames.dim() != 4 or frames.shape[0] < 1:
         raise ValueError(f"rect_frames takes a (B,H,W,3) stack, got "
                          f"{tuple(frames.shape)}")
     fe = edge_frontend(frames, cfg)
+    ih, iw = frames.shape[1:3]
     return stack_results([
-        rect_tail(fe.packed0[i], fe.edge_thin[i], fe.edge_bin[i], tan_aov,
-                  cfg) for i in range(frames.shape[0])])
+        rect_geometry(h.segs, h.valid, h.status, iw, ih, tan_aov, cfg)
+        for h in tail_hypotheses_frames(fe.packed0, fe.edge_thin,
+                                        fe.edge_bin, cfg)])
 
 
 def stage_maps(bgr: torch.Tensor, cfg: PipelineConfig = DEFAULT_CONFIG):

@@ -50,7 +50,13 @@ bit-equal to single calls from 16x64 to 720x1280, rect_frames and
 poly_frames at B = 4 bit-equal to per-frame calls with K1 and K2 launched
 once, rect_frames_sharded over two entries of the card and the
 StreamSupervisor's worker loop (a failing entry quarantined) equal to
-rect_frame; launches are read from the kernel library's own counter
+rect_frame; the batch forms of the rect tail's dense kernels (K3 in
+every variant, blblur at every fused round count and iters = 0,
+quant_despeckle, merge_mask, the links CCL, despeckle2) at b = 3 on
+37x53 and 144x200 frames bit-equal to three b = 1 calls and to their
+plain versions, b = 0 and 65536 and an offset with b > 1 refused, and
+rect_frames at B = 3 launching 20 + 12 B kernels, every frame bit-equal
+to rect_frame; launches are read from the kernel library's own counter
 (`_build.launch_count`).
 """
 
@@ -1323,6 +1329,11 @@ def test_rect_step_tiled_on_one_card_equals_rect_frame():
     assert int(want.valid.sum()) > 0
 
 
+# kernels a rect_frames call launches once for its whole stack: K1, K2,
+# K3 (rect), blblur's 11, quant_despeckle, merge_mask, the links CCL's 3
+# and despeckle2; the other 12 of a frame's 32 run once a frame
+RECT_STACK_KERNELS = 20
+
 # the stream axis: the batch forms of K1 and K2 (grid z = frame), on a
 # width that takes edge_front's float4 staging (200) and one that does not
 # (53), and a frame of one tile
@@ -1366,7 +1377,8 @@ def test_batch_forms_of_edge_front_and_thin_equal_single_calls(h, w):
 def test_rect_frames_and_poly_frames_on_card_equal_per_frame_calls():
     """rect_frames and poly_frames at B = 4: every frame bit-equal to its
     own call, K1 and K2 launched once for the four frames (the library's
-    counter: the per-frame calls' kernels less 2 (B - 1)), and the same
+    counter: rect_frames the per-frame calls' kernels less
+    RECT_STACK_KERNELS (B - 1), poly_frames less 2 (B - 1)), and the same
     results as on the CPU."""
     from rectdetect_tpu_torch.pipeline.poly import poly_frames
     from rectdetect_tpu_torch.pipeline.rect import rect_frames
@@ -1388,7 +1400,7 @@ def test_rect_frames_and_poly_frames_on_card_equal_per_frame_calls():
     n0 = _build.launch_count()
     rect_frames(gpu, TAN_AOV)
     torch.cuda.synchronize()
-    assert _build.launch_count() - n0 == n_single - 2 * 3
+    assert _build.launch_count() - n0 == n_single - RECT_STACK_KERNELS * 3
     cpu = rect_frame(frames[1], TAN_AOV)
     assert torch.equal(res.valid[1].cpu(), cpu.valid)
     torch.testing.assert_close(res.c2[1].cpu(), cpu.c2, rtol=0, atol=ATOL)
@@ -1464,3 +1476,148 @@ def test_stream_supervisor_and_sharded_frames_on_card():
                 same(got, sid)
     assert [f[0] for f in flaky.failures] == [1] and dropped == 1
     assert set(flaky._assign.values()) == {0}
+
+
+# the batch forms of the rect tail's dense kernels, on an odd frame and on
+# one whose width is no multiple of 32 and whose tiles are crossed both
+# ways
+TAIL_CARD_SHAPES = [(37, 53), (144, 200)]
+
+
+def _tail_stack(h, w, b=3):
+    """The dense tail's maps of b scenes of h x w on the card: the front
+    end's, the weak and strong labels, and each kernel's input, from the
+    plain versions."""
+    from rectdetect_tpu_torch.ops import morphology
+    from rectdetect_tpu_torch.pipeline.rect import strength_labels
+    fe = edge_frontend(torch.stack([_scene(h, w, seed=s)
+                                    for s in range(b)]).cuda())
+    s = morphology.strings_chain(fe.edge_bin, "rect")
+    weak, strong = (torch.stack(m) for m in zip(*(
+        strength_labels(s[i], fe.edge_thin[i]) for i in range(b))))
+    blurred = regions.blblur(fe.packed0, (weak > 0).to(torch.int32))
+    despeck = regions.quantize_despeckle(blurred, fe.edge_thin)
+    mask = regions.junction_merge_mask(strong)
+    seg = regions.label_merge(despeck, mask, strong)
+    return fe, weak, strong, blurred, despeck, mask, seg
+
+
+@pytest.mark.parametrize("h,w", TAIL_CARD_SHAPES)
+def test_batch_forms_of_the_rect_tail_equal_single_calls(h, w):
+    """K3 (every variant), blblur (at every fused round count, and the copy
+    of iters = 0), quant_despeckle, merge_mask, the links CCL and
+    despeckle2 on a stack of 3 frames: the kernels of one call for the
+    stack by the library's counter, the result equal to the plain version
+    and every frame to its own b = 1 call."""
+    from rectdetect_tpu_torch.ops import morphology
+    _need_card()
+    fe, weak, strong, blurred, despeck, mask, seg = _tail_stack(h, w)
+    weak_bin = (weak > 0).to(torch.int32)
+    cases = [(f"strings_chain[{v}, {b2}]",
+              lambda e, v=v, b2=b2: hopper_morph.strings_chain(e, v, b2),
+              lambda e, v=v, b2=b2: morphology.strings_chain(e, v, b2),
+              (fe.edge_bin,), 1)
+             for v in ("rect", "poly_branch") for b2 in (False, True)]
+    cases += [(f"blblur[F={f}]",
+               lambda p, e, f=f: hopper_blblur.blblur_fused(p, e, 10, f),
+               regions.blblur, (fe.packed0, weak_bin),
+               hopper_blblur.launch_count(10, f))
+              for f in hopper_blblur.TILES]
+    cases += [
+        ("blblur[iters=0]", lambda p, e: hopper_blblur.blblur(p, e, 0),
+         lambda p, e: p, (fe.packed0, weak_bin), 0),
+        ("quantize_despeckle", hopper_quant.quantize_despeckle,
+         regions.quantize_despeckle, (blurred, fe.edge_thin), 1),
+        ("junction_merge_mask", hopper_merge_mask.junction_merge_mask,
+         regions.junction_merge_mask, (strong,), 1),
+        ("label_merge", hopper_links.label_merge, regions.label_merge,
+         (despeck, mask, strong), 3),
+        ("sizes_despeckle2", hopper_despeckle2.sizes_despeckle2,
+         regions.sizes_despeckle2, (seg,), 1)]
+    for name, kernel, plain, args, kernels in cases:
+        n0 = _build.launch_count()
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        assert _build.launch_count() - n0 == kernels, name
+        assert got.shape == args[0].shape, name
+        assert torch.equal(got, plain(*args)), name
+        for i in range(3):
+            assert torch.equal(got[i], kernel(*(a[i] for a in args))), \
+                (name, i)
+    assert int((fe.edge_bin > 0).sum()) > 0
+
+
+def test_batch_forms_of_the_rect_tail_refuse_bad_stacks():
+    """The C entry points refuse b = 0 and b = 65536 (cudaErrorInvalidValue,
+    nothing launched), the wrappers an empty stack and one of more than
+    65535 frames, and an offset (x0, w_total) with more than one frame."""
+    _need_card()
+    lib = _build.lib()
+    x = torch.zeros((2, 8, 40), dtype=torch.int32, device="cuda")
+    p = x.data_ptr()
+    st = torch.cuda.current_stream().cuda_stream
+    entries = {
+        "strings_chain": lambda b: lib.rd_strings_chain(p, p, 8, 40, b, 0, 0,
+                                                        0, 40, st),
+        "blblur": lambda b: lib.rd_blblur(p, p, p, p, p, 8, 40, b, 10, 1, 0,
+                                          40, st),
+        "quant_despeckle": lambda b: lib.rd_quant_despeckle(
+            p, p, p, 8, 40, b, 24, 24, 24, st),
+        "merge_mask": lambda b: lib.rd_merge_mask(p, p, 8, 40, b, 0, 40, st),
+        "label_merge": lambda b: lib.rd_label_merge(p, p, p, p, 8, 40, b, 0,
+                                                    40, st),
+        "despeckle2": lambda b: lib.rd_despeckle2(p, p, p, 8, 40, b, 16, st)}
+    n0 = _build.launch_count()
+    for name, fn in entries.items():
+        for b in (0, 65536, -1):
+            assert fn(b) == 1, (name, b)       # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    assert _build.launch_count() == n0
+    for n in (0, _build.MAX_FRAMES + 1):
+        big = torch.zeros((n, 1, 1), dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError):
+            hopper_merge_mask.junction_merge_mask(big)
+        with pytest.raises(ValueError):
+            hopper_despeckle2.sizes_despeckle2(big)
+    with pytest.raises(ValueError):
+        hopper_merge_mask.junction_merge_mask(x[None])
+    for kw in ({"x0": 3}, {"w_total": 80}):
+        with pytest.raises(ValueError):
+            hopper_morph.strings_chain(x, "rect", **kw)
+        with pytest.raises(ValueError):
+            hopper_blblur.blblur(x, x, **kw)
+        with pytest.raises(ValueError):
+            hopper_merge_mask.junction_merge_mask(x, **kw)
+        with pytest.raises(ValueError):
+            hopper_links.label_merge(x, x, x, **kw)
+        one = x[:1]
+        assert hopper_merge_mask.junction_merge_mask(one, **kw).shape == \
+            one.shape
+
+
+def test_rect_frames_runs_the_dense_tail_once_per_stack():
+    """rect_frames at B = 3: 20 + 12 B kernels by the library's counter
+    (RECT_STACK_KERNELS once for the stack, the rest once a frame), K3
+    once for the stack's rect strings and once a frame inside the
+    polylines, blblur, quant_despeckle, merge_mask, the links CCL and
+    despeckle2 once; every frame bit-equal to its own rect_frame."""
+    from rectdetect_tpu_torch.pipeline.rect import rect_frames
+    _need_card()
+    gpu = torch.stack([_scene(seed=s) for s in range(3)]).cuda()
+    n0 = _build.launch_count()
+    want = [rect_frame(gpu[i], TAN_AOV) for i in range(3)]
+    torch.cuda.synchronize()
+    per_frame = (_build.launch_count() - n0) // 3
+    stack = (hopper_blblur, hopper_quant, hopper_merge_mask, hopper_links,
+             hopper_despeckle2)
+    for m in (hopper_morph, *stack):
+        m.launches = 0
+    n0 = _build.launch_count()
+    res = _count_kernels(lambda: rect_frames(gpu, TAN_AOV))
+    assert _build.launch_count() - n0 == RECT_STACK_KERNELS + 12 * 3
+    assert per_frame == RECT_STACK_KERNELS + 12
+    assert hopper_morph.launches == 1 + 3
+    assert all(m.launches == 1 for m in stack)
+    for i, w in enumerate(want):
+        for f in w._fields:
+            assert torch.equal(getattr(res, f)[i], getattr(w, f)), (f, i)

@@ -86,6 +86,12 @@ tests/data/tiles.npz (make_tiles):
 tests/data/streams.npz (make_streams):
 
     JAX_PLATFORMS=cpu python tools/make_torch_fixture.py streams
+
+`batch_tail`: the rect path's dense tail stages under jax.vmap on two
+stacks, the four 48x64 frames of streams.npz and two 144x200 frames,
+into tests/data/batch_tail.npz (make_batch_tail, about a minute):
+
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py batch_tail
 """
 
 from __future__ import annotations
@@ -121,7 +127,8 @@ def main(argv=None) -> int:
               "frame": make_frame, "calib": make_calib,
               "photos": make_photos, "gaps": make_gaps,
               "extended": make_extended, "photos_ext": make_photos_ext,
-              "tiles": make_tiles, "streams": make_streams}
+              "tiles": make_tiles, "streams": make_streams,
+              "batch_tail": make_batch_tail}
     which = argv[1:2] or list(makers)
     if which[0] not in makers:
         sys.exit(f"unknown fixture {which[0]!r}: one of {sorted(makers)}")
@@ -151,7 +158,8 @@ FIXTURES = {"poly": "poly_720p_synth.npz",
             "extended": "extended.npz",
             "photos_ext": "photo_corpus_ext.npz",
             "tiles": "tiles.npz",
-            "streams": "streams.npz"}
+            "streams": "streams.npz",
+            "batch_tail": "batch_tail.npz"}
 
 
 def make_poly(out: str) -> None:
@@ -1673,6 +1681,108 @@ def make_streams(out: str) -> None:
                "poly_sharded_equals_single": poly_same,
                "valid": int(single["valid"].sum())}
         meta["per_frame"].append(row)
+    data["meta"] = np.asarray(json.dumps(meta))
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez_compressed(out, **data)
+    print(f"{out}: {os.path.getsize(out)} bytes; {json.dumps(meta)}")
+
+
+# the batch_tail fixture's second stack: frames (count, height, width) of
+# synth_scene from these seeds; a width that is no multiple of 32, and
+# frames that cross the kernels' tiles both ways
+BATCH_TAIL_WIDE = (2, 144, 200)
+BATCH_TAIL_SEEDS = (21, 22)
+
+
+def make_batch_tail(out: str) -> None:
+    """The JAX package's dense tail stages of the rect path (rect_tail's
+    stages that rect_frames vmaps) under jax.vmap, jitted, into
+    tests/data/batch_tail.npz, for two stacks: `s48`, the first
+    STREAM_BATCH frames of tests/data/streams.npz (its fe/* maps), and
+    `s144`, synth_scene(144, 200, seed) for BATCH_TAIL_SEEDS through the
+    vmapped edge_frontend.  Per stack (leading frame axis):
+      * packed0, edge_thin, edge_bin: the front end's maps;
+      * strings: morphology.strings_chain(edge_bin, "rect");
+      * weak, strong: the weak/strong labels, frame by frame as
+        `_hyp_chain` makes them (the converged labels where the fixed-pass
+        ones change the > 0 maps);
+      * blurred, despeck, mask, seg0 (label_merge), seg
+        (sizes_despeckle2): `_hyp_chain`'s regions_part under vmap;
+    and for `s48` also strings_bridge2, the strings of EXTENDED_CONFIG's
+    bridge_gap2.  The config is the streams fixture's."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from rectdetect_tpu.config import EXTENDED_CONFIG, PipelineConfig
+    from rectdetect_tpu.ops import morphology, regions
+    from rectdetect_tpu.pipeline.frontend import EdgeFrontend, edge_frontend
+    from tests.conftest import synth_scene
+
+    cfg = PipelineConfig(**STREAM_CFG)
+    n = cfg.quantize_levels
+    streams = np.load(os.path.join(ROOT, "tests", "data", "streams.npz"))
+    count, h, w = BATCH_TAIL_WIDE
+    wide = np.stack([synth_scene(h=h, w=w, seed=s)
+                     for s in BATCH_TAIL_SEEDS[:count]])
+    fe_w = jax.jit(jax.vmap(lambda f: edge_frontend(f, cfg)))(
+        jnp.asarray(wide))
+    stacks = {
+        "s48": {k: streams[f"fe/{k}"]
+                for k in ("packed0", "edge_thin", "edge_bin")},
+        "s144": {k: np.asarray(getattr(fe_w, k))
+                 for k in ("packed0", "edge_thin", "edge_bin")}}
+
+    def strings(eb, bridge2):
+        return morphology.strings_chain(eb, "rect", bridge2=bridge2,
+                                        bh=cfg.morph_bh)
+
+    def regions_part(p0, et, wk, st):
+        blurred = regions.blblur(p0, (wk > 0).astype(jnp.int32),
+                                 cfg.blblur_iters)
+        despeck = regions.quantize_despeckle(blurred, et, n, n, n)
+        mask = regions.junction_merge_mask(st)
+        seg0 = regions.label_merge(despeck, mask, st, cfg.labelmerge_passes,
+                                   cfg.labelmerge_jumps)
+        seg = regions.sizes_despeckle2(seg0, cfg.despeckle2_thre,
+                                       cfg.region_run_factor)
+        return blurred, despeck, mask, seg0, seg
+
+    data = {}
+    meta = {"config": f"PipelineConfig(**{STREAM_CFG})",
+            "s48": "tests/data/streams.npz fe/* (frames 0..3)",
+            "s144": f"tests/conftest.py synth_scene({h}, {w}, seed) for "
+                    f"seeds {list(BATCH_TAIL_SEEDS[:count])}, "
+                    "edge_frontend under vmap",
+            "jax": jax.__version__, "edge_labels_converged": {}}
+    for name, st in stacks.items():
+        eb = jnp.asarray(st["edge_bin"])
+        st["strings"] = np.asarray(jax.jit(jax.vmap(
+            lambda e: strings(e, cfg.bridge_gap2)))(eb))
+        weak, strong = [], []
+        for i in range(eb.shape[0]):
+            fe = EdgeFrontend(jnp.asarray(st["packed0"][i]), None,
+                              jnp.asarray(st["edge_thin"][i]), eb[i])
+            wk, sg, n_edge = _weak_strong(fe, cfg)
+            weak.append(np.asarray(wk))
+            strong.append(np.asarray(sg))
+            meta["edge_labels_converged"][f"{name}/{i}"] = n_edge
+        st["weak"], st["strong"] = np.stack(weak), np.stack(strong)
+        outs = jax.jit(jax.vmap(regions_part))(
+            jnp.asarray(st["packed0"]), jnp.asarray(st["edge_thin"]),
+            jnp.asarray(st["weak"]), jnp.asarray(st["strong"]))
+        for k, v in zip(("blurred", "despeck", "mask", "seg0", "seg"), outs):
+            st[k] = np.asarray(v)
+        for k, v in st.items():
+            data[f"{name}/{k}"] = v
+    data["s48/strings_bridge2"] = np.asarray(jax.jit(jax.vmap(
+        lambda e: strings(e, EXTENDED_CONFIG.bridge_gap2)))(
+            jnp.asarray(stacks["s48"]["edge_bin"])))
+    meta["strings_bridge2"] = ("s48 strings with EXTENDED_CONFIG's "
+                               f"bridge_gap2={EXTENDED_CONFIG.bridge_gap2}")
+    meta["counts"] = {k: int((v > 0).sum()) for k, v in data.items()
+                      if k.endswith(("strings", "strings_bridge2", "weak",
+                                     "strong", "mask"))}
     data["meta"] = np.asarray(json.dumps(meta))
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez_compressed(out, **data)
