@@ -104,14 +104,25 @@ the final line):
      at an odd x0, each call's kernels held by the library's counter,
      each form's device time in turns with the kernel on the whole frame
      (their own records on the kernels line, launches from the run
-     below); rect_step_tiled over 4 tiles driven with the launch counts
-     (every offset form launched, seg_scan and despeckle2 not); its
-     RectResult bit-equal to rect_frame's at 720p over 2 and 4 tiles and
-     at 3840x2160 over 4 (calibrated on itself, with the capacities'
-     overflow flags: a difference below them fails), and the tiled and
-     single frame medians in turns; poly_step_tiled at 720p over 4 tiles
-     equal to poly_frame; TiledVideoRectDetector over 6 720p frames, each
-     poll equal to direct rect_step_tiled and rect_frame calls;
+     below); the slot-range form of mkpl (rd_mkpl_setup, rd_mkpl_keys,
+     rd_mkpl_splits) at the 720p strong-edge arena over 1 to 4 ranges,
+     bit-equal to one rd_mkpl launch and to the plain form by slot range,
+     on that arena and on one that overflows, each call's kernels held
+     exactly, each range count's device time in turns with the one launch
+     and each entry point's at 4 ranges (their own records on the kernels
+     line); rect_step_tiled over 4 tiles driven with the launch counts,
+     held exactly (tiled_kernels: 25 a tile, 4 on the first, and the
+     slot-range mkpl's 2 + 2 x 15 a tile), with the plain subdivision
+     barred from the card (every offset form launched, seg_scan and
+     despeckle2 not); its RectResult bit-equal to rect_frame's at 720p
+     over 2 and 4 tiles and at 3840x2160 over 4 (calibrated on itself,
+     with the capacities' overflow flags: a difference below them fails),
+     each call's kernels held exactly, and the tiled and single frame
+     medians in turns; poly_step_tiled at 720p over 4 tiles equal to
+     poly_frame, its kernels held exactly; over distinct cards where the
+     machine has more than one (else a line says so);
+     TiledVideoRectDetector over 6 720p frames, each poll equal to direct
+     rect_step_tiled and rect_frame calls;
   9. the stream axis, every mesh entry on the one card: the batch forms of
      K1 and K2 (one launch for b frames, grid z = frame) at b = 4 on the
      720p frames of seeds 0-3, bit-equal to four b = 1 calls and within
@@ -191,6 +202,14 @@ EXT_TURN_FRAMES = 10
 # turn of its frame times
 TILED_BIG = (2160, 3840)
 TILED_TURN_FRAMES = 5
+# the links CCL's and K4's kernels a call (tile, seam and flatten)
+LINKS_KERNELS = 3
+K4_KERNELS = 3
+# the slot-range form of mkpl: its entry points, and the bytes a round
+# moves per live position and per segment (csrc/mkpl.cu's header)
+MKPL_ENTRIES = ("rd_mkpl_setup", "rd_mkpl_keys", "rd_mkpl_splits")
+MKPL_BYTES_PER_LIVE = 40
+MKPL_BYTES_PER_SEGMENT = 60
 # phase 9's batch (frames per rect_frames call; the sharded runs take
 # twice as many) and the multi-process simulation's time limit in seconds
 STREAM_BATCH = 4
@@ -1140,6 +1159,233 @@ def overflow_flags(bgr, cfg):
             "boundary_cap": spb, "boundary_overflow": marks > spb}
 
 
+def tiled_kernels(n: int, cfg, poly: bool = False) -> int:
+    """Kernels one rect_step_tiled (poly_step_tiled) call over n tiles
+    launches: on each tile K1, K2, K3 (rect), K4 for the strings and for
+    the boundary, blblur, quant_despeckle, merge_mask and the links CCL
+    (poly: K1, K2 and K4); then on the first tile K3 (poly_branch),
+    distinct_bids, hyp and pose (poly: K3), and mkpl, whose slot-range
+    form runs over n > 1 tiles."""
+    from rectdetect_tpu_torch.ops import (hopper_blblur, hopper_mkpl,
+                                          hopper_morph, hopper_quant)
+    mk = hopper_mkpl.kernels(n if n > 1 else None, cfg.mkpl_iters)
+    if poly:
+        return n * (2 + K4_KERNELS) + hopper_morph.KERNELS + mk
+    per_tile = (2 + hopper_morph.KERNELS + 2 * K4_KERNELS
+                + hopper_blblur.launch_count(cfg.blblur_iters)
+                + hopper_quant.KERNELS + 1 + LINKS_KERNELS)
+    return n * per_tile + hopper_morph.KERNELS + 3 + mk
+
+
+def counted(torch, build_mod, fn):
+    """(fn(), the kernels it launched by the library's counter)."""
+    torch.cuda.synchronize()
+    n0 = build_mod.launch_count()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, build_mod.launch_count() - n0
+
+
+def launch_times(torch, build_mod, fn, names):
+    """fn() once, after a warm-up call, with a CUDA event before and after
+    each launch of the entry points `names`, the whole call queued while
+    the device sleeps (as device_ms).  Returns {name: [ms of each
+    launch]}."""
+    orig = build_mod.launch
+    marks = []
+
+    def launch(name, device, *args, **kw):
+        if name not in names:
+            return orig(name, device, *args, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        orig(name, device, *args, **kw)
+        end.record()
+        marks.append((name, start, end))
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(6):
+        marks.clear()
+        torch.cuda._sleep(cycles)
+        build_mod.launch = launch
+        try:
+            fn()
+        finally:
+            build_mod.launch = orig
+        ahead = bool(marks) and not marks[0][1].query()
+        torch.cuda.synchronize()
+        if ahead:
+            break
+        cycles *= 2
+    else:
+        fail("the host could not queue the launches ahead of the device")
+    out = {}
+    for name, start, end in marks:
+        out.setdefault(name, []).append(start.elapsed_time(end))
+    return out
+
+
+def mkpl_ranges(torch, dev, card, strong, cfg):
+    """Phase 8, the slot-range form of mkpl (#14) at the 720p strong-edge
+    arena (the rect path's polylines): over 1 to 4 ranges of one card,
+    arena and lsid bit-equal to one rd_mkpl launch and to the plain form
+    by slot range, on the arena and on one that overflows, each call's
+    kernels held exactly; each range count's device time per call in
+    turns with the one launch, and the host's time to queue a call over
+    1 and 4 ranges; each entry point's device time per launch
+    at 4 ranges (CUDA events around each launch of a call queued while the
+    device sleeps) in turns with the one launch.  Returns the entry
+    points' records (launches filled in by the caller) and a summary."""
+    from rectdetect_tpu_torch.dist.mesh import TileGroup
+    from rectdetect_tpu_torch.ops import _build, hopper_mkpl, mkpl, polyline
+
+    h, w = strong.shape
+    cap = cfg.ls_cap_for(w, h)
+    iters = cfg.mkpl_iters
+    rounds = iters - 1
+    sb = (strong > 0).to(torch.int32)
+    arena0, dense, number, comp = polyline.mkpl_inputs(
+        sb, cfg.size_thre_rect, cap, cfg)
+
+    def run(a, g=None, fn=hopper_mkpl.mkpl_subdivide, it=iters):
+        return fn(a, dense, number, cfg.minerror_rect, it, comp, g)
+
+    def same(x, y):
+        return torch.equal(x[1], y[1]) and all(
+            torch.equal(getattr(x[0], f), getattr(y[0], f))
+            for f in x[0]._fields)
+
+    # the counts before each round, from the one launch at 0..rounds rounds
+    counts = [int(run(arena0, it=r + 1)[0].count) for r in range(iters)]
+    count0, count = counts[0], counts[-1]
+    small = (count0 + count) // 2
+    if not count0 < small - 1 < count - 1:
+        fail(f"mkpl ranges: no overflow case between counts {count0} and "
+             f"{count}")
+    a_small = polyline.mkpl_init(dense, number, small, comp)
+    checks = {}
+    for label, a in (("arena", arena0), ("overflow", a_small)):
+        want = run(a)
+        checks[label] = {}
+        for k in range(1, 5):
+            g = TileGroup([dev] * k)
+            got, made = counted(torch, _build, lambda: run(a, g))
+            plain = run(a, g, mkpl.mkpl_subdivide)
+            eq1, eq2 = same(got, want), same(got, plain)
+            checks[label][k] = {"equal_one_launch": eq1, "equal_plain": eq2,
+                                "kernels": made,
+                                "count": int(got[0].count)}
+            if not (eq1 and eq2) or made != hopper_mkpl.kernels(k, iters):
+                fail(f"mkpl over {k} slot ranges ({label}): "
+                     f"{checks[label][k]}, not bit-equal or not "
+                     f"{hopper_mkpl.kernels(k, iters)} kernels")
+        if label == "overflow" and int(want[0].count) != small - 1:
+            fail(f"mkpl ranges: the arena of cap {small} did not overflow")
+    lab = dense.reshape(-1)[comp.idx[comp.valid()].long()]
+    live = int(((lab > 0) & (lab <= count0)
+                & (arena0.polyid[lab.clamp(0, cap - 1).long()] != 0)).sum())
+    phase(f"phase 8 mkpl slot ranges at the 720p strong-edge arena (slots "
+          f"{comp.cap}, live {live}, arena cap {cap}, count {count0} -> "
+          f"{count}; overflow cap {small}): {json.dumps(checks)}")
+
+    # each range count's whole call in turns with the one launch; one call
+    # a timing, since ten calls of up to 128 launches each overrun the
+    # launch queue and the host waits on the device
+    whole = {}
+    for k in range(1, 5):
+        g = TileGroup([dev] * k)
+        turns = []
+        for f in (lambda: run(arena0), lambda: run(arena0, g),
+                  lambda: run(arena0, g), lambda: run(arena0)):
+            turns.append(device_ms(torch, _build, f, calls=1, turns=1)[0][0])
+        whole[k] = {"device_ms (one, ranges, ranges, one)": turns}
+    # the host's time to queue one call (the launches and the reductions)
+    for k in (1, 4):
+        g = TileGroup([dev] * k)
+        run(arena0, g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(arena0, g)
+        whole[k]["host_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    phase(f"phase 8 mkpl slot ranges, device ms per call (CUDA events around "
+          f"one call queued while the device slept): {json.dumps(whole)}; "
+          f"card {card}")
+
+    # each entry point at 4 ranges, in turns with the one launch
+    g4 = TileGroup([dev] * 4)
+    one_ms, per_entry = [], {e: [] for e in MKPL_ENTRIES}
+    n_launch = {}
+    for turn in ("one", "ranges", "ranges", "one"):
+        if turn == "one":
+            one_ms.append(device_ms(torch, _build, lambda: run(arena0),
+                                    calls=1, turns=1)[0][0])
+            continue
+        t = launch_times(torch, _build, lambda: run(arena0, g4),
+                         MKPL_ENTRIES)
+        for e in MKPL_ENTRIES:
+            per_entry[e].append(sum(t[e]))
+            n_launch[e] = len(t[e])
+    plain_ms = cuda_ms(torch, lambda: run(arena0, g4, mkpl.mkpl_subdivide),
+                       3)
+    valid = int(comp.n)
+    segs = sum(c + 1 for c in counts[:-1])
+    work = {
+        # bytes: the slot list, dense and number at the valid slots, the
+        # five position tables and the runs written, lsid at the others
+        "rd_mkpl_setup": (4 * comp.cap + 8 * valid + 20 * live
+                          + 8 * (count0 + 1) + 4 * (valid - live), live),
+        # per round ~40 B a live position, then lsid; >= 20 operations a
+        # position and round (the chord distance)
+        "rd_mkpl_keys": (MKPL_BYTES_PER_LIVE * live * rounds + 4 * live,
+                         20 * live * rounds),
+        # ~60 B per segment and round, the segments 0..count of each round
+        "rd_mkpl_splits": (MKPL_BYTES_PER_SEGMENT * segs, 20 * segs),
+    }
+    records = []
+    for e in MKPL_ENTRIES:
+        nbytes, ops = work[e]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / OPS_PER_S * 1e3
+        ms = statistics.median(per_entry[e])
+        records.append({
+            "name": e[3:], "route": "cuda",
+            "source": "rectdetect_tpu_torch/csrc/mkpl.cu",
+            "replaces": "rectdetect_tpu/ops/pallas_mkpl.py:68",
+            "launches": None, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "device_ms": per_entry[e],
+            "launches_per_call": n_launch[e],
+            "ms_per_launch": ms / n_launch[e],
+            "ms_is": "device ms that one 720p call over 4 slot ranges "
+                     "spends in this entry point, summed over its launches; "
+                     "plain_ms is the whole plain call by slot range",
+            "one_launch_ms (turns 1, 4)": one_ms})
+        phase(f"phase 8 mkpl slot ranges {e}: {ms:.4f} ms per call in "
+              f"{n_launch[e]} launches ({ms / n_launch[e]:.5f} ms each; "
+              f"turns {[round(x, 5) for x in per_entry[e]]}), one rd_mkpl "
+              f"launch {[round(x, 5) for x in one_ms]} ms in turns, plain "
+              f"by slot range {plain_ms:.4f} ms, bound "
+              f"{max(t_bytes, t_ops):.6f} ms ({nbytes} B, {ops} ops); card "
+              f"{card}")
+    keys_ms = statistics.median(per_entry["rd_mkpl_keys"])
+    split_ms = statistics.median(per_entry["rd_mkpl_splits"])
+    summary = {"checks": checks, "whole_call": whole, "live": live,
+               "counts": counts, "one_launch_ms": one_ms,
+               "per_round_ms": (keys_ms + split_ms) / max(1, rounds),
+               "per_call_ms": sum(statistics.median(v)
+                                  for v in per_entry.values()),
+               "plain_ms": plain_ms}
+    phase(f"phase 8 mkpl slot ranges at 4 ranges: {summary['per_call_ms']:.4f}"
+          f" ms per call in its launches, {summary['per_round_ms']:.5f} ms a "
+          f"round (keys and splits, all 4 tiles); card {card}")
+    return records, summary
+
+
 def tiled(torch, dev, card, bgr, drive, counters, record, records):
     """Phase 8, the width-tiled path (dist/tile.py) on one card, every tile
     on it (TileGroup([cuda:0] * N)): the x0/w_total offset forms of K3
@@ -1148,10 +1394,13 @@ def tiled(torch, dev, card, bgr, drive, counters, record, records):
     720p tile shapes of the left, an interior and the right tile of four
     and at an odd x0, each call's kernels held by the library's counter,
     each form's device time in turns with the kernel on the whole frame;
-    rect_step_tiled driven with the launch counts, and equal to rect_frame
-    at 720p over 2 and 4 tiles and at 3840x2160 over 4 (calibrated on
-    itself; the capacities' overflow flags beside), with the frame medians
-    in turns; poly_step_tiled at 720p over 4 tiles equal to poly_frame;
+    the slot-range form of mkpl (mkpl_ranges); rect_step_tiled driven with
+    the launch counts, held exactly, the plain subdivision barred from the
+    card, and equal to rect_frame at 720p over 2 and 4 tiles and at
+    3840x2160 over 4 (calibrated on itself; the capacities' overflow flags
+    beside), each call's kernels held, with the frame medians in turns;
+    poly_step_tiled at 720p over 4 tiles equal to poly_frame, its kernels
+    held; both over distinct cards where there are several;
     TiledVideoRectDetector's polls equal to direct calls."""
     import tempfile
 
@@ -1164,7 +1413,8 @@ def tiled(torch, dev, card, bgr, drive, counters, record, records):
     from rectdetect_tpu_torch.ops import (_build, blur, ccl, hopper_blblur,
                                           hopper_ccl, hopper_grad,
                                           hopper_links, hopper_merge_mask,
-                                          hopper_morph, hopper_thin, regions)
+                                          hopper_mkpl, hopper_morph,
+                                          hopper_thin, mkpl, regions)
     from rectdetect_tpu_torch.pipeline.frontend import edge_frontend
     from rectdetect_tpu_torch.pipeline.poly import poly_frame
     from rectdetect_tpu_torch.pipeline.rect import (live_rects, rect_frame,
@@ -1321,11 +1571,38 @@ def tiled(torch, dev, card, bgr, drive, counters, record, records):
                    "thinthres_x0": hopper_thin}
     names = [k for k in counters
              if k not in ("seg_scan", "despeckle2")]
+    mk_records, mk_summary = mkpl_ranges(torch, dev, card, strong, cfg)
     tiles4 = g4.split(bgr)
     for mod in offset_mods.values():
         mod.offset_launches = 0
-    res_t = drive("rect_step_tiled (phase 8, 720p, 4 tiles)", names,
-                  lambda: dtile.rect_step_tiled(g4, tiles4, TAN_AOV, cfg=cfg))
+    # the plain subdivision may not run on the card in this run
+    plain_mkpl = mkpl.mkpl_subdivide
+
+    def no_plain(arena, label, *args, **kw):
+        if label.is_cuda:
+            fail("rect_step_tiled ran the plain subdivision on the card")
+        return plain_mkpl(arena, label, *args, **kw)
+
+    mkpl.mkpl_subdivide = no_plain
+    try:
+        res_t = drive("rect_step_tiled (phase 8, 720p, 4 tiles)", names,
+                      lambda: dtile.rect_step_tiled(g4, tiles4, TAN_AOV,
+                                                    cfg=cfg),
+                      tiled_kernels(4, cfg))
+    finally:
+        mkpl.mkpl_subdivide = plain_mkpl
+    entries = {e: _build.expected_kernels.get(e, 0) for e in MKPL_ENTRIES}
+    phase(f"phase 8 mkpl slot-range launches in that run: "
+          f"{json.dumps(entries)} (mkpl wrapper count "
+          f"{counters['mkpl'].launches}, "
+          f"{hopper_mkpl.kernels(4, cfg.mkpl_iters)} expected)")
+    if (counters["mkpl"].launches != hopper_mkpl.kernels(4, cfg.mkpl_iters)
+            or any(v < 1 for v in entries.values())):
+        fail(f"rect_step_tiled over 4 tiles did not run the slot-range "
+             f"form: {entries}")
+    for rec in mk_records:
+        rec["launches"] = entries["rd_" + rec["name"]]
+        records.append(rec)
     offs = {k: m.offset_launches for k, m in offset_mods.items()}
     phase(f"phase 8 offset-form launches in that run: {json.dumps(offs)}")
     if any(v < 1 for v in offs.values()):
@@ -1349,7 +1626,11 @@ def tiled(torch, dev, card, bgr, drive, counters, record, records):
                                       os.path.join(td, "plan_torch.txt"))
         g = TileGroup([dev] * nt)
         tiles = g.split(frame)
-        got = dtile.rect_step_tiled(g, tiles, TAN_AOV, cfg=cfg_f)
+        got, made = counted(torch, _build, lambda: dtile.rect_step_tiled(
+            g, tiles, TAN_AOV, cfg=cfg_f))
+        if made != tiled_kernels(nt, cfg_f):
+            fail(f"rect_step_tiled at {label} over {nt} tiles launched "
+                 f"{made} kernels, not {tiled_kernels(nt, cfg_f)}")
         want = rect_frame(frame, TAN_AOV, cfg_f)
         torch.cuda.synchronize()
         flags = overflow_flags(frame, cfg_f)
@@ -1359,7 +1640,7 @@ def tiled(torch, dev, card, bgr, drive, counters, record, records):
                 g, tiles, TAN_AOV, cfg=cfg_f),
             "rect_frame": lambda: rect_frame(frame, TAN_AOV, cfg_f)},
             TILED_TURN_FRAMES)
-        row = {"equal": eq, "valid": int(want.valid.sum()),
+        row = {"equal": eq, "kernels": made, "valid": int(want.valid.sum()),
                "valid_equal": torch.equal(got.valid, want.valid),
                "status_equal": torch.equal(got.status, want.status),
                "overflow": flags,
@@ -1377,16 +1658,54 @@ def tiled(torch, dev, card, bgr, drive, counters, record, records):
                  f"rect_frame below the capacities' overflow")
 
     # poly_step_tiled against poly_frame
-    arena_t, lsid_t = dtile.poly_step_tiled(g4, tiles4, cfg, 1.0, 20, 500)
+    (arena_t, lsid_t), made = counted(
+        torch, _build,
+        lambda: dtile.poly_step_tiled(g4, tiles4, cfg, 1.0, 20, 500))
     arena, lsid = poly_frame(bgr, cfg, 1.0, 20, 500)
     torch.cuda.synchronize()
     same = torch.equal(lsid_t, lsid) and all(
         torch.equal(getattr(arena_t, f), getattr(arena, f))
         for f in arena._fields)
+    want_k = tiled_kernels(4, cfg, poly=True)
     phase(f"phase 8 poly_step_tiled 720p over 4 tiles: arena and lsid equal "
-          f"to poly_frame's: {same} ({int(arena.count)} segments)")
-    if not same:
-        fail("poly_step_tiled differs from poly_frame")
+          f"to poly_frame's: {same} ({int(arena.count)} segments); {made} "
+          f"kernels, {want_k} expected")
+    if not same or made != want_k:
+        fail("poly_step_tiled differs from poly_frame or launched "
+             f"{made} kernels, not {want_k}")
+    out["mkpl_ranges"] = mk_summary
+
+    # the tiles on distinct cards, where the machine has them
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        nt = min(4, n_cards)
+        gd = TileGroup([torch.device("cuda", i) for i in range(nt)])
+        got, made = counted(torch, _build, lambda: dtile.rect_step_tiled(
+            gd, gd.split(bgr), TAN_AOV, cfg=cfg))
+        pa, pl = dtile.poly_step_tiled(gd, gd.split(bgr), cfg, 1.0, 20, 500)
+        for i in range(nt):
+            torch.cuda.synchronize(i)
+        eq = same_result(torch, got, res) and torch.equal(pl, lsid) and all(
+            torch.equal(getattr(pa, f), getattr(arena, f))
+            for f in arena._fields)
+        times = turns_of(torch, {
+            f"rect_step_tiled {nt} cards": lambda: dtile.rect_step_tiled(
+                gd, gd.split(bgr), TAN_AOV, cfg=cfg),
+            "rect_frame": lambda: rect_frame(bgr, TAN_AOV, cfg)},
+            TILED_TURN_FRAMES)
+        row = {"equal": eq, "kernels": made,
+               "median_ms": {k: statistics.median(v)
+                             for k, v in times.items()}, "ms": times}
+        out[f"720p {nt} cards"] = row
+        phase(f"phase 8 rect_step_tiled and poly_step_tiled over {nt} "
+              f"distinct cards: equal to rect_frame and poly_frame: {eq}; "
+              f"{made} kernels, {tiled_kernels(nt, cfg)} expected; "
+              f"{json.dumps(row)}; card {card}")
+        if not eq or made != tiled_kernels(nt, cfg):
+            fail(f"the tiled paths over {nt} distinct cards differ")
+    else:
+        phase("phase 8 one card visible: the tiled paths over distinct "
+              "cards were not run")
 
     # the video detector over the tiles
     frames = [synth_frame(H, W, seed=s) for s in range(6)]

@@ -371,13 +371,19 @@ template <int F, int TH, int TW>
 cudaError_t launch_fused(const int* in, const uint16_t* arms, int* out, int h,
                          int w, int b, int rounds, cudaStream_t s) {
   constexpr int smem = Tile<F, TH, TW>::kSmem;
-  static bool attr = false;
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        blblur_fused<F, TH, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+  // the attribute belongs to the current device, so it is set once on each
+  // (the tiles of dist/tile.py launch on several).  Worker threads of one
+  // process may set it at once on one device: both set the same value.
+  static bool attr[64] = {false};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64 || !attr[dev]) {
+    e = cudaFuncSetAttribute(blblur_fused<F, TH, TW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
     if (e != cudaSuccess) return e;
-    attr = true;
+    if (dev < 64) attr[dev] = true;
   }
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, b);
   blblur_fused<F, TH, TW>

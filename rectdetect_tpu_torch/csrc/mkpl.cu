@@ -50,6 +50,23 @@
 // less than a grid-wide one, and one cluster has threads enough for the
 // rounds' work (a few thousand live positions, a few hundred segments at
 // 720p; more loop over the warps and blocks).
+//
+// The slot-range form (the width-tiled path, ops/hopper_mkpl.py) splits
+// the same device functions over three entry points, launched on each
+// tile's device with the tile's own arena and scratch: rd_mkpl_setup (the
+// set-up above, one cluster; the same inputs give every tile the same run
+// layout, since a position depends only on (arc, number, slot)),
+// rd_mkpl_keys (phase A of one round over the tile's share of the live
+// positions, [part * chunk, (part + 1) * chunk) with chunk =
+// ceil(live / parts), into the tile's own key table; with round ==
+// rounds the last round's pass3 and lsid at those positions) and
+// rd_mkpl_splits (phase B on the key tables' elementwise maximum over the
+// tiles, `red`, in one block that scans the chunks in id order, so that
+// every tile's copy takes the same splits).  The caller reduces the key
+// tables between the two; the keys of a tile's range are maxima over its
+// positions, so their maximum over the tiles is the one-launch key.  A
+// key's distance stays below 2^31 (a frame's diagonal times 65536), so
+// the keys order as int64 too.
 
 #include <cooperative_groups.h>
 
@@ -66,6 +83,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBlocks = 8;     // the cluster (the portable size)
 constexpr int kBatch = 4;      // slots a thread loads at once in set-up
 constexpr int kPiece = 32;     // positions a warp scans in phase A
+constexpr int kKeyBlocks = 64;  // rd_mkpl_keys' largest grid
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kFix = 65536.0f;     // oclpolyline.cl:535
 constexpr int kMinNIndex = 4;        // oclpolyline.cl:21
@@ -103,7 +121,13 @@ struct Args {
   int* runend;    // (cap,) one past its last
   int* misc;      // (kMisc,)
   int* lsid;      // (n,) output image, zero-filled
+  // phase B's keys: maxkey itself in the one-launch form, the tiles'
+  // reduced key tables in the slot-range form (read-only)
+  const u64* red;
   int S, cap, n, w, rounds, minerr_fix, chunks;
+  // slot-range form: this launch's round and the tile's part of `parts`;
+  // parts == 0 in the one-launch form
+  int round, part, parts;
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -284,7 +308,10 @@ __device__ void setup_count(const Args& a, int count0, int tid, int nth) {
       const int s = b + lane + k * nth;
       if (q.valid[k]) {
         a.perm[s] = -1;
-        a.lsid[q.p[k]] = q.lab[k];
+        // the slot-range form: the live slots' labels come from each
+        // tile's range, the others from part 0 alone
+        if (a.parts == 0 || (a.part == 0 && !q.live[k]))
+          a.lsid[q.p[k]] = q.lab[k];
       }
       const int lab = q.lab[k];
       const unsigned same = __match_any_sync(kFull, q.live[k] ? lab : -1);
@@ -416,12 +443,12 @@ __device__ __forceinline__ float4 pass3(const Args& a, int r, Pos& q) {
   return c;
 }
 
-// A for one piece (the calling warp): pass3, the distances, the segmented
-// scan of the run keys
-__device__ void piece_keys(const Args& a, int r, int live, Pos& q) {
+// A for one piece (the calling warp) of the positions before `hi`: pass3,
+// the distances, the segmented scan of the run keys
+__device__ void piece_keys(const Args& a, int r, int hi, Pos& q) {
   const int lane = threadIdx.x & 31;
   const int i = q.i;
-  const bool valid = i < live;
+  const bool valid = i < hi;
   u64 key = 0;
   if (valid) {
     const float4 c = pass3(a, r, q);
@@ -435,7 +462,7 @@ __device__ void piece_keys(const Args& a, int r, int live, Pos& q) {
   const int before = __shfl_up_sync(kFull, l, 1);
   const int after = __shfl_down_sync(kFull, l, 1);
   const bool head = lane == 0 || before != l;
-  const bool end = valid && (lane == 31 || i + 1 == live || after != l);
+  const bool end = valid && (lane == 31 || i + 1 == hi || after != l);
   u64 v = key;
   int f = head;
   for (int o = 1; o < 32; o <<= 1) {
@@ -502,10 +529,12 @@ __device__ int look_back(const Args& a, int c, int agg, int r) {
   return s_prefix;
 }
 
-// B: split tests, id-order allocation, records
-__device__ void round_splits(const Args& a, int r) {
+// B: split tests, id-order allocation, records.  `serial`: one block takes
+// the chunks in id order and carries their flag count, no look-back.
+__device__ void round_splits(const Args& a, int r, bool serial) {
   const int count = misc(a, kCnt + (r & 1));
   const int chunks = cdiv(count + 1, kThreads);
+  int carry = 0;
   for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
     const int g = c * kThreads + threadIdx.x;
     int flag = 0, wpos = 0, md = 0, p = 0, wn = 0, next = 0;
@@ -514,7 +543,7 @@ __device__ void round_splits(const Args& a, int r) {
       // the run's key from phase A, loaded with the segment, and cleared
       // for the next round
       q = load_seg(a, g);
-      const u64 key = a.maxkey[g];
+      const u64 key = a.red[g];  // read before maxkey[g] is cleared
       if (q.runend > q.runstart) {
         a.maxkey[g] = 0;
         wpos = a.posof[key_slot(key)];
@@ -527,7 +556,8 @@ __device__ void round_splits(const Args& a, int r) {
     }
     int total;
     const int excl = block_exclusive_sum(flag, &total);
-    const int prefix = look_back(a, c, total, r);
+    const int prefix = serial ? carry : look_back(a, c, total, r);
+    carry += total;
     const int gn = count + prefix + excl + 1;
     if (flag && gn < a.cap) {
       // new segment gn covers [wn, end], old g keeps [start, wn]
@@ -567,11 +597,9 @@ __device__ void round_splits(const Args& a, int r) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) mkpl_kernel(Args a) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nth = gridDim.x * blockDim.x;
-
+// the set-up, by the whole cluster
+__device__ void setup(const Args& a, cg::cluster_group& cluster, int tid,
+                      int nth) {
   // the ids that exist before the first round (the precondition puts
   // every live slot's label among them)
   const int count0 = min(*a.count, a.cap - 1);
@@ -589,6 +617,13 @@ __global__ void __launch_bounds__(kThreads, 1) mkpl_kernel(Args a) {
     setup_rank(a, tid, nth);
     cluster.sync();
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) mkpl_kernel(Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nth = gridDim.x * blockDim.x;
+  setup(a, cluster, tid, nth);
 
   const int live = misc(a, kLive);
   const bool resident = live <= nth;
@@ -596,7 +631,7 @@ __global__ void __launch_bounds__(kThreads, 1) mkpl_kernel(Args a) {
   for (int r = 0; r < a.rounds; ++r) {
     round_distances(a, r, resident, mine);
     cluster.sync();
-    round_splits(a, r);
+    round_splits(a, r, false);
     cluster.sync();
   }
 
@@ -616,6 +651,44 @@ __global__ void __launch_bounds__(kThreads, 1) mkpl_kernel(Args a) {
   if (tid == 0) *a.count = misc(a, kCnt + (a.rounds & 1));
 }
 
+// ---- the slot-range form ----------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, 1) mkpl_setup_kernel(Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  setup(a, cluster, blockIdx.x * blockDim.x + threadIdx.x,
+        gridDim.x * blockDim.x);
+}
+
+// phase A of round a.round over this part's positions; at round == rounds
+// the last round's pass3, lsid at those positions and the final count
+__global__ void __launch_bounds__(kThreads) mkpl_keys_kernel(Args a) {
+  const int live = a.misc[kLive];
+  const int chunk = cdiv(live, a.parts);
+  const int lo = min(a.part * chunk, live);
+  const int hi = min(lo + chunk, live);
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nth = gridDim.x * blockDim.x;
+  if (a.round < a.rounds) {
+    const int lane = threadIdx.x & 31;
+    const int pieces = cdiv(hi - lo, kPiece);
+    for (int pc = tid >> 5; pc < pieces; pc += nth >> 5) {
+      Pos q = load_pos(a, lo + pc * kPiece + lane, hi);
+      piece_keys(a, a.round, hi, q);
+    }
+    return;
+  }
+  for (int i = lo + tid; i < hi; i += nth) {
+    Pos q = load_pos(a, i, hi);
+    if (a.rounds > 0) pass3(a, a.rounds, q);
+    a.lsid[q.p] = q.lab;
+  }
+  if (tid == 0) *a.count = a.misc[kCnt + (a.rounds & 1)];
+}
+
+__global__ void __launch_bounds__(kThreads, 1) mkpl_splits_kernel(Args a) {
+  round_splits(a, a.round, true);
+}
+
 }  // namespace
 
 extern "C" int rd_mkpl_scratch_words(int S, int cap) {
@@ -626,10 +699,11 @@ extern "C" int rd_mkpl_scratch_words(int S, int cap) {
 // float bits), updated in place; count: one int32, updated in place;
 // scratch: rd_mkpl_scratch_words(S, cap) int32, 8-byte aligned; lsid: (n,)
 // int32, zero-filled.
-extern "C" int rd_mkpl(const void* comp_idx, const void* dense,
-                       const void* number, void* fields, void* count,
-                       void* scratch, void* lsid, int S, int cap, int n,
-                       int w, int rounds, int minerr_fix, void* stream) {
+static Args make_args(const void* comp_idx, const void* dense,
+                      const void* number, void* fields, void* count,
+                      void* scratch, void* lsid, const void* red, int S,
+                      int cap, int n, int w, int rounds, int minerr_fix,
+                      int round, int part, int parts) {
   Args a;
   a.comp_idx = (const int*)comp_idx;
   a.dense = (const int*)dense;
@@ -656,8 +730,12 @@ extern "C" int rd_mkpl(const void* comp_idx, const void* dense,
   a.rounds = rounds;
   a.minerr_fix = minerr_fix;
   a.chunks = cdiv(cap, kThreads);
+  a.round = round;
+  a.part = part;
+  a.parts = parts;
   u64* q = (u64*)scratch;
   a.maxkey = q;
+  a.red = red ? (const u64*)red : a.maxkey;
   a.status = a.maxkey + cap;
   a.stage = a.status + a.chunks;
   a.lslot = (int*)(a.stage + S);
@@ -676,7 +754,11 @@ extern "C" int rd_mkpl(const void* comp_idx, const void* dense,
   a.runend = a.runstart + cap;
   a.misc = a.runend + cap;
   a.lsid = (int*)lsid;
+  return a;
+}
 
+static int launch_cluster(void (*kernel)(Args), const Args& a,
+                          void* stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kBlocks);
   cfg.blockDim = dim3(kThreads);
@@ -688,8 +770,71 @@ extern "C" int rd_mkpl(const void* comp_idx, const void* dense,
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, mkpl_kernel, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   rd::count_launch();
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rd_mkpl(const void* comp_idx, const void* dense,
+                       const void* number, void* fields, void* count,
+                       void* scratch, void* lsid, int S, int cap, int n,
+                       int w, int rounds, int minerr_fix, void* stream) {
+  return launch_cluster(
+      mkpl_kernel,
+      make_args(comp_idx, dense, number, fields, count, scratch, lsid,
+                nullptr, S, cap, n, w, rounds, minerr_fix, 0, 0, 0),
+      stream);
+}
+
+// The slot-range form, one tile's launches: the arguments of rd_mkpl for
+// the tile's own fields, count, scratch and lsid (zero-filled), plus red
+// (rd_mkpl_splits: the (cap,) key tables' elementwise maximum over the
+// tiles, int64), the round, and the tile's part of `parts`.
+extern "C" int rd_mkpl_setup(const void* comp_idx, const void* dense,
+                             const void* number, void* fields, void* count,
+                             void* scratch, void* lsid, const void* red,
+                             int S, int cap, int n, int w, int rounds,
+                             int minerr_fix, int round, int part, int parts,
+                             void* stream) {
+  if (parts < 1 || part < 0 || part >= parts) return (int)cudaErrorInvalidValue;
+  return launch_cluster(
+      mkpl_setup_kernel,
+      make_args(comp_idx, dense, number, fields, count, scratch, lsid, red,
+                S, cap, n, w, rounds, minerr_fix, round, part, parts),
+      stream);
+}
+
+extern "C" int rd_mkpl_keys(const void* comp_idx, const void* dense,
+                            const void* number, void* fields, void* count,
+                            void* scratch, void* lsid, const void* red,
+                            int S, int cap, int n, int w, int rounds,
+                            int minerr_fix, int round, int part, int parts,
+                            void* stream) {
+  if (parts < 1 || part < 0 || part >= parts) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(comp_idx, dense, number, fields, count, scratch,
+                           lsid, red, S, cap, n, w, rounds, minerr_fix, round,
+                           part, parts);
+  // a part holds at most ceil(S / parts) positions; a block a thread each,
+  // looping beyond kKeyBlocks
+  int blocks = cdiv(cdiv(S, parts), kThreads);
+  blocks = blocks < 1 ? 1 : blocks > kKeyBlocks ? kKeyBlocks : blocks;
+  mkpl_keys_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+  rd::count_launch();
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rd_mkpl_splits(const void* comp_idx, const void* dense,
+                              const void* number, void* fields, void* count,
+                              void* scratch, void* lsid, const void* red,
+                              int S, int cap, int n, int w, int rounds,
+                              int minerr_fix, int round, int part, int parts,
+                              void* stream) {
+  if (parts < 1 || part < 0 || part >= parts || !red)
+    return (int)cudaErrorInvalidValue;
+  mkpl_splits_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(make_args(
+      comp_idx, dense, number, fields, count, scratch, lsid, red, S, cap, n,
+      w, rounds, minerr_fix, round, part, parts));
+  rd::count_launch();
   return (int)cudaGetLastError();
 }

@@ -65,18 +65,42 @@ class TileGroup:
     def psum(self, xs: list) -> list:
         """lax.psum: the sum of all tiles' tensors, on every tile's device
         (integer tables: exact in any order)."""
-        total = xs[0]
-        for x in xs[1:]:
-            total = total + x.to(total.device)
-        return self._broadcast(total)
+        return self._reduce(xs, torch.add)
+
+    def pmax(self, xs: list) -> list:
+        """lax.pmax: the elementwise maximum of all tiles' tensors, on every
+        tile's device."""
+        return self._reduce(xs, torch.maximum)
+
+    def pmin(self, xs: list) -> list:
+        """lax.pmin: the elementwise minimum of all tiles' tensors, on every
+        tile's device."""
+        return self._reduce(xs, torch.minimum)
 
     def all_gather(self, xs: list, axis: int) -> list:
         """lax.all_gather(..., tiled=True): the tiles concatenated along
         `axis`, on every tile's device."""
         dev = self.devices[0]
-        return self._broadcast(torch.cat([x.to(dev) for x in xs], dim=axis))
+        return self.broadcast(torch.cat([x.to(dev) for x in xs], dim=axis))
 
-    def _broadcast(self, t: torch.Tensor) -> list:
+    def slot_range(self, i: int, m: int) -> tuple[int, int]:
+        """Tile i's contiguous share [lo, hi) of m slots: chunks of
+        ceil(m / n), the last one short or empty (the JAX package pads it
+        and trims the gathered result, rectdetect_tpu/ops/chain.py:53-63;
+        a slice needs no pad)."""
+        chunk = -(-m // self.n_tiles)
+        lo = min(i * chunk, m)
+        return lo, min(lo + chunk, m)
+
+    def _reduce(self, xs: list, op) -> list:
+        total = xs[0]
+        for x in xs[1:]:
+            total = op(total, x.to(total.device))
+        return self.broadcast(total)
+
+    def broadcast(self, t: torch.Tensor) -> list:
+        """t on every tile's device.  Tiles on one device get one and the
+        same tensor, so whoever receives it must treat it as read-only."""
         copies = {}
         out = []
         for dev in self.devices:

@@ -22,12 +22,22 @@ holding one tensor per tile:
     each root to its component's frame minimum;
   * per-component tables (strength sums, sizes) are scatter-adds over
     frame labels, summed over the tiles (integer adds: exact);
-  * the geometry tail runs once, on the first tile's device, on the
-    gathered strong-edge and boundary maps (pipeline/rect.py:
-    rect_geometry_tail); the JAX package runs it replicated on every
-    tile, with the same result.  Its arc walk is not sharded by slot
-    range (chain._doubling_rows in the JAX package): one card gains
-    nothing from it.
+  * the geometry tail takes the gathered strong-edge and boundary maps
+    (pipeline/rect.py:rect_geometry_tail) on the first tile's device.
+    Over n > 1 tiles two parts of its polyline stage run by slot range
+    over the tiles, as the JAX package runs them under shard_map: the arc
+    walk's doubling rounds (ops/chain.py: each tile merges its range of
+    the state table, an all_gather rebuilds it) and the subdivision
+    (ops/mkpl.py and, on CUDA tiles, the slot-range form of kernel #14 in
+    ops/hopper_mkpl.py: each tile reduces the chord distances of its
+    range into per-segment keys, group.pmax/pmin combine them, the split
+    pass runs on every tile's copy of the arena, and the tiles' labels
+    are gathered).  The rest stays on the first tile's device: K3's
+    poly_branch strings, the cycle re-walk, the arc grouping, mkpl_init,
+    refine, the hypotheses with distinct_bids and hyp (#15), the quad
+    reduction and the pose.  The JAX package runs that rest replicated on
+    every tile, with the same result.  A one-tile group runs the
+    unsharded tail.
 
 `despeckle2_tiled`, `mark_boundary_tiled` and the summed tables are plain
 PyTorch on either device, as the JAX package leaves them to XLA.
@@ -543,6 +553,11 @@ def mark_boundary_tiled(group: TileGroup, glabel_tiles: list) -> list:
     return out
 
 
+def _shards(group: TileGroup):
+    """The group the polyline stage shards over: None for one tile."""
+    return group if group.n_tiles > 1 else None
+
+
 def rect_tail_maps_tiled(group: TileGroup, packed_tiles: list,
                          edge_thin_tiles: list, edge_bin_tiles: list,
                          cfg: PipelineConfig = DEFAULT_CONFIG) -> dict:
@@ -575,15 +590,16 @@ def rect_tail_tiled(group: TileGroup, packed_tiles: list,
                     tan_aov: float, cfg: PipelineConfig = DEFAULT_CONFIG):
     """The rect tail with every stage before the geometry on width tiles
     (pipeline/rect.py's dense, exact-label tail); the polyline, hypothesis
-    and pose tail runs once on the gathered strong-edge and boundary maps,
-    on the first tile's device.  Returns a RectResult."""
+    and pose tail runs on the gathered strong-edge and boundary maps, on
+    the first tile's device, its arc walk and subdivision by slot range
+    over the tiles.  Returns a RectResult."""
     from rectdetect_tpu_torch.pipeline.rect import rect_geometry_tail
 
     maps = rect_tail_maps_tiled(group, packed_tiles, edge_thin_tiles,
                                 edge_bin_tiles, cfg)
     sb = group.all_gather([(x > 0).to(_I32) for x in maps["strong"]], 1)
     bd = group.all_gather(maps["boundary"], 1)
-    return rect_geometry_tail(sb[0], bd[0], tan_aov, cfg)
+    return rect_geometry_tail(sb[0], bd[0], tan_aov, cfg, _shards(group))
 
 
 def rect_step_tiled(group: TileGroup, frame_tiles: list, tan_aov: float,
@@ -593,7 +609,8 @@ def rect_step_tiled(group: TileGroup, frame_tiles: list, tan_aov: float,
     group.devices[i] (`group.split(frame)`).  Every stage up to the
     boundary labels runs on the tiles (halo-exchanged stencils, the
     cross-tile CCLs, summed component tables); the geometry tail runs on
-    the gathered maps.  Returns the frame's RectResult on the first tile's
+    the gathered maps, its arc walk and subdivision by slot range over the
+    tiles.  Returns the frame's RectResult on the first tile's
     device."""
     et, eb = edge_frontend_tiled(group, frame_tiles, halo, cfg)
     return rect_tail_tiled(group, packed_tiled(frame_tiles, cfg), et, eb,
@@ -605,8 +622,9 @@ def poly_step_tiled(group: TileGroup, frame_tiles: list,
                     minerror: float = 1.0, size_thre: int = 20,
                     strength: int = 2000, halo: int = 16):
     """The poly pipeline with the front-end and the edge labeling on width
-    tiles; the polyline stage runs once on the gathered filtered edge map,
-    on the first tile's device.  Returns (SegmentArena, lsid)."""
+    tiles; the polyline stage runs on the gathered filtered edge map, on
+    the first tile's device, its arc walk and subdivision by slot range
+    over the tiles.  Returns (SegmentArena, lsid)."""
     from rectdetect_tpu_torch.ops.polyline import polyline_execute
 
     et, eb = edge_frontend_tiled(group, frame_tiles, halo, cfg)
@@ -616,7 +634,7 @@ def poly_step_tiled(group: TileGroup, frame_tiles: list,
     ef = group.all_gather([(x > 0).to(_I32) for x in filtered], 1)[0]
     ih, iw = ef.shape
     return polyline_execute(ef, minerror, size_thre, cfg.ls_cap_for(iw, ih),
-                            cfg)
+                            cfg, group=_shards(group))
 
 
 def rect_step_tiled_gather(group: TileGroup, frame_tiles: list,

@@ -49,6 +49,9 @@ SIGNATURES = {
     "rd_strings_chain": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "rd_label_components": (_P, _P, _I, _I, _I, _P),
     "rd_mkpl": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "rd_mkpl_setup": (_P,) * 8 + (_I,) * 9 + (_P,),
+    "rd_mkpl_keys": (_P,) * 8 + (_I,) * 9 + (_P,),
+    "rd_mkpl_splits": (_P,) * 8 + (_I,) * 9 + (_P,),
     "rd_seg_scan": (_P, _P, _P, _P, _I, _I, _I, _P),
     "rd_seg_total": (_P, _P, _P, _P, _I, _I, _P),
     "rd_blblur": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

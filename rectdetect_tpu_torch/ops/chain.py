@@ -15,6 +15,14 @@ Port choices (equal output, see config.py): every doubling round runs over
 the full state table (no tail sub-lists), and the cycle re-walk always
 runs (the `cyc_pin=2` semantics), so no round waits on a device-to-host
 branch decision.
+
+With a TileGroup (the width-tiled path, dist/tile.py), pass A's doubling
+rounds run by state range over the tiles, as the JAX package's
+`_doubling_rows` runs them under shard_map: each tile gathers the rows of
+its range from its copy of the packed (2S, 6) state table and merges them,
+and an all_gather rebuilds the table on every tile.  Integer work on
+identical tables: the result equals the unsharded walk bit for bit.  The
+cycle re-walk stays whole, on the first tile's device.
 """
 
 from __future__ import annotations
@@ -68,10 +76,35 @@ def set_drop(dst: torch.Tensor, tgt: torch.Tensor, val: torch.Tensor):
     return ext[:-1]
 
 
+def _doublings_by_range(group, state, rounds: int, n: int):
+    """`rounds` doubling rounds of the pass-A state (dist, ptr, minv, term,
+    end, minv2) by state range over `group`'s tiles.  The tables each tile
+    receives are shared with the tiles on its device and only read; every
+    round's rows are new tensors.  Returns the state on the first tile's
+    device."""
+    m = state[0].shape[0]
+    tabs = group.broadcast(torch.stack(state, dim=1))
+    for _ in range(rounds):
+        pieces = []
+        for i, tab in enumerate(tabs):
+            lo, hi = group.slot_range(i, m)
+            own = tab[lo:hi]
+            rows = tab[own[:, 1].long()]
+            minv, minv2 = _merge2(own[:, 2], own[:, 5], rows[:, 2],
+                                  rows[:, 5], n)
+            pieces.append(torch.stack([own[:, 0] + rows[:, 0], rows[:, 1],
+                                       minv, rows[:, 3], rows[:, 4], minv2],
+                                      dim=1))
+        tabs = group.all_gather(pieces, 0)
+    return tabs[0].unbind(1)
+
+
 def arc_chain_sparse(strings: torch.Tensor, comp, n_doublings: int,
-                     cyc_cap: int):
+                     cyc_cap: int, group=None):
     """Arc numbering over the slots of `comp` (a Compaction of the strings
-    foreground).  Returns (number_s, head_s, live, cyc, chainlen_s,
+    foreground); with `group` (a dist.mesh.TileGroup whose first tile holds
+    the inputs) pass A's doublings run by state range over its tiles.
+    Returns (number_s, head_s, live, cyc, chainlen_s,
     arcmin_s), each (S,):
       number_s   arc index from the head (0 at heads, cycle roots, bg)
       head_s     flat index of the chain head
@@ -115,13 +148,17 @@ def arc_chain_sparse(strings: torch.Tensor, comp, n_doublings: int,
     term = absorb0.to(i32)[ptr.long()]
     end = p_rep[ptr.long()]
 
-    for _ in range(n_doublings):
-        pt = ptr.long()
-        r_dist, r_ptr, r_minv = dist[pt], ptr[pt], minv[pt]
-        r_term, r_end, r_minv2 = term[pt], end[pt], minv2[pt]
-        dist = dist + r_dist
-        minv, minv2 = _merge2(minv, minv2, r_minv, r_minv2, n)
-        term, end, ptr = r_term, r_end, r_ptr
+    if group is not None:
+        dist, ptr, minv, term, end, minv2 = _doublings_by_range(
+            group, (dist, ptr, minv, term, end, minv2), n_doublings, n)
+    else:
+        for _ in range(n_doublings):
+            pt = ptr.long()
+            r_dist, r_ptr, r_minv = dist[pt], ptr[pt], minv[pt]
+            r_term, r_end, r_minv2 = term[pt], end[pt], minv2[pt]
+            dist = dist + r_dist
+            minv, minv2 = _merge2(minv, minv2, r_minv, r_minv2, n)
+            term, end, ptr = r_term, r_end, r_ptr
 
     absorbed = term != 0
     e0, d0, a0 = end[:S], dist[:S], absorbed[:S]

@@ -18,7 +18,7 @@ same bits on the GPU too.
 
 Port choices (equal output, see config.py): no small-capacity branches
 (`strings_small_factor`, `arc_small_factor`), no small-component pre-kill
-(`walk_prefilter_factor`).  `mkpl_pallas` selects the subdivision: 1 (the
+(`walk_prefilter_factor`; the JAX package skips it when sharded too).  `mkpl_pallas` selects the subdivision: 1 (the
 default) goes through kernel #14 (ops/hopper_mkpl.py), which launches the
 CUDA kernel for a CUDA frame and runs the plain form (ops/mkpl.py) for a
 CPU one; 0 runs the plain form on either device.  The JAX package's size
@@ -191,16 +191,19 @@ def refine(arena: SegmentArena, label, comp: Compaction) -> SegmentArena:
 
 def polyline_execute(edge_binary, minerror: float, size_thre: int, cap: int,
                      cfg: PipelineConfig = DEFAULT_CONFIG,
-                     return_comp: bool = False):
+                     return_comp: bool = False, group=None):
     """Binary edge image (H,W) int32 -> (SegmentArena, lsid (H,W) int32),
     and with return_comp also the arc Compaction, which covers every
-    lsid > 0 pixel (the hypotheses' pair table gathers through it)."""
+    lsid > 0 pixel (the hypotheses' pair table gathers through it).
+    group: a dist.mesh.TileGroup whose first tile holds the image; the arc
+    walk's doublings and the subdivision then run by slot range over its
+    tiles (the JAX package's axis_name), with the same result."""
     arena, dense, number, comp_arc = mkpl_inputs(edge_binary, size_thre, cap,
-                                                 cfg)
+                                                 cfg, group)
     subdivide = (hopper_mkpl.mkpl_subdivide if cfg.mkpl_pallas
                  else mkpl.mkpl_subdivide)
     arena, lsid = subdivide(arena, dense, number, minerror, cfg.mkpl_iters,
-                            comp_arc)
+                            comp_arc, group)
     arena = refine(arena, lsid, comp_arc)
     if return_comp:
         return arena, lsid, comp_arc
@@ -208,12 +211,12 @@ def polyline_execute(edge_binary, minerror: float, size_thre: int, cap: int,
 
 
 def mkpl_inputs(edge_binary, size_thre: int, cap: int,
-                cfg: PipelineConfig = DEFAULT_CONFIG):
+                cfg: PipelineConfig = DEFAULT_CONFIG, group=None):
     """Everything before the subdivision: strings morphology (K3
     "poly_branch", with its bridge2 stage under bridge_gap2), the arc walk
-    and grouping, the one-segment-per-arc arena.  Returns (arena, dense
-    arc-id image, number image, arc Compaction), the subdivision's
-    inputs."""
+    (its doublings by slot range over `group`'s tiles, if given) and
+    grouping, the one-segment-per-arc arena.  Returns (arena, dense arc-id
+    image, number image, arc Compaction), the subdivision's inputs."""
     if not cfg.sparse_factor:
         raise NotImplementedError("the port runs the slot-space polyline "
                                   "tail only (sparse_factor > 0)")
@@ -224,7 +227,8 @@ def mkpl_inputs(edge_binary, size_thre: int, cap: int,
 
     comp0 = compact_mask((strings != 0).reshape(-1), sp)
     cyc_cap = max(1024, n // cfg.cycle_sparse_factor)
-    walk = arc_chain_sparse(strings, comp0, cfg.number_doublings, cyc_cap)
+    walk = arc_chain_sparse(strings, comp0, cfg.number_doublings, cyc_cap,
+                            group)
     sp_arc = max(4096, n // cfg.arc_sparse_factor)
     dense_a, number_a, comp_arc = _arc_group(walk, comp0, size_thre, sp_arc,
                                              n)

@@ -325,8 +325,8 @@ def rect_tail(packed0: torch.Tensor, edge_thin: torch.Tensor,
 
 
 def rect_geometry_tail(strong_bin: torch.Tensor, boundary: torch.Tensor,
-                       tan_aov: float,
-                       cfg: PipelineConfig = DEFAULT_CONFIG) -> RectResult:
+                       tan_aov: float, cfg: PipelineConfig = DEFAULT_CONFIG,
+                       group=None) -> RectResult:
     """Polylines, hypotheses and pose from the whole frame's strong-edge map
     (int32 0/1) and boundary labels (oclrect.c:361-381 + executeCPUTask;
     rectdetect_tpu/pipeline/rect.py:rect_geometry_tail), for the width-tiled
@@ -335,11 +335,14 @@ def rect_geometry_tail(strong_bin: torch.Tensor, boundary: torch.Tensor,
     package's dense branch (densify_labels) numbers them: through a
     compaction of every boundary pixel, which holds the frame, so nothing
     is dropped (rect_frame's boundary_labels drops the pixels past its
-    capacity; the two agree below it)."""
+    capacity; the two agree below it).  group: the tiled path's
+    TileGroup, whose first tile holds both maps; the polylines' arc walk
+    and subdivision run by slot range over its tiles (polyline_execute),
+    the rest on the first tile's device."""
     ih, iw = strong_bin.shape
     arena, lsid, comp = polyline_execute(
         strong_bin, cfg.minerror_rect, cfg.size_thre_rect,
-        cfg.ls_cap_for(iw, ih), cfg, return_comp=True)
+        cfg.ls_cap_for(iw, ih), cfg, return_comp=True, group=group)
     bcomp = compact_mask((boundary != -1).reshape(-1), ih * iw)
     segs, valid, status = hypotheses(arena, lsid, boundary, iw, ih, cfg,
                                      comp, bcomp)

@@ -56,8 +56,12 @@ quant_despeckle, merge_mask, the links CCL, despeckle2) at b = 3 on
 37x53 and 144x200 frames bit-equal to three b = 1 calls and to their
 plain versions, b = 0 and 65536 and an offset with b > 1 refused, and
 rect_frames at B = 3 launching 20 + 12 B kernels, every frame bit-equal
-to rect_frame; launches are read from the kernel library's own counter
-(`_build.launch_count`).
+to rect_frame; the slot-range form of mkpl over 1-4 parts of one card
+bit-equal to one rd_mkpl launch and to the plain form by slot range (an
+overflowing arena too), and rect_step_tiled and poly_step_tiled over 4
+tiles bit-equal to rect_frame and poly_frame with the plain subdivision
+barred from the card; launches are read from the kernel library's own
+counter (`_build.launch_count`).
 """
 
 import math
@@ -1327,6 +1331,83 @@ def test_rect_step_tiled_on_one_card_equals_rect_frame():
     for f in got._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert int(want.valid.sum()) > 0
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 4])
+@pytest.mark.parametrize("cap", [4096, 180])
+def test_mkpl_slot_range_form_matches_one_launch_and_plain(cap, parts):
+    """The slot-range entry points of #14 over 1-4 parts on one card: arena
+    and lsid bit-equal to one rd_mkpl launch and to the plain form by slot
+    range, at 0, 1 and 15 rounds, the arena overflowing at cap 180;
+    kernels(parts, iters) launches by the library's counter; the inputs
+    unchanged."""
+    from rectdetect_tpu_torch.dist.mesh import TileGroup
+    _need_card()
+    g = TileGroup(["cuda:0"] * parts)
+    arena, dense, number, comp = polyline.mkpl_inputs(
+        _polylines().cuda(), 4, cap, PipelineConfig())
+    before = [t.clone() for t in (*arena, dense, number, comp.idx)]
+    for iters in (1, 2, 16):
+        one = hopper_mkpl.mkpl_subdivide(arena, dense, number, 1.0, iters,
+                                         comp)
+        plain = mkpl.mkpl_subdivide(arena, dense, number, 1.0, iters, comp, g)
+        n0 = _build.launch_count()
+        got = hopper_mkpl.mkpl_subdivide(arena, dense, number, 1.0, iters,
+                                         comp, g)
+        torch.cuda.synchronize()
+        assert _build.launch_count() - n0 == hopper_mkpl.kernels(parts, iters)
+        for other in (one, plain):
+            assert torch.equal(got[1], other[1]), iters
+            for f in arena._fields:
+                assert torch.equal(getattr(got[0], f),
+                                   getattr(other[0], f)), (iters, f)
+    if cap < 4096:
+        assert int(got[0].count) == cap - 1
+    for a, b in zip(before, (*arena, dense, number, comp.idx)):
+        assert torch.equal(a, b)
+
+
+def _no_plain_on_card(monkeypatch):
+    """ops/mkpl.py:mkpl_subdivide raises when handed CUDA tensors."""
+    plain = mkpl.mkpl_subdivide
+
+    def guard(arena, label, *args, **kw):
+        if label.is_cuda:
+            raise AssertionError("the plain subdivision ran on the card")
+        return plain(arena, label, *args, **kw)
+
+    monkeypatch.setattr(mkpl, "mkpl_subdivide", guard)
+
+
+def test_tiled_paths_run_the_slot_range_kernels_not_the_plain_form(
+        monkeypatch):
+    """rect_step_tiled and poly_step_tiled over 4 tiles of one card with
+    the plain subdivision barred from the card: bit-equal to rect_frame
+    and poly_frame, the slot-range form launched kernels(4, mkpl_iters)
+    times a frame."""
+    from rectdetect_tpu_torch.dist import tile as dtile
+    from rectdetect_tpu_torch.dist.mesh import TileGroup
+    _need_card()
+    _no_plain_on_card(monkeypatch)
+    cfg = PipelineConfig()
+    bgr = _scene(96, 256).cuda()
+    g = TileGroup(["cuda:0"] * 4)
+    per_frame = hopper_mkpl.kernels(4, cfg.mkpl_iters)
+    hopper_mkpl.launches = 0
+    got = _count_kernels(lambda: dtile.rect_step_tiled(g, g.split(bgr),
+                                                       TAN_AOV, cfg=cfg))
+    assert hopper_mkpl.launches == per_frame
+    want = rect_frame(bgr, TAN_AOV, cfg)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    hopper_mkpl.launches = 0
+    ga, gl = _count_kernels(lambda: dtile.poly_step_tiled(g, g.split(bgr),
+                                                          cfg))
+    assert hopper_mkpl.launches == per_frame
+    pa, pl = poly_frame(bgr, cfg)
+    assert torch.equal(gl, pl) and int(pa.count) > 1
+    for f in pa._fields:
+        assert torch.equal(getattr(ga, f), getattr(pa, f)), f
 
 
 # kernels a rect_frames call launches once for its whole stack: K1, K2,

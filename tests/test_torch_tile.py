@@ -29,6 +29,7 @@ within 0.02 and the 3D corners within 0.05.  Arenas: integer fields and
 lsid equal, endpoints within 1e-4.
 """
 
+import functools
 import json
 import math
 import os
@@ -208,10 +209,41 @@ def test_tile_group_collectives():
     got = g.fetch_from(xs, -2)
     assert torch.equal(got[0], xs[2]) and got[1] is None and got[2] is None
     assert all(torch.equal(s, xs[0] + xs[1] + xs[2]) for s in g.psum(xs))
+    top = torch.maximum(torch.maximum(xs[0], xs[1]), xs[2])
+    low = torch.minimum(torch.minimum(xs[0], xs[1]), xs[2])
+    assert all(torch.equal(s, top) for s in g.pmax(xs))
+    assert all(torch.equal(s, low) for s in g.pmin(xs))
     assert all(torch.equal(a, torch.arange(30).reshape(2, 15))
                for a in g.all_gather(xs, 1))
     with pytest.raises(ValueError, match="not divisible"):
         g.split(torch.zeros(2, 16))
+
+
+@pytest.mark.parametrize("op", ["pmax", "pmin", "slot_range"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_tile_group_collectives_by_tile_count(n, op):
+    """pmax/pmin of int64 keys on every tile, and the slot ranges: chunks
+    of ceil(m / n) covering [0, m) in tile order, the last ones short or
+    empty, as the JAX package's padded slices trimmed of the pad."""
+    g = _cpu(n)
+    if op == "slot_range":
+        for m in (0, 1, 5, 7, 12, 4097):
+            chunk = -(-m // n)
+            got = [g.slot_range(i, m) for i in range(n)]
+            assert [lo for lo, _ in got] == [min(i * chunk, m)
+                                             for i in range(n)]
+            assert got[0][0] == 0 and got[-1][1] == m
+            assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+            padded = np.arange(n * chunk).reshape(n, chunk)
+            for (lo, hi), row in zip(got, padded):
+                assert list(range(lo, hi)) == [v for v in row if v < m]
+        return
+    r = np.random.default_rng(n)
+    xs = [torch.from_numpy(r.integers(-2**40, 2**40, 9)) for _ in range(n)]
+    want = functools.reduce(torch.maximum if op == "pmax" else torch.minimum,
+                            xs)
+    got = getattr(g, op)(xs)
+    assert len(got) == n and all(torch.equal(t, want) for t in got)
 
 
 @pytest.mark.parametrize("halo", [1, 4, 7, 12])

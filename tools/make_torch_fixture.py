@@ -92,6 +92,13 @@ stacks, the four 48x64 frames of streams.npz and two 144x200 frames,
 into tests/data/batch_tail.npz (make_batch_tail, about a minute):
 
     JAX_PLATFORMS=cpu python tools/make_torch_fixture.py batch_tail
+
+`tile_walk`: the polyline stage's arc walk and subdivision by slot range
+under shard_map (axis_name="tile") over 2, 3 and 4 of 4 forced host
+devices, on three strings maps, into tests/data/tile_walk.npz
+(make_tile_walk):
+
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py tile_walk
 """
 
 from __future__ import annotations
@@ -128,11 +135,12 @@ def main(argv=None) -> int:
               "photos": make_photos, "gaps": make_gaps,
               "extended": make_extended, "photos_ext": make_photos_ext,
               "tiles": make_tiles, "streams": make_streams,
-              "batch_tail": make_batch_tail}
+              "batch_tail": make_batch_tail, "tile_walk": make_tile_walk}
     which = argv[1:2] or list(makers)
     if which[0] not in makers:
         sys.exit(f"unknown fixture {which[0]!r}: one of {sorted(makers)}")
-    forced = {"tiles": TILE_DEVICES, "streams": STREAM_DEVICES}
+    forced = {"tiles": TILE_DEVICES, "streams": STREAM_DEVICES,
+              "tile_walk": TILE_DEVICES}
     if which[0] in forced:
         # the sharded paths' shard_map needs this many devices; XLA reads
         # the flag when JAX starts
@@ -159,7 +167,8 @@ FIXTURES = {"poly": "poly_720p_synth.npz",
             "photos_ext": "photo_corpus_ext.npz",
             "tiles": "tiles.npz",
             "streams": "streams.npz",
-            "batch_tail": "batch_tail.npz"}
+            "batch_tail": "batch_tail.npz",
+            "tile_walk": "tile_walk.npz"}
 
 
 def make_poly(out: str) -> None:
@@ -1783,6 +1792,199 @@ def make_batch_tail(out: str) -> None:
     meta["counts"] = {k: int((v > 0).sum()) for k, v in data.items()
                       if k.endswith(("strings", "strings_bridge2", "weak",
                                      "strong", "mask"))}
+    data["meta"] = np.asarray(json.dumps(meta))
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez_compressed(out, **data)
+    print(f"{out}: {os.path.getsize(out)} bytes; {json.dumps(meta)}")
+
+
+# the sharded polyline stage's cases: (name, height, width); "t4" is the
+# tiled fixture's t4 frame, "snake" a boustrophedon whose one chain is
+# longer than any tile's range of walk states (and fits the slot list), "rings" closed rings and
+# open strokes, so that the cycle re-walk and the cycle roots matter
+WALK_CASES = (("t4", 48, 128), ("snake", 64, 160), ("rings", 64, 96))
+WALK_TILES = (2, 3, 4)
+# the subdivision's slot list: the arc slots at a capacity just above
+# their count, so that every tile's slot range holds live slots and the
+# last range is short for 3 and 4 tiles
+WALK_SLACK = 5
+
+
+def _snake_path(h: int, w: int) -> np.ndarray:
+    """A boustrophedon that is one simple path: rows 3 apart, each end
+    joined to the next row's by two pixels in the column beyond it, so that
+    every pixel but the two ends has exactly two 8-neighbours."""
+    pix = np.zeros((h, w), np.int32)
+    rows = list(range(2, h - 3, 3))
+    for r_, y in enumerate(rows):
+        pix[y, 5:w - 5] = 1
+        if r_ + 1 < len(rows):
+            pix[y + 1:y + 3, w - 5 if r_ % 2 == 0 else 4] = 1
+    return pix
+
+
+def _rings(h: int, w: int) -> np.ndarray:
+    """Closed rings (rectangle outlines, a diamond) and open strokes."""
+    pix = np.zeros((h, w), np.int32)
+    for y0, x0, y1, x1 in ((4, 4, 20, 30), (8, 40, 40, 70), (30, 6, 56, 24),
+                           (46, 50, 58, 88)):
+        pix[y0, x0:x1 + 1] = pix[y1, x0:x1 + 1] = 1
+        pix[y0:y1 + 1, x0] = pix[y0:y1 + 1, x1] = 1
+    cy, cx, r = 24, 84, 8
+    for k in range(-r, r + 1):
+        pix[cy + k, cx + (r - abs(k))] = pix[cy + k, cx - (r - abs(k))] = 1
+    pix[60, 2:40] = 1
+    for k in range(20):
+        pix[42 + k // 2, 30 + k] = 1
+    return pix
+
+
+def make_tile_walk(out: str) -> None:
+    """The JAX package's arc walk (chain.arc_chain_sparse) and XLA
+    subdivision (polyline.mkpl_subdivide with comp) with
+    axis_name="tile" under shard_map over WALK_TILES of TILE_DEVICES
+    forced host devices, jitted, into tests/data/tile_walk.npz:
+      * <case>/strings: strings_chain(..., "poly_branch") of the t4
+        frame's edge_bin, of _snake and of _rings;
+      * <case>/walk/<tiles>/<field>: the walk's six outputs over the
+        strings' compaction (cap max(4096, H*W // strings_sparse_factor),
+        default number_doublings, cyc_cap and the cycle re-walk always
+        run);
+      * <case>/mkpl_in/*: the subdivision's inputs as the sparse polyline
+        tail makes them from the unsharded walk (arc size filter
+        size_thre 20, dense relabel), over a compaction of the arc slots
+        at their count + WALK_SLACK: the dense and number images, the
+        slot list and the mkpl_init arena at the frame's ls_cap_for;
+      * <case>/mkpl/<tiles>/<field>, lsid: the arena and lsid after
+        mkpl_iters rounds at minerror 1.0; for t4 also at an arena cap of
+        count + 3 (`mkpl_ovf`), which overflows;
+      * meta."""
+    import functools
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from bench import synth_frame
+    from rectdetect_tpu.config import PipelineConfig
+    from rectdetect_tpu.dist import mesh as dmesh
+    from rectdetect_tpu.ops import chain, morphology, polyline
+    from rectdetect_tpu.ops.compact import compact_mask, compact_subset
+    from rectdetect_tpu.pipeline.frontend import edge_frontend
+
+    if len(jax.devices()) < TILE_DEVICES:
+        sys.exit(f"needs {TILE_DEVICES} host devices, JAX has "
+                 f"{len(jax.devices())}: run `tile_walk` in a process of "
+                 "its own")
+    cfg = PipelineConfig()
+    size_thre, minerror = 20, 1.0
+    fields = ("number_s", "head_s", "live", "cyc", "chainlen_s", "arcmin_s")
+    data, meta = {}, {"config": "PipelineConfig()", "jax": jax.__version__,
+                      "devices": TILE_DEVICES, "tiles": list(WALK_TILES),
+                      "size_thre": size_thre, "minerror": minerror,
+                      "cases": {}}
+    for name, h, w in WALK_CASES:
+        n = h * w
+        if name == "t4":
+            fe = jax.jit(lambda b: edge_frontend(b, cfg))(
+                jnp.asarray(synth_frame(h, w, seed=7)))
+            src = fe.edge_bin
+        else:
+            src = jnp.asarray(_snake_path(h, w) if name == "snake"
+                              else _rings(h, w))
+        strings = np.asarray(jax.jit(lambda e: morphology.strings_chain(
+            e, "poly_branch"))(src))
+        data[f"{name}/strings"] = strings
+        sp = max(4096, n // cfg.strings_sparse_factor)
+        cyc_cap = max(1024, n // cfg.cycle_sparse_factor)
+
+        def walk(s, axis_name=None):
+            comp = compact_mask((s != 0).reshape(-1), sp)
+            return chain.arc_chain_sparse(s, comp, cfg.number_doublings,
+                                          cyc_cap, axis_name, cyc_pin=2)
+
+        whole = [np.asarray(x) for x in jax.jit(walk)(jnp.asarray(strings))]
+        for nt in WALK_TILES:
+            m = dmesh.make_mesh(1, nt)
+            got = jax.jit(shard_map(functools.partial(walk, axis_name="tile"),
+                                    mesh=m, in_specs=P(), out_specs=P(),
+                                    check_vma=False))(jnp.asarray(strings))
+            for f, v, v1 in zip(fields, got, whole):
+                v = np.asarray(v)
+                assert (v == v1).all(), (name, nt, f)
+                data[f"{name}/walk/{nt}/{f}"] = v
+
+        # the subdivision's inputs from the unsharded walk
+        number_w, _, live_w, cyc_w, chainlen_w, arcmin_w = whole
+        comp0 = compact_mask(jnp.asarray(strings != 0).reshape(-1), sp)
+        Sw = comp0.cap
+        p_w = np.clip(np.asarray(comp0.idx), 0, n - 1)
+        slot_of = np.asarray(comp0.slot_of)
+        keep = live_w & (number_w > 0) & (chainlen_w > size_thre)
+        root_slot = slot_of[np.clip(arcmin_w, 0, n)]
+        keep &= root_slot < Sw
+        rank = np.cumsum(keep & (p_w == arcmin_w))
+        dense_w = np.where(keep, rank[np.clip(root_slot, 0, Sw - 1)], 0)
+        n_arc = int((dense_w > 0).sum())
+        cap_m = n_arc + WALK_SLACK
+        comp_m = compact_subset(comp0, jnp.asarray(dense_w > 0), cap_m)
+        tgt = np.where(dense_w > 0, p_w, n)
+        dense = np.zeros(n + 1, np.int32)
+        number = np.zeros(n + 1, np.int32)
+        dense[tgt] = dense_w
+        number[tgt] = number_w
+        dense = jnp.asarray(dense[:n].reshape(h, w))
+        number = jnp.asarray(number[:n].reshape(h, w))
+        ls_cap = cfg.ls_cap_for(w, h)
+        arena0 = jax.jit(lambda d, nb, c: polyline.mkpl_init(
+            d, nb, ls_cap, c))(dense, number, comp_m)
+        count0 = int(arena0.count)
+        data[f"{name}/mkpl_in/dense"] = np.asarray(dense)
+        data[f"{name}/mkpl_in/number"] = np.asarray(number)
+        data[f"{name}/mkpl_in/idx"] = np.asarray(comp_m.idx)
+        for k, v in arena0._asdict().items():
+            data[f"{name}/mkpl_in/{k}"] = np.asarray(v)
+        caps = {"mkpl": ls_cap}
+        if name == "t4":
+            caps["mkpl_ovf"] = count0 + 3
+        rec = {"frame": ("bench.synth_frame(48, 128, seed=7) edge_bin"
+                         if name == "t4" else
+                         f"{'_snake_path' if name == 'snake' else '_rings'}"
+                         f"({h}, {w})"),
+               "strings_cap": sp, "cyc_cap": cyc_cap,
+               "cycle_slots": int(cyc_w.sum()),
+               "walk_states_per_tile": {nt: -(-2 * sp // nt)
+                                        for nt in WALK_TILES},
+               "longest_chain": int(chainlen_w.max()),
+               "arc_slots": n_arc, "mkpl_slots": cap_m, "count0": count0,
+               "caps": caps}
+        for key, cap in caps.items():
+            a_in = arena0
+            if cap != ls_cap:
+                a_in = type(arena0)(**{
+                    k: (v if k == "count" else v[:cap])
+                    for k, v in arena0._asdict().items()})
+
+            def sub(a, d, nb, c, axis_name=None):
+                return polyline.mkpl_subdivide(a, d, nb, minerror,
+                                               cfg.mkpl_iters, c, axis_name)
+
+            a1, l1 = jax.jit(sub)(a_in, dense, number, comp_m)
+            for nt in WALK_TILES:
+                m = dmesh.make_mesh(1, nt)
+                a2, l2 = jax.jit(shard_map(
+                    functools.partial(sub, axis_name="tile"), mesh=m,
+                    in_specs=P(), out_specs=P(), check_vma=False))(
+                        a_in, dense, number, comp_m)
+                assert (np.asarray(l2) == np.asarray(l1)).all(), (name, nt)
+                for k, v in a2._asdict().items():
+                    data[f"{name}/{key}/{nt}/{k}"] = np.asarray(v)
+                data[f"{name}/{key}/{nt}/lsid"] = np.asarray(l2)
+            rec[f"{key}_count"] = int(a1.count)
+            rec[f"{key}_overflows"] = bool(int(a1.count) >= cap - 1)
+        meta["cases"][name] = rec
     data["meta"] = np.asarray(json.dumps(meta))
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez_compressed(out, **data)
