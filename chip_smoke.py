@@ -142,7 +142,26 @@ the final line):
      rect_frame) and the default worker loop's frames/s over 2 streams
      beside direct calls; `python -m rectdetect_tpu_torch.dist.multihost_sim
      2 1 720x1280 cuda` (two ranks on the card over gloo, both parity
-     lines, its own time limit); dryrun_multichip over 2 x 2 entries.
+     lines, its own time limit); dryrun_multichip over 2 x 2 entries;
+ 10. the native host runtime (runtime/native.py, no kernel): the host
+     libraries built from nothing with g++ (-O3 -march=native) into a
+     directory of their own, timed, and the `pkg-config --exists
+     opencv4` probe, which decides whether librectrt_video.so (the C++
+     frame pump) builds and so FramePump's backend ("cv2" where the
+     machine has only the cv2 wheel); the library's plan forms against
+     the plain ones on phase 6's plan and on a synthetic one; the host
+     packed Lab of all 2^24 colours against core/color.py's packing on
+     the card (each field within 1, at most 0.1% of colours differing;
+     one thread bit-equal to all); at 720p the host's ms (median of 10)
+     against the card's bgr_to_labf+pack_lab (CUDA events), beside the
+     card's name and power limit and the host's CPU and cores; the frame
+     pump on a lossless .avi (FFV1, else HFYU or png) of 6 random frames,
+     every frame equal to the source in order, and in realtime mode a
+     strictly increasing run ending with the last frame.  The H100's
+     machine (PR 19: NVIDIA H100 80GB HBM3, 700.00 W) has only the cv2
+     wheel, so it builds librectrt_core.so alone (2.24 s) and runs the
+     cv2 pump; 2336 colours differ there, host 11.036 ms against the
+     card's 1.6585 ms at 720p.
 The second-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -156,6 +175,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -214,6 +234,14 @@ MKPL_BYTES_PER_SEGMENT = 60
 # twice as many) and the multi-process simulation's time limit in seconds
 STREAM_BATCH = 4
 SIM_TIMEOUT = 300
+# phase 10: the share of the 2^24 colours on which the host packing may
+# differ from core/color.py's on the card (each field by at most 1), the
+# lossless codecs tried in turn for the pump's file, its frames and the
+# longest wait of a pump call
+PACK_DIFFER_SHARE = 1e-3
+LOSSLESS_CODECS = ("FFV1", "HFYU", "png ")
+PUMP_FRAMES = 6
+PUMP_TIMEOUT_MS = 5000
 
 
 def fail(msg: str):
@@ -574,7 +602,8 @@ def cuda_timed(torch, fn):
 
 def photo_corpus(torch, dev, card, cfg0, drive, counters,
                  fixture="photo_corpus.npz", label="phase 6",
-                 kernels=RECT_FRAME_KERNELS, absent=(), dense_kernels=True):
+                 kernels=RECT_FRAME_KERNELS, absent=(), dense_kernels=True,
+                 plan_out=None):
     """Phase 6, the photographs (phase 7 from EXTENDED_CONFIG, against
     photo_corpus_ext.npz): each photo of docs/photo_corpus calibrated on
     itself from cfg0 (a temporary plan), plan_fits, then rect_frame at
@@ -586,7 +615,9 @@ def photo_corpus(torch, dev, card, cfg0, drive, counters,
     launched by neither).  With dense_kernels,
     on the photo with the most boundary components, distinct_bids, mkpl
     and hyp are held bit-equal to their plain versions at its calibrated
-    capacities.  Returns the rows, one a photo."""
+    capacities.  With plan_out, the plan the photos wrote is copied
+    there.  Returns the rows, one a photo."""
+    import shutil
     import tempfile
 
     from rectdetect_tpu_torch import parity
@@ -670,6 +701,8 @@ def photo_corpus(torch, dev, card, cfg0, drive, counters,
             if cfg.max_groups > 192 and (
                     dense_photo is None or dens["groups"] > dense_photo[2]):
                 dense_photo = (name, bgr, dens["groups"], cfg)
+        if plan_out is not None:
+            shutil.copy(plan, plan_out)
     phase(f"{label} photos: {sum(r['matched'] for r in rows)} corner sets "
           f"matched of {sum(r['corner_sets_ref'] for r in rows)}; "
           f"calibrate median {statistics.median(r['calibrate_ms'] for r in rows):.3f} ms, "
@@ -2074,6 +2107,175 @@ def streams(torch, dev, card, drive, counters, record, records):
     return out
 
 
+def host_model() -> str:
+    """The host CPU's `model name` line (as /proc/cpuinfo gives it, which
+    may be "unknown") and its core count."""
+    model = "no model name line"
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    model = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return f"{model}, {os.cpu_count()} cores"
+
+
+def write_lossless(path, frames):
+    """Write frames to an .avi with the first of LOSSLESS_CODECS this cv2
+    can write; returns that codec."""
+    import cv2
+    h, w = frames[0].shape[:2]
+    for codec in LOSSLESS_CODECS:
+        wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*codec), 10.0,
+                             (w, h), True)
+        if wr.isOpened():
+            for f in frames:
+                wr.write(f)
+            wr.release()
+            return codec
+        wr.release()
+    fail(f"this cv2 writes none of {LOSSLESS_CODECS}")
+
+
+def pump_frames(native, path, sleep_s=0.0, **kw):
+    """Every frame a FramePump over path returns, and its backend."""
+    pump = native.FramePump(path, **kw)
+    time.sleep(sleep_s)
+    got = []
+    for _ in range(4 * PUMP_FRAMES):
+        f = pump.next(timeout_ms=PUMP_TIMEOUT_MS)
+        if f is None:
+            break
+        got.append(f)
+    pump.close()
+    return got, pump.backend
+
+
+def host_runtime(torch, dev, card, phase6_plan):
+    """Phase 10, the native host runtime (runtime/native.py): a timed
+    build of the host libraries from nothing and the opencv4 probe; the
+    library's plan forms against the plain ones on phase 6's plan and a
+    synthetic one; the host packed Lab of all 2^24 colours against
+    core/color.py's packing on the card, and at 720p host ms against the
+    card's; the frame pump on a lossless file, in order and in realtime
+    mode."""
+    from pathlib import Path
+
+    from bench import synth_frame
+    from rectdetect_tpu_torch.core import color
+    from rectdetect_tpu_torch.runtime import native
+
+    out = {"host": host_model()}
+    rt = native.load()
+    out["first_use_build_s"] = rt.build_seconds
+    with tempfile.TemporaryDirectory() as td:
+        keep = native.BUILD_ROOT
+        native.BUILD_ROOT = Path(td)
+        try:
+            core, video, probe, seconds = native.build()
+        finally:
+            native.BUILD_ROOT = keep
+    out.update(build_s=seconds, opencv4=probe,
+               video_library=video is not None,
+               pump_backend="native" if rt.video is not None else "cv2")
+    phase(f"phase 10 host build: the host libraries from nothing in "
+          f"{seconds:.2f} s (g++ {' '.join(native.CXX_FLAGS)}); "
+          f"pkg-config --exists opencv4: {probe}, so librectrt_video.so "
+          f"{'built' if video else 'not built'} and FramePump's backend is "
+          f"{out['pump_backend']}; first use in this run compiled for "
+          f"{rt.build_seconds:.2f} s; host {out['host']}")
+    if probe != (video is not None) or probe != rt.opencv4:
+        fail("the video library does not follow the opencv4 probe")
+
+    # the plan file: phase 6's, and a synthetic one written by either form
+    with open(phase6_plan) as f:
+        names = [ln.rstrip("\n")[1:-1] for ln in f if ln.startswith("[")]
+    plan_ok = bool(names) and all(
+        native.plan_load(phase6_plan, n) == native.plan_load_plain(
+            phase6_plan, n) != {} for n in names)
+    sections = {"NVIDIA H100 80GB HBM3|720x1280": {"zeta": "1", "alpha": "2"},
+                "cpu|144x192": {"sparse_factor": "7", "max_groups": "320"}}
+    with tempfile.TemporaryDirectory() as td:
+        for save in (native.plan_save, native.plan_save_plain):
+            p = os.path.join(td, f"{save.__name__}.txt")
+            for n, e in sections.items():
+                save(p, n, e)
+            save(p, "cpu|144x192", {"max_groups": "256"})
+            want = dict(sections, **{"cpu|144x192": {"max_groups": "256"}})
+            plan_ok &= all(native.plan_load(p, n) == e
+                           and native.plan_load_plain(p, n) == e
+                           for n, e in want.items())
+            plan_ok &= native.plan_load(p, "cpu|1x1") == {}
+    out["plan"] = {"phase6_sections": len(names), "forms_agree": plan_ok}
+    phase(f"phase 10 plan file: {json.dumps(out['plan'])}")
+    if not plan_ok:
+        fail("the library's plan forms differ from the plain ones")
+
+    # packed Lab of every colour, host against the card
+    allc = np.ascontiguousarray(np.arange(1 << 24, dtype="<u4").view(
+        np.uint8).reshape(4096, 4096, 4)[..., :3])
+    host = native.bgr_to_packedlab_host(allc)
+    threads_equal = bool(np.array_equal(
+        native.bgr_to_packedlab_host(allc, n_threads=1), host))
+    gpu = color.pack_lab(color.bgr_to_labf(
+        torch.from_numpy(allc).to(dev))).cpu().numpy()
+    field = max(int(np.abs(((host >> s) & m) - ((gpu >> s) & m)).max())
+                for s, m in ((0, 4095), (12, 1023), (22, 1023)))
+    differ = int((host != gpu).sum())
+    out["packed_lab"] = {"colours": 1 << 24, "differ": differ,
+                         "max_field_diff": field,
+                         "threads_1_equal_all": threads_equal}
+    phase(f"phase 10 packed Lab, host against core/color.py on the card: "
+          f"{json.dumps(out['packed_lab'])}")
+    if field > 1 or differ > PACK_DIFFER_SHARE * (1 << 24) or \
+            not threads_equal:
+        fail("the host packed Lab is off the card's by more than its "
+             "tolerance, or depends on the thread count")
+
+    # 720p: host ms (median of 10) against the card's (CUDA events)
+    frame = synth_frame(H, W, seed=0)
+    native.bgr_to_packedlab_host(frame)
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        native.bgr_to_packedlab_host(frame)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    x = torch.from_numpy(frame).to(dev)
+    card_ms = cuda_ms(torch, lambda: color.pack_lab(color.bgr_to_labf(x)), 10)
+    out["ms_720p"] = {"host": statistics.median(walls), "card": card_ms}
+    phase(f"phase 10 packed Lab at 720p: host {out['ms_720p']['host']:.3f} ms "
+          f"(median of 10, all threads; {out['host']}) against the card's "
+          f"bgr_to_labf+pack_lab {card_ms:.4f} ms (CUDA events, median of "
+          f"10); card {card}")
+
+    # the frame pump on a lossless file
+    r = np.random.default_rng(0)
+    src = [r.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+           for _ in range(PUMP_FRAMES)]
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "pump.avi")
+        codec = write_lossless(path, src)
+        got, backend = pump_frames(native, path)
+        in_order = len(got) == len(src) and all(
+            np.array_equal(g, s) for g, s in zip(got, src))
+        late, _ = pump_frames(native, path, sleep_s=0.2, ring=2,
+                              realtime=True)
+    idx = [next((i for i, s in enumerate(src) if np.array_equal(g, s)), -1)
+           for g in late]
+    run_ok = (bool(idx) and idx[-1] == len(src) - 1
+              and all(a < b for a, b in zip(idx, idx[1:])))
+    out["pump"] = {"codec": codec, "backend": backend,
+                   "lossless_frames": len(got), "in_order_equal": in_order,
+                   "realtime_frames": idx}
+    phase(f"phase 10 frame pump on a {codec!r} .avi of {len(src)} frames: "
+          f"{json.dumps(out['pump'])}")
+    if backend != out["pump_backend"] or not in_order or not run_ok:
+        fail("the frame pump lost, reordered or changed a frame")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3028,7 +3230,10 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; card {card}")
 
     # ---- 6. photographs, video, stage images ----------------------------
-    rows_default = photo_corpus(torch, dev, card, cfg, drive, counters)
+    host_dir = tempfile.TemporaryDirectory()
+    phase6_plan = os.path.join(host_dir.name, "plan_torch.txt")
+    rows_default = photo_corpus(torch, dev, card, cfg, drive, counters,
+                                plan_out=phase6_plan)
     video(torch, dev, card, cfg, drive, counters)
     stage_images(torch, bgr, cfg)
 
@@ -3041,6 +3246,10 @@ def main() -> int:
 
     # ---- 9. the stream axis ---------------------------------------------
     streams(torch, dev, card, drive, counters, record, records)
+
+    # ---- 10. the native host runtime -------------------------------------
+    host_runtime(torch, dev, card, phase6_plan)
+    host_dir.cleanup()
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ imports neither jax nor rectdetect_tpu.
 
 Ported so far: the poly path (pipeline.poly.poly_frame), the rect path
 (pipeline.rect.rect_frame), the capacity calibration and its plan file
-(runtime/), the stage dumps (utils/debug.py), the video detectors
-(pipeline/video.py) and the apps.
+(runtime/), the native host runtime (runtime/native.py over
+csrc/host/, built with g++), the stage dumps (utils/debug.py), the video
+detectors (pipeline/video.py) and the apps.
 """

@@ -62,9 +62,9 @@ def save_image_bgr(path: str, bgr: np.ndarray) -> None:
 
 # ---- video IO (cv2) ----------------------------------------------------
 
-def open_capture(spec: str | None):
+def video_capture(spec: str | None):
     """cv2.VideoCapture of a file path, of `cam:<id>,<w>,<h>`, or of camera
-    0 (vidrect.cpp:64-89)."""
+    0 (vidrect.cpp:64-89), opened or not."""
     import cv2
     if spec is None:
         cap = cv2.VideoCapture(0)
@@ -77,6 +77,12 @@ def open_capture(spec: str | None):
             cap.set(cv2.CAP_PROP_FRAME_HEIGHT, h)
     else:
         cap = cv2.VideoCapture(spec)
+    return cap
+
+
+def open_capture(spec: str | None):
+    """video_capture(spec), exiting with a message if it did not open."""
+    cap = video_capture(spec)
     if not cap.isOpened():
         sys.exit(f"Cannot open {spec!r}")
     return cap

@@ -34,7 +34,7 @@ def main(argv=None) -> int:
     from rectdetect_tpu_torch.runtime.native import FramePump
     pump = FramePump(argv[2] if len(argv) >= 3 else None)
     iw, ih = pump.width, pump.height
-    print(f"Resolution : {iw} x {ih}")
+    print(f"Resolution : {iw} x {ih} (frame pump: {pump.backend})")
 
     writer = None
     winname = "Polyline Demo"

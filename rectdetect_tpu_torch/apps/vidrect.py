@@ -86,7 +86,7 @@ def main(argv=None) -> int:
     from rectdetect_tpu_torch.runtime.native import FramePump
     pump = FramePump(argv[2] if len(argv) >= 3 else None)
     iw, ih = pump.width, pump.height
-    print(f"Resolution : {iw} x {ih}")
+    print(f"Resolution : {iw} x {ih} (frame pump: {pump.backend})")
 
     aov = float(argv[4]) if len(argv) >= 5 else 90.0   # vidrect.cpp:112-116
     print(f"Horizontal angle of view : {aov:g} degrees")
@@ -250,7 +250,8 @@ def _run_streams(path, writer, winname, dev, tan_aov, cfg, n_streams,
         else visible_devices()
     pumps = [FramePump(path) for _ in range(n_streams)]
     sup = StreamSupervisor(tan_aov, cfg=cfg, devices=devices)
-    print(f"{n_streams} streams over {len(sup.healthy_devices)} devices")
+    print(f"{n_streams} streams over {len(sup.healthy_devices)} devices "
+          f"(frame pumps: {pumps[0].backend})")
     done, going = 0, True
     while going:
         frames = [p.next(timeout_ms=5000) for p in pumps]

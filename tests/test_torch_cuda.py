@@ -1702,3 +1702,21 @@ def test_rect_frames_runs_the_dense_tail_once_per_stack():
     for i, w in enumerate(want):
         for f in w._fields:
             assert torch.equal(getattr(res, f)[i], getattr(w, f)), (f, i)
+
+
+def test_host_packed_lab_against_the_card_packing():
+    """The native host packing (runtime/native.py, built with g++) against
+    core/color.py's packing on the card, on 2^20 random colours: each
+    field within 1, at most 0.1% of colours differing."""
+    from rectdetect_tpu_torch.core import color
+    from rectdetect_tpu_torch.runtime import native
+    _need_card()
+    bgr = np.random.default_rng(5).integers(0, 256, (1024, 1024, 3),
+                                            dtype=np.uint8)
+    host = native.bgr_to_packedlab_host(bgr)
+    card = color.pack_lab(color.bgr_to_labf(
+        torch.from_numpy(bgr).cuda())).cpu().numpy()
+    for shift, mask in ((0, 4095), (12, 1023), (22, 1023)):
+        assert np.abs(((host >> shift) & mask) -
+                      ((card >> shift) & mask)).max() <= 1
+    assert (host != card).mean() <= 1e-3
