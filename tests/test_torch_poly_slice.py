@@ -146,7 +146,7 @@ def test_port_imports_no_jax():
         "assert not bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "BAD []" in res.stdout
 
@@ -179,7 +179,7 @@ def test_cli_poly_on_png(tmp_path):
     res = subprocess.run([sys.executable, "-m",
                           "rectdetect_tpu_torch.apps.poly", "scene.png",
                           "cpu"], cwd=str(tmp_path), env=env,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "segments -> output.png" in res.stdout
     out = common.load_image_bgr(str(tmp_path / "output.png"))
@@ -193,7 +193,7 @@ def test_cli_refuses_missing_cuda_device(tmp_path):
     res = subprocess.run([sys.executable, "-m",
                           "rectdetect_tpu_torch.apps.poly", "s.png", "0"],
                          cwd=str(tmp_path), env=env, capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=120)
     assert res.returncode != 0
     assert not (tmp_path / "output.png").exists()
 

@@ -283,7 +283,7 @@ def test_cli_rect_on_png(tmp_path):
     res = subprocess.run([sys.executable, "-m",
                           "rectdetect_tpu_torch.apps.rect", "scene.png",
                           "cpu", "out.png"], cwd=str(tmp_path), env=env,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n = int(fx["valid"].sum())
     assert f"{n} rectangles -> out.png" in res.stdout

@@ -357,7 +357,7 @@ def test_multihost_sim_two_ranks_over_gloo():
     out = subprocess.run(
         [sys.executable, "-m", "rectdetect_tpu_torch.dist.multihost_sim",
          "2", "1", "48x64", "cpu", "1"], cwd=ROOT, capture_output=True,
-        text=True, timeout=300)
+        text=True, timeout=120)
     sys.stdout.write(out.stdout[-2000:])
     sys.stderr.write(out.stderr[-2000:])
     assert out.returncode == 0
